@@ -23,6 +23,8 @@ def pytest_configure(config):
     # `pytest` still runs everything — the tier-1 verify command is unchanged.
     config.addinivalue_line(
         "markers", "slow: hypothesis-heavy property suites (separate CI job)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (PyTorch port kernels); skips without one")
 
 
 @pytest.fixture(scope="session")
