@@ -3,7 +3,9 @@
 Counterpart of ``repro/configs/base.py``, holding only the fields the
 port's ``generate`` path reads (the JAX module imports JAX, so the port
 keeps its own copy). Field names and defaults match the JAX config, so a
-test can hold each shared field against it.
+test can hold each shared field against it. The options of other
+architectures (softcaps, sliding windows, local/global layers, families
+other than dense) come with the slice that ports a config using them.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "dense" is ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,10 +26,6 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
-    attn_logit_softcap: float = 0.0
-    final_logit_softcap: float = 0.0
-    sliding_window: int = 0
-    local_global_period: int = 0  # alternate local/global attention every k
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0

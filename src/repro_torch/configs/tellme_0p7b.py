@@ -11,7 +11,6 @@ from .base import ModelConfig, register
 def full() -> ModelConfig:
     return ModelConfig(
         name="tellme-0.7b",
-        family="dense",
         n_layers=24,
         d_model=1536,
         n_heads=16,
@@ -26,7 +25,6 @@ def full() -> ModelConfig:
 def smoke() -> ModelConfig:
     return ModelConfig(
         name="tellme-0.7b-smoke",
-        family="dense",
         n_layers=2,
         d_model=64,
         n_heads=4,

@@ -12,12 +12,12 @@ from . import ref
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
-                     softcap: float = 0.0, scale: float | None = None):
+                     softcap: float = 0.0):
     """q [B, H, D]; k/v cache [B, HK, M, D] in q's dtype; pos [B] int32
     (attend to positions <= pos[b]) -> [B, H, D]."""
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, pos, window=window,
-                                    softcap=softcap, scale=scale)
+                                    softcap=softcap)
     name = "decode_attention"
     B.require_cuda(name, q=q, k_cache=k_cache, v_cache=v_cache, pos=pos)
     B.require_dtype(name, pos, torch.int32, "pos")
@@ -30,12 +30,11 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, "
                          f"pos {tuple(pos.shape)} do not fit")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     B.check(B.library().tm_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), b * hk, hk, h // hk, m, d, int(window), float(softcap),
-        float(scale), B.dtype_code(q.dtype), B.stream(q.device)), name)
+        1.0 / math.sqrt(d), B.dtype_code(q.dtype), B.stream(q.device)), name)
     decode_attention.launches += 1
     return out
 

@@ -18,14 +18,14 @@ NEG_INF = -1e30
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
-                     softcap: float = 0.0, scale: float | None = None):
+                     softcap: float = 0.0):
     """q [B, H, D]; k/v cache [B, HK, M, D]; pos [B] int -> [B, H, D]."""
     b, h, d = q.shape
     hk, m = k_cache.shape[1], k_cache.shape[2]
     g = h // hk
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qg = q.reshape(b, hk, g, d).to(torch.float32)
-    s = torch.matmul(qg, k_cache.to(torch.float32).transpose(-1, -2)) * scale
+    kf = k_cache.to(torch.float32)
+    s = torch.matmul(qg, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     kpos = torch.arange(m, device=q.device)[None, :]

@@ -18,22 +18,16 @@ import torch
 NEG_INF = -1e30
 
 
-def prefill_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                      scale: float | None = None) -> torch.Tensor:
+def prefill_attention(q, k, v) -> torch.Tensor:
     """q [B, H, S, D], k/v [B, HK, S, D] -> [B, H, S, D] (GQA grouped)."""
     b, h, s, d = q.shape
     hk = k.shape[1]
     g = h // hk
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qg = q.reshape(b, hk, g, s, d).to(torch.float32)
     kf = k.to(torch.float32)[:, :, None]
-    sc = torch.matmul(qg, kf.transpose(-1, -2)) * scale  # [B, HK, G, S, S]
-    if softcap > 0:
-        sc = softcap * torch.tanh(sc / softcap)
+    sc = torch.matmul(qg, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B, HK, G, S, S]
     idx = torch.arange(s, device=q.device)
     mask = idx[:, None] >= idx[None, :]
-    if window > 0:
-        mask &= (idx[:, None] - idx[None, :]) < window
     sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
@@ -42,11 +36,9 @@ def prefill_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     return o.to(q.dtype).reshape(b, h, s, d)
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, kernels, window: int = 0,
-                     softcap: float = 0.0, scale: float | None = None):
+def decode_attention(q, k_cache, v_cache, pos, *, kernels):
     """q [B, H, D] against k/v cache [B, HK, M, D], attending to <= pos[b]."""
-    return kernels.decode_attention(q, k_cache, v_cache, pos, window=window,
-                                    softcap=softcap, scale=scale)
+    return kernels.decode_attention(q, k_cache, v_cache, pos)
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos) -> None:

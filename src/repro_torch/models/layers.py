@@ -58,11 +58,8 @@ def lm_head_spec(dim: int, vocab: int) -> dict:
     return bitlinear.dense_spec(dim, vocab)
 
 
-def lm_head(params: dict, x: torch.Tensor, *, softcap: float = 0.0) -> torch.Tensor:
-    logits = bitlinear.dense_apply(params, x, out_dtype=torch.float32)
-    if softcap > 0:
-        logits = softcap * torch.tanh(logits / softcap)
-    return logits
+def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return bitlinear.dense_apply(params, x, out_dtype=torch.float32)
 
 
 def mlp_spec(dim: int, hidden: int) -> dict:

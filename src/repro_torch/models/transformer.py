@@ -2,7 +2,8 @@
 (``repro/models/transformer.py``, dense family, fused attn+dense branch).
 
 Parameters keep the JAX tree and layouts: the layer stack lives in
-``params["blocks"]["b{i}"]`` with a leading ``[L]`` axis on every leaf, and
+``params["blocks"]["b0"]`` with a leading ``[L]`` axis on every leaf (the
+JAX tree's one-layer period: every layer of this family is the same), and
 the KV caches are ``[L, B, HK, M, D]``. The JAX package scans over the
 stacked layers; here a Python loop walks them. Every block runs the
 int8-resident pipeline of ``transformer.py:422-447``: norm-quant prologue,
@@ -21,28 +22,6 @@ from ..core import bitlinear
 from ..core.params import ParamSpec
 from . import attention as attn_ops
 from . import layers as L
-
-
-@dataclasses.dataclass(frozen=True)
-class LayerKind:
-    """An attention + dense-MLP layer; ``local`` marks sliding-window
-    attention (gemma2's local layers)."""
-
-    local: bool = False
-
-
-def block_plan(cfg) -> tuple[list[LayerKind], int]:
-    """(period kinds, n_periods) for the dense family."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"only the dense family is ported, not {cfg.family!r}")
-    if cfg.local_global_period:
-        period = [LayerKind(local=(i % cfg.local_global_period == 0))
-                  for i in range(cfg.local_global_period)]
-    else:
-        period = [LayerKind()]
-    if cfg.n_layers % len(period):
-        raise ValueError(f"{cfg.n_layers} layers do not tile a period of {len(period)}")
-    return period, cfg.n_layers // len(period)
 
 
 def _attn_spec(cfg) -> dict:
@@ -71,11 +50,9 @@ def _stack(tree, n: int):
 
 
 def param_specs(cfg) -> dict:
-    period, n_periods = block_plan(cfg)
     return {
         "embed": L.embedding_spec(cfg.padded_vocab, cfg.d_model),
-        "blocks": {f"b{i}": _stack(_layer_spec(cfg), n_periods)
-                   for i in range(len(period))},
+        "blocks": {"b0": _stack(_layer_spec(cfg), cfg.n_layers)},
         "final_norm": L.rmsnorm_spec(cfg.d_model),
         "lm_head": L.lm_head_spec(cfg.d_model, cfg.padded_vocab),
     }
@@ -109,13 +86,12 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
-def _apply_attn(bp, x, xq, cfg, kind, rope, *, kernels, cache=None, pos=None):
+def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None):
     """Attention sub-block on the int8 row ``xq``; returns (x + attn(x),
     (k, v) of this call). ``cache`` is this layer's ``(k_cache, v_cache)``
     for a decode step, updated in place; None for prefill."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    window = cfg.sliding_window if kind.local else 0
 
     def proj(name, heads):
         y = bitlinear.apply(bp[name], xq, kernels=kernels, out_dtype=x.dtype)
@@ -126,24 +102,22 @@ def _apply_attn(bp, x, xq, cfg, kind, rope, *, kernels, cache=None, pos=None):
     k = L.apply_rope_tables(proj("k", hk), rope_h)
     v = proj("v", hk)
     if cache is None:
-        out = attn_ops.prefill_attention(q, k, v, window=window,
-                                         softcap=cfg.attn_logit_softcap)
+        out = attn_ops.prefill_attention(q, k, v)
     else:
         k_cache, v_cache = cache
         attn_ops.update_kv_cache(k_cache, v_cache, k[:, :, 0], v[:, :, 0], pos)
-        out = attn_ops.decode_attention(
-            q[:, :, 0], k_cache, v_cache, pos, kernels=kernels, window=window,
-            softcap=cfg.attn_logit_softcap)[:, :, None]
+        out = attn_ops.decode_attention(q[:, :, 0], k_cache, v_cache, pos,
+                                        kernels=kernels)[:, :, None]
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     x = bitlinear.apply(bp["o"], out, kernels=kernels, out_dtype=x.dtype, residual=x)
     return x, (k, v)
 
 
-def apply_block(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, pos=None):
+def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None):
     """The fused attn+dense block (``transformer.py:422-447``). Returns
     (x, (k, v)) with the rotated K/V of this call."""
     hq = L.norm_quant(bp["ln1"], x, kernels=kernels, eps=cfg.norm_eps)
-    x, kv = _apply_attn(bp["attn"], x, hq, cfg, kind, rope, kernels=kernels,
+    x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope, kernels=kernels,
                         cache=cache, pos=pos)
     h2q = L.norm_quant(bp["ln2"], x, kernels=kernels, eps=cfg.norm_eps)
     x = L.mlp_fused(bp["ffn"], h2q, kernels=kernels, out_dtype=x.dtype, residual=x)
@@ -155,34 +129,26 @@ def rope_for(cfg, positions):
     return {"attn": L.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)}
 
 
-def layer_schedule(cfg):
-    """(period index, layer index within the stack, kind) in model order."""
-    period, n_periods = block_plan(cfg)
-    for li in range(n_periods):
-        for pi, kind in enumerate(period):
-            yield pi, li, kind
-
-
 def _head(params, x, cfg):
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    return L.lm_head(params["lm_head"], x, softcap=cfg.final_logit_softcap)
+    return L.lm_head(params["lm_head"], x)
 
 
 def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool = False):
     """Full-sequence pass over ``tokens [B, S]``. Returns (logits [B, S, V]
-    f32, caches | None) with caches ``{"blocks": {"b{i}": {"k", "v"}}}`` of
+    f32, caches | None) with caches ``{"blocks": {"b0": {"k", "v"}}}`` of
     shape [L, B, HK, S, D]."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     rope = rope_for(cfg, positions)["attn"]
     caches = cache_zeros(cfg, b, s, x.device) if collect_cache else None
-    for pi, li, kind in layer_schedule(cfg):
-        bp = layer_slice(params["blocks"][f"b{pi}"], li)
-        x, (k, v) = apply_block(kind, bp, x, cfg, rope, kernels=kernels)
+    for li in range(cfg.n_layers):
+        bp = layer_slice(params["blocks"]["b0"], li)
+        x, (k, v) = apply_block(bp, x, cfg, rope, kernels=kernels)
         if collect_cache:
-            caches["blocks"][f"b{pi}"]["k"][li] = k
-            caches["blocks"][f"b{pi}"]["v"][li] = v
+            caches["blocks"]["b0"]["k"][li] = k
+            caches["blocks"]["b0"]["v"][li] = v
     return _head(params, x, cfg), caches
 
 
@@ -192,26 +158,23 @@ def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *,
     and returns (logits [B, V], caches)."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     rope = rope_for(cfg, pos[:, None])["attn"]
-    for pi, li, kind in layer_schedule(cfg):
-        bp = layer_slice(params["blocks"][f"b{pi}"], li)
-        c = caches["blocks"][f"b{pi}"]
-        x, _ = apply_block(kind, bp, x, cfg, rope, kernels=kernels,
+    c = caches["blocks"]["b0"]
+    for li in range(cfg.n_layers):
+        bp = layer_slice(params["blocks"]["b0"], li)
+        x, _ = apply_block(bp, x, cfg, rope, kernels=kernels,
                            cache=(c["k"][li], c["v"][li]), pos=pos)
     return _head(params, x, cfg)[:, 0], caches
 
 
-def cache_specs(cfg, batch: int, seq: int, dtype=None) -> dict:
-    """Shape and dtype of every cache leaf: ``{"blocks": {"b{i}": {"k":
+def cache_specs(cfg, batch: int, seq: int) -> dict:
+    """Shape and dtype of every cache leaf: ``{"blocks": {"b0": {"k":
     (shape, dtype), "v": ...}}}`` with shape [L, B, HK, seq, D]."""
-    period, n_periods = block_plan(cfg)
-    dtype = dtype or cfg.dtype
-    shape = (n_periods, batch, cfg.n_kv_heads, seq, cfg.head_dim)
-    return {"blocks": {f"b{i}": {"k": (shape, dtype), "v": (shape, dtype)}
-                       for i in range(len(period))}}
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.head_dim)
+    return {"blocks": {"b0": {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}}}
 
 
-def cache_zeros(cfg, batch: int, seq: int, device, dtype=None) -> dict:
-    specs = cache_specs(cfg, batch, seq, dtype)
+def cache_zeros(cfg, batch: int, seq: int, device) -> dict:
+    specs = cache_specs(cfg, batch, seq)
     return {"blocks": {b: {n: torch.zeros(shape, dtype=dt, device=device)
                            for n, (shape, dt) in leaves.items()}
                        for b, leaves in specs["blocks"].items()}}

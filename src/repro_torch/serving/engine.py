@@ -27,9 +27,9 @@ def bucket_length(s: int, sizes=(64, 128, 256)) -> int:
     return C.round_up(s, sizes[-1])
 
 
-def init_caches(cfg, batch: int, max_len: int, dtype=None, *, device=None) -> dict:
+def init_caches(cfg, batch: int, max_len: int, *, device=None) -> dict:
     """Zeroed cache tree ([L, B, HK, max_len, D] leaves)."""
-    return Tr.cache_zeros(cfg, batch, max_len, C.resolve_device(device), dtype)
+    return Tr.cache_zeros(cfg, batch, max_len, C.resolve_device(device))
 
 
 def fit_caches(caches, cfg, max_len: int) -> dict:
@@ -46,20 +46,15 @@ def fit_caches(caches, cfg, max_len: int) -> dict:
                        for b, leaves in caches["blocks"].items()}}
 
 
-def prefill_bucketed(params, cfg, prompts: torch.Tensor, *, lengths=None,
-                     kernels=KERNELS):
+def prefill_bucketed(params, cfg, prompts: torch.Tensor, *, kernels=KERNELS):
     """Prefill ``prompts [B, S]`` padded (with token 0) to the chunk-size
     bucket; pad tokens sit past every row's causal frontier. Returns
-    (logits at each row's last real token [B, V], caches of the bucket's
+    (logits at the last prompt token [B, V], caches of the bucket's
     length)."""
-    b, s = prompts.shape
-    bucket = bucket_length(s, tuple(cfg.prefill_chunk_sizes) or (64, 128, 256))
-    padded = C.pad_to(prompts, 1, bucket)
+    s = prompts.shape[1]
+    padded = C.pad_to(prompts, 1, bucket_length(s, cfg.prefill_chunk_sizes))
     logits, caches = Tr.forward(params, padded, cfg, kernels=kernels, collect_cache=True)
-    if lengths is None:
-        lengths = torch.full((b,), s, dtype=torch.int64, device=prompts.device)
-    last = logits[torch.arange(b, device=prompts.device), lengths.to(torch.int64) - 1]
-    return last, caches
+    return logits[:, s - 1], caches
 
 
 @dataclasses.dataclass

@@ -8,7 +8,8 @@ on the card's machine:
 
 Bars as in test_torch_kernels.py: ternary projections exact; norm-quant and
 SwiGLU codes within 1 and scales within one ulp of the activation dtype;
-decode attention within 1e-5 (f32) or 2e-2 (bf16).
+decode attention within 1e-5 (f32) or 4e-3 (bf16, atol = rtol: two bf16
+ulps at |out| <= 0.5).
 """
 
 import dataclasses
@@ -34,7 +35,7 @@ pytestmark = pytest.mark.gpu
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANT_RTOL = {"float32": 5e-7, "bfloat16": 4.1e-3}
-ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 
 
 @pytest.fixture

@@ -11,8 +11,9 @@ Bars:
   (f32) or one bf16 ulp (4.1e-3) — the row sums, rsqrt and sigmoid run in
   another order or implementation, as in tests/test_fusion.py;
 * decode attention: atol = rtol = 1e-5 in f32 (the kernel rescales its
-  online softmax block by block); 2e-2 in bf16 (probabilities are rounded
-  to bf16 against a different running maximum).
+  online softmax block by block); 4e-3 in bf16, two bf16 ulps at
+  |out| <= 0.5 (probabilities are rounded to bf16 against a different
+  running maximum).
 """
 
 import jax.numpy as jnp
@@ -38,7 +39,7 @@ from repro_torch.kernels.ternary_matmul import ref as tm_ref
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANT_RTOL = {"float32": 5e-7, "bfloat16": 4.1e-3}
-ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 
 
 def _t(a, dtype=None):

@@ -97,7 +97,6 @@ def test_prologue_codes_per_layer():
     rope_j = jT.rope_for(jcfg, positions)
     rope_t = TT.rope_for(tcfg, torch.tensor(np.asarray(positions)))["attn"]
     kind_j = jT.block_plan(jcfg)[1][0]
-    kind_t = TT.block_plan(tcfg)[0][0]
     for layer in range(jcfg.n_layers):
         bj = jax.tree.map(lambda a: a[layer], jp["blocks"]["b0"])
         bt = TT.layer_slice(tp["blocks"]["b0"], layer)
@@ -107,8 +106,7 @@ def test_prologue_codes_per_layer():
         assert np.abs(hq_t[0].numpy().astype(int) - np.asarray(hq_j[0]).astype(int)).max() <= 1
         mid_j, _ = jT._apply_attn(bj["attn"], x, jcfg, kind_j, positions, mode="packed",
                                   rope=rope_j["attn"], xq=hq_j, residual=x)
-        mid_t, _ = TT._apply_attn(bt["attn"], xt, hq_t, tcfg, kind_t, rope_t,
-                                  kernels=KERNELS)
+        mid_t, _ = TT._apply_attn(bt["attn"], xt, hq_t, tcfg, rope_t, kernels=KERNELS)
         np.testing.assert_allclose(mid_t.numpy(), np.asarray(mid_j), atol=1e-4, rtol=0)
         h2_j = jL.norm_quant(bj["ln2"], mid_j)
         h2_t = L.norm_quant(bt["ln2"], mid_t, kernels=KERNELS)
