@@ -1,17 +1,24 @@
 """On-card check of the PyTorch/CUDA port: builds the CUDA kernels, holds
 each against its plain PyTorch version at tellme-0.7b's real shapes, times
-them, then drives greedy ``generate`` for tellme-0.7b at full width.
+them, then drives greedy ``generate`` and the chunked continuous-batching
+``ServingEngine`` for tellme-0.7b at full width.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
-  build     nvcc builds the four kernel sources (timed).
-  kernels   the five kernel entry points vs their plain versions at the
-            decode (B = 4) and prefill (B*bucket = 512 rows) shapes, with
-            kernel, plain, library and bound times.
+  build     nvcc builds the five kernel sources (timed).
+  kernels   the eight kernel entry points vs their plain versions: the
+            generate path's at the decode (B = 4) and prefill (B*bucket =
+            512 rows) shapes; int8 decode attention at the engine's decode
+            shape (8 slots, cache 1280 rows); prefill-append, bf16 and int8
+            cache, at the engine's tick shape (8 slots, C = 256, live slots
+            at offsets 0 and 512, six write-only slots) and at one slot with
+            C = 128 at offset 768. Kernel, plain, library and bound times.
   smoke     the smoke config in f32 on the card (kernels) against the same
             weights on the CPU (plain versions): equal greedy streams.
+  engine_smoke  the same for the ServingEngine, both cache dtypes: equal
+            per-request streams and statuses.
   generate  full-width tellme-0.7b (24 layers, random weights from seed 0),
             B = 4, prompt 100 (bucket 128), 64 greedy steps, once through
             the kernels (launch counters reset just before, read just after)
@@ -20,6 +27,18 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             bar at each, argmax equal at the first), the per-layer drift
             between the two prefills, and torch.profiler over three
             decode steps (device time by kernel, busy share).
+  engine    full-width ServingEngine, slots = 8, max_len = 1024, 16 requests
+            (prompts of 16-900 tokens, 32 new tokens each), for each cache
+            dtype through the kernels (counters reset just before, read just
+            after) and through the plain versions: every request OK with 32
+            tokens, one host transfer per tick, 24 attention launches per
+            tick that runs them; tick times, tokens/s, time to first token,
+            cache bytes, stream agreement with the plain run.
+  chunk_step  one full-width prefill_chunk_step per cache dtype from shared
+            caches (4 slots, chunk 128 at offset 256 after a 256-chunk):
+            last-row logits of kernels vs plain versions to a bar, and the
+            kernels' argmax a plain argmax (equal, or one of two exactly
+            tied plain logits).
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -49,6 +68,14 @@ SMOKE_LOGIT_TOL = 1e-3  # f32 smoke prefill logits, card vs CPU
 
 STEPS = 64  # greedy steps of the full-width run
 DECODE_CHECK_STEPS = 8  # decode steps held against the plain versions from shared caches
+
+# The kernels that generate runs (bf16 cache)
+GENERATE_PATH = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
+                 "decode_attention")
+
+# The full-width engine run (and the kernel shapes taken from its ticks)
+ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_REQUESTS, ENGINE_NEW = 8, 1024, 16, 32
+ENGINE_PROMPT_RANGE = (16, 900)  # prompt lengths, uniform, numpy default_rng(0)
 
 
 def emit(obj) -> None:
@@ -317,9 +344,192 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
                  "bound_ms": bms, "bound_by": bby,
                  "library_ms": time_ms(torch, lambda qq, kk, vv, mm: sdpa(qq, kk, vv, attn_mask=mm),
                                        lib_sets)})
+    rows.append(decode_int8_row(torch, cfg, randn, int8, checks))
+    pa_rows = prefill_append_rows(torch, cfg, randn, int8, checks)
+    rows += [r for r in pa_rows if r["shape_tag"] == "tick"]
+    report["prefill_append_shapes"] = pa_rows
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
     return rows
+
+
+def _sdpa_masked(torch, q, k, v, mask):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def decode_int8_row(torch, cfg, randn, int8, checks) -> dict:
+    """Decode attention over an int8 cache at the engine's decode shape: 8
+    slots against cache_len = 1024 + 256 rows, two of them diverted to the
+    last row as in a fused tick."""
+    from repro_torch.core.ternary import dequantize_kv
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+
+    dev = torch.device("cuda")
+    b, h, hk, hd = ENGINE_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m = ENGINE_MAX_LEN + 256
+    q = randn(b, h, hd, dtype=torch.bfloat16)
+    k, v = int8(b, hk, m, hd), int8(b, hk, m, hd)
+    ks, vs = (randn(b, hk, m).abs() * 4e-3 + 1e-3 for _ in range(2))
+    pos = torch.tensor([m - 1, 700, 512, 900, 300, m - 1, 1000, 100], dtype=torch.int32,
+                       device=dev)
+    err = None
+    for dtype, tol in ((torch.bfloat16, ATTN_TOL_BF16), (torch.float32, ATTN_TOL_F32)):
+        args = (q.to(dtype), k, v, pos)
+        got = da_ops.decode_attention(*args, k_scale=ks, v_scale=vs).float()
+        want = da_ref.decode_attention(*args, k_scale=ks, v_scale=vs).float()
+        dt_err = (got - want).abs().max().item()
+        checks.append({"kernel": "decode_attention_quant", "shape": f"engine decode {dtype}",
+                       "max_abs_err": dt_err, "max_abs_out": want.abs().max().item(),
+                       "tol": tol})
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            fail(f"decode_attention_quant[{dtype}]: max |kernel - plain| = {dt_err}, bar {tol}")
+        err = dt_err if err is None else err
+    n = copies_for(2 * _nbytes(k))
+    sets = [(q, k.clone(), v.clone(), ks.clone(), vs.clone(), pos) for _ in range(n)]
+    live = int((pos.to(torch.int64) + 1).sum().item()) * hk  # rows read
+    nb = 2 * _nbytes(q) + _nbytes(pos) + live * (2 * hd + 2 * 4)
+    bms, bby = bound_ms(nb, 4 * live * (h // hk) * hd, "bf16")
+    mask = (torch.arange(m, device=dev)[None, :] <= pos[:, None].to(torch.int64))[:, None, None]
+    kd, vd = dequantize_kv(k, ks, torch.bfloat16), dequantize_kv(v, vs, torch.bfloat16)
+    lib_sets = [(q[:, :, None], kd.clone(), vd.clone(), mask) for _ in range(n)]
+
+    # the bf16 kernel at the same shape, for the cost of the dequant
+    dense_ms = time_ms(torch, da_ops.decode_attention,
+                       [(q, kd.clone(), vd.clone(), pos) for _ in range(n)])
+
+    def plain_call(qq, kk, vv, kks, vvs, pp):
+        return da_ref.decode_attention(qq, kk, vv, pp, k_scale=kks, v_scale=vvs)
+
+    return {"name": "decode_attention_quant", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:324",
+            "shape": f"q[{b},{h},{hd}] int8 cache[{b},{hk},{m},{hd}] + scales, "
+                     f"pos {pos.tolist()}",
+            "max_abs_err": err,
+            "ms": time_ms(torch, da_ops.decode_attention_quant, sets),
+            "eager_ms": eager_ms(torch, da_ops.decode_attention_quant, sets),
+            "plain_ms": time_ms(torch, plain_call, sets),
+            "bound_ms": bms, "bound_by": bby,
+            "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib_sets),
+            "library_note": "SDPA over the cache dequantized to bf16 (dequant not timed)",
+            "bf16_kernel_same_shape_ms": dense_ms}
+
+
+def prefill_append_rows(torch, cfg, randn, int8, checks) -> list[dict]:
+    """Prefill-append, bf16 and int8 caches, at two shapes: ``tick`` (the
+    engine's fused tick: 8 slots, C = 256, live slots at offsets 0 and 512,
+    six write-only slots at trash_base 1024) and ``one`` (1 slot, C = 128 at
+    offset 768). Outputs against the plain version in bf16 and f32; the
+    cache after the call equal to the plain version's byte for byte, and
+    unchanged outside the appended rows."""
+    from repro_torch.core.ternary import dequantize_kv
+    from repro_torch.kernels.prefill_append import ops as pa_ops
+    from repro_torch.kernels.prefill_append import ref as pa_ref
+
+    dev = torch.device("cuda")
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m = ENGINE_MAX_LEN + 256
+    limit = ENGINE_MAX_LEN  # the engine's trash_base
+    shapes = {"tick": (256, [0, 512] + [limit] * 6), "one": (128, [768])}
+    out_rows = []
+    for tag, (c, offs) in shapes.items():
+        b = len(offs)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        q = randn(b, h, c, hd)
+        kn, vn = randn(b, hk, c, hd), randn(b, hk, c, hd) * 0.25
+        dense = [randn(b, hk, m, hd), randn(b, hk, m, hd) * 0.25]
+        quant = [int8(b, hk, m, hd), int8(b, hk, m, hd),
+                 randn(b, hk, m).abs() * 4e-3 + 1e-3, randn(b, hk, m).abs() * 1e-3 + 2e-4]
+        written = torch.zeros((b, hk, m), dtype=torch.bool, device=dev)
+        for i, o in enumerate(offs):
+            written[i, :, o:o + c] = True
+        live = [i for i, o in enumerate(offs) if o < limit]  # the others only write
+        live_rows = sum(offs[i] for i in live)  # prefix rows read, per kv head
+        pairs = sum(offs[i] * c for i in live) + len(live) * c * (c + 1) // 2
+        for name, is_quant in (("prefill_append", False), ("prefill_append_quant", True)):
+            err = None
+            for dtype, tol in ((torch.bfloat16, ATTN_TOL_BF16), (torch.float32, ATTN_TOL_F32)):
+                cast = [t.to(dtype) for t in (q, kn, vn)]
+                base = quant if is_quant else [t.to(dtype) for t in dense]
+                mine, plain = [t.clone() for t in base], [t.clone() for t in base]
+
+                def call(fn, cs, cast=cast, is_quant=is_quant):
+                    kw = dict(k_scale=cs[2], v_scale=cs[3]) if is_quant else {}
+                    return fn(*cast, cs[0], cs[1], off, prefix_limit=limit, **kw)
+
+                got = call(pa_ops.prefill_append, mine).float()
+                want = call(pa_ref.prefill_append, plain).float()
+                torch.cuda.synchronize()
+                dt_err = (got - want).abs().max().item()
+                same = all(torch.equal(a, w) for a, w in zip(mine, plain))
+                kept = all(torch.equal(a[~written], t[~written]) for a, t in zip(mine, base))
+                checks.append({"kernel": name, "shape": f"{tag} {dtype}", "max_abs_err": dt_err,
+                               "max_abs_out": want.abs().max().item(), "tol": tol,
+                               "cache_equal": same, "other_rows_unchanged": kept})
+                if not torch.allclose(got, want, atol=tol, rtol=tol):
+                    fail(f"{name}[{tag}, {dtype}]: max |kernel - plain| = {dt_err}, bar {tol}")
+                if not (same and kept):
+                    fail(f"{name}[{tag}, {dtype}]: cache equal to plain {same}, "
+                         f"rows outside the append unchanged {kept}")
+                err = dt_err if err is None else err
+            bf16 = torch.bfloat16
+            qb, knb, vnb = q.to(bf16), kn.to(bf16), vn.to(bf16)  # the engine's dtype
+            base = quant if is_quant else [t.to(bf16) for t in dense]
+            n = copies_for(_nbytes(*base))
+            sets = [(qb, knb, vnb, *[t.clone() for t in base]) for _ in range(n)]
+
+            def kern(qq, kk, vv, *cs, is_quant=is_quant):
+                kw = dict(k_scale=cs[2], v_scale=cs[3]) if is_quant else {}
+                return pa_ops.prefill_append(qq, kk, vv, cs[0], cs[1], off,
+                                             prefix_limit=limit, **kw)
+
+            def plain_fn(qq, kk, vv, *cs, is_quant=is_quant):
+                kw = dict(k_scale=cs[2], v_scale=cs[3]) if is_quant else {}
+                return pa_ref.prefill_append(qq, kk, vv, cs[0], cs[1], off,
+                                             prefix_limit=limit, **kw)
+
+            # bytes: the live slots' q, every slot's out, k_new and v_new
+            # once each; the live prefix rows read and the chunk rows written
+            # (K and V, + int8 scales)
+            row_b = 2 * hd * (1 if is_quant else 2) + (2 * 4 if is_quant else 0)
+            nb = (_nbytes(qb) * len(live) // b + _nbytes(qb) + 2 * _nbytes(knb)
+                  + live_rows * hk * row_b + b * c * hk * row_b + _nbytes(off))
+            bms, bby = bound_ms(nb, 4 * hd * h * pairs, "bf16")
+            # the library call: SDPA for the live slots over their cache rows
+            # up to the last chunk row, with the offset-causal mask
+            end = max(offs[i] for i in live) + c
+            kpos = torch.arange(end, device=dev)[None, None, :]
+            qpos = off[live, None, None].to(torch.int64) + torch.arange(c, device=dev)[None, :, None]
+            mask = kpos <= qpos
+            if is_quant:
+                kd, vd = (dequantize_kv(base[0], base[2], bf16),
+                          dequantize_kv(base[1], base[3], bf16))
+            else:
+                kd, vd = base[0].clone(), base[1].clone()
+            for i, o in enumerate(offs):  # the chunk's rows, as appended
+                kd[i, :, o:o + c], vd[i, :, o:o + c] = knb[i], vnb[i]
+            lib_sets = [(qb[live].contiguous(), kd[live, :, :end].contiguous(),
+                         vd[live, :, :end].contiguous(), mask[:, None])]
+            out_rows.append({
+                "name": name, "route": "cuda", "shape_tag": tag,
+                "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append.cu",
+                "replaces": ("src/repro/kernels/prefill_append/kernel.py:556" if is_quant
+                             else "src/repro/kernels/prefill_append/kernel.py:532"),
+                "shape": (f"q[{b},{h},{c},{hd}] offsets {offs} prefix_limit {limit} cache "
+                          f"[{b},{hk},{m},{hd}] " + ("int8 + scales" if is_quant else "bf16")),
+                "max_abs_err": err,
+                "ms": time_ms(torch, kern, sets, iters=20),
+                "eager_ms": eager_ms(torch, kern, sets, iters=20),
+                "plain_ms": time_ms(torch, plain_fn, sets, iters=5),
+                "bound_ms": bms, "bound_by": bby,
+                "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib_sets,
+                                      iters=20),
+                "library_note": "SDPA of the live slots with the offset-causal mask over "
+                                "their bf16 cache rows up to the chunk's end"
+                                + (", dequantized" if is_quant else "")
+                                + "; the append and the dequant are not timed"})
+    return out_rows
 
 
 # ---------------------------------------------------------------------------
@@ -434,19 +644,25 @@ def profile_decode(torch, params, cfg, caches, tok, pos) -> dict:
             "top_device": table(kernels), "top_host": table(host)}
 
 
-def generate_phase(torch, cfg, steps: int, report: dict) -> dict:
-    from repro_torch import kernels as K
+def full_params(torch, cfg):
+    """Full-width packed weights, random from seed 0, on the card."""
     from repro_torch.core import params as PR
+    from repro_torch.models import transformer as Tr
+
+    specs = Tr.param_specs(cfg)
+    params = Tr.pack_tree(PR.init_params(specs, seed=0, device=torch.device("cuda")), specs,
+                          dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return params
+
+
+def generate_phase(torch, cfg, params, steps: int, report: dict) -> dict:
+    from repro_torch import kernels as K
     from repro_torch.models import transformer as Tr
     from repro_torch.serving import engine as E
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    specs = Tr.param_specs(cfg)
-    params = Tr.pack_tree(PR.init_params(specs, seed=0, device=dev), specs, dtype=cfg.dtype)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     b, s = 4, 100
     prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
@@ -510,7 +726,7 @@ def generate_phase(torch, cfg, steps: int, report: dict) -> dict:
     padded = torch.nn.functional.pad(prompts, (0, E.bucket_length(s, cfg.prefill_chunk_sizes) - s))
     out = {"phase": "generate", "model": cfg.name, "batch": b, "prompt": s,
            "bucket": E.bucket_length(s, cfg.prefill_chunk_sizes), "steps": steps,
-           "init_s": init_s, "kernels": times_k, "plain": times_p,
+           "kernels": times_k, "plain": times_p,
            "launch_counts": counts,
            "first_tokens_equal": bool(torch.equal(toks_k[:, 0], toks_p[:, 0])),
            "first_divergence_step": first_div,
@@ -531,10 +747,220 @@ def generate_phase(torch, cfg, steps: int, report: dict) -> dict:
                  f"(max |logit| {c['logit_max_abs']})")
     if not step_checks[0]["argmax_equal"]:
         fail("generate: first decode step from shared caches picks other tokens")
-    missing = [n for n, c in counts.items() if c <= 0]
+    missing = [n for n in GENERATE_PATH if counts[n] <= 0]
     if missing:
         fail(f"generate: kernels never launched on the main path: {missing}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phases: the ServingEngine
+# ---------------------------------------------------------------------------
+
+
+def _to_cuda(node):
+    return ({k: _to_cuda(v) for k, v in node.items()} if isinstance(node, dict)
+            else node.to("cuda"))
+
+
+def engine_smoke_phase(torch, report: dict) -> None:
+    """The f32 smoke config in the ServingEngine, each cache dtype: through
+    the kernels on the card, the same streams and statuses as through the
+    plain versions on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    base = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32)
+    specs = Tr.param_specs(base)
+    cpu_params = Tr.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=base.dtype)
+    cuda_params = _to_cuda(cpu_params)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+    out = {"phase": "engine_smoke"}
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        runs = []
+        for params, kset, device in ((cuda_params, KERNELS, None), (cpu_params, PLAIN, "cpu")):
+            eng = E.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kset,
+                                  device=device)
+            reqs = [E.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            runs.append(([(r.generated, r.status.name) for r in reqs], eng.stats()))
+        (got, st), (want, _) = runs
+        out[kv] = {"streams_equal": got == want, "ticks": st["ticks"],
+                   "host_transfers": st["host_transfers"]}
+        if got != want or st["host_transfers"] != st["ticks"]:
+            emit(out)
+            fail(f"engine_smoke[{kv}]: card vs CPU streams equal {got == want}, "
+                 f"transfers {st['host_transfers']} for {st['ticks']} ticks")
+    report["engine_smoke"] = out
+    emit(out)
+
+
+def _engine_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lo, hi = ENGINE_PROMPT_RANGE
+    lengths = rng.integers(lo, hi + 1, ENGINE_REQUESTS)
+    return [rng.integers(0, cfg.vocab_size, int(n)) for n in lengths]
+
+
+def engine_run(torch, cfg, params, kset, prompts) -> tuple[dict, list]:
+    """Serve ``prompts`` to the end; returns (measurements, requests). The
+    launch counters are reset just before the first tick and read just
+    after the last."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    eng = E.ServingEngine(params, cfg, slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                          kernels=kset, eos_id=-1)
+    reqs = [E.Request(rid=i, prompt=p, max_new=ENGINE_NEW) for i, p in enumerate(prompts)]
+    first = {}
+    eng.on_emit = lambda req, toks: first.setdefault(
+        req.rid, (eng.tick_count, time.perf_counter()))
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    fused_ms, decode_ms = [], []
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.live):
+        f0, t = eng.fused_ticks, time.perf_counter()
+        if not eng.step():
+            break
+        (fused_ms if eng.fused_ticks > f0 else decode_ms).append(
+            (time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    st = eng.stats()
+    tokens = sum(len(r.generated) for r in reqs)
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+
+    return {"ticks": st["ticks"], "fused_ticks": st["fused_ticks"],
+            "host_transfers": st["host_transfers"], "statuses": st["statuses"],
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "fused_tick_ms_mean": mean(fused_ms), "decode_tick_ms_mean": mean(decode_ms),
+            "fused_tick_ms": fused_ms, "decode_tick_ms": decode_ms,
+            "first_token_ticks": [first[r.rid][0] for r in reqs if r.rid in first],
+            "first_token_ms": [(first[r.rid][1] - t0) * 1e3 for r in reqs if r.rid in first],
+            "cache_bytes": E.cache_nbytes(eng.caches), "launch_counts": counts}, reqs
+
+
+def engine_phase(torch, cfg, params, report: dict) -> dict:
+    """The full-width ServingEngine for each cache dtype, through the kernels
+    and through the plain versions; returns the kernels' launch counts of
+    each run by cache dtype."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+
+    prompts = _engine_prompts(cfg)
+    out = {"phase": "engine", "model": cfg.name, "slots": ENGINE_SLOTS,
+           "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS, "max_new": ENGINE_NEW,
+           "prompt_lengths": [len(p) for p in prompts]}
+    counts_by_kv = {}
+    with torch.inference_mode():
+        for kv in ("bf16", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            got, reqs = engine_run(torch, c, params, K.KERNELS, prompts)
+            plain, preqs = engine_run(torch, c, params, K.PLAIN, prompts)
+            agree = [sum(a == b for a, b in zip(r.generated, p.generated)) / ENGINE_NEW
+                     for r, p in zip(reqs, preqs)]
+            got["plain"] = {k: plain[k] for k in ("wall_s", "tokens_per_s",
+                                                   "fused_tick_ms_mean", "decode_tick_ms_mean")}
+            got["token_agreement_with_plain"] = sum(agree) / len(agree)
+            got["streams_equal_to_plain"] = sum(a == 1.0 for a in agree)
+            out[kv] = got
+            counts_by_kv[kv] = got["launch_counts"]
+            sfx = "_quant" if kv == "int8" else ""
+            bad = [r.rid for r in reqs
+                   if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+            counts = got["launch_counts"]
+            path = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
+                    "decode_attention" + sfx, "prefill_append" + sfx)
+            problems = []
+            if bad:
+                problems.append(f"requests not OK with {ENGINE_NEW} tokens: {bad}")
+            if got["host_transfers"] != got["ticks"]:
+                problems.append(f"{got['host_transfers']} transfers for {got['ticks']} ticks")
+            if counts["decode_attention" + sfx] != cfg.n_layers * got["ticks"]:
+                problems.append(f"decode_attention{sfx} launched {counts['decode_attention' + sfx]}"
+                                f" times in {got['ticks']} ticks")
+            if counts["prefill_append" + sfx] != cfg.n_layers * got["fused_ticks"]:
+                problems.append(f"prefill_append{sfx} launched {counts['prefill_append' + sfx]}"
+                                f" times in {got['fused_ticks']} fused ticks")
+            missing = [n for n in path if counts[n] <= 0]
+            if missing:
+                problems.append(f"kernels never launched on the engine path: {missing}")
+            if problems:
+                emit(out)
+                fail(f"engine[{kv}]: " + "; ".join(problems))
+    report["engine"] = out
+    emit(out)
+    return counts_by_kv
+
+
+def chunk_step_phase(torch, cfg, params, report: dict) -> None:
+    """One full-width prefill_chunk_step per cache dtype from shared caches:
+    4 slots, chunk 128 at offset 256 after a 256-chunk written by the plain
+    versions; last-row logits of kernels vs plain versions."""
+    import dataclasses
+
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b = 4
+    t1 = torch.randint(0, cfg.vocab_size, (b, 256), generator=gen, device=dev)
+    t2 = torch.randint(0, cfg.vocab_size, (b, 128), generator=gen, device=dev)
+    out = {"phase": "chunk_step"}
+    with torch.inference_mode():
+        for kv in ("bf16", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            caches = E.init_caches(c, b, 512)
+            Tr.prefill_chunk_step(params, t1, caches, torch.zeros(b, dtype=torch.int32,
+                                                                  device=dev), c, kernels=PLAIN)
+            copy = {"blocks": {n: {k: v.clone() for k, v in leaves.items()}
+                               for n, leaves in caches["blocks"].items()}}
+            off = torch.full((b,), 256, dtype=torch.int32, device=dev)
+            last = torch.full((b,), 127, dtype=torch.int32, device=dev)
+            lk, _ = Tr.prefill_chunk_step(params, t2, copy, off, c, kernels=KERNELS,
+                                          last_row=last)
+            lp, _ = Tr.prefill_chunk_step(params, t2, caches, off, c, kernels=PLAIN,
+                                          last_row=last)
+            top2 = lp.topk(2, dim=-1).values
+            # the kernels' argmax must be a plain argmax: the bf16 LM head
+            # ties logits exactly, and then either tied token is the argmax
+            picked = lp.gather(1, lk.argmax(-1, keepdim=True))[:, 0]
+            res = {"logit_max_abs_err": (lk - lp).abs().max().item(),
+                   "logit_max_abs": lp.abs().max().item(),
+                   "argmax_equal": bool(torch.equal(lk.argmax(-1), lp.argmax(-1))),
+                   "argmax_is_plain_argmax": bool(torch.equal(picked, top2[:, 0])),
+                   "min_top2_gap": (top2[:, 0] - top2[:, 1]).min().item()}
+            out[kv] = res
+            if (res["logit_max_abs_err"] > LOGIT_REL_TOL * res["logit_max_abs"]
+                    or not res["argmax_is_plain_argmax"]):
+                emit(out)
+                fail(f"chunk_step[{kv}]: logits differ by {res['logit_max_abs_err']} "
+                     f"(max |logit| {res['logit_max_abs']}), kernels' argmax a plain "
+                     f"argmax {res['argmax_is_plain_argmax']}")
+    report["chunk_step"] = out
+    emit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -573,13 +999,24 @@ def main(argv=None) -> int:
     cfg = get_config("tellme-0.7b")
     rows = kernel_phase(torch, cfg, report)
     smoke_phase(torch, report)
-    counts = generate_phase(torch, cfg, STEPS, report)
-    for row in rows:
-        row["launches"] = counts[row["name"]]
+    engine_smoke_phase(torch, report)
+    params = full_params(torch, cfg)
+    gen_counts = generate_phase(torch, cfg, params, STEPS, report)
+    eng_counts = engine_phase(torch, cfg, params, report)
+    chunk_step_phase(torch, cfg, params, report)
+    for row in rows:  # launches on the main path that runs each kernel
+        name = row["name"]
+        if name.endswith("_quant"):
+            row["launches"] = eng_counts["int8"][name]
+        elif name == "prefill_append":
+            row["launches"] = eng_counts["bf16"][name]
+        else:
+            row["launches"] = gen_counts[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "eager_ms")
     kernels_line = {"kernels": [{k: r[k] for k in keys} for r in rows]}
     report["kernels"] = kernels_line["kernels"]
+    report["kernel_rows"] = rows  # with each row's notes
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,8 +1,8 @@
 """Plain-Python model configuration and registry.
 
 Counterpart of ``repro/configs/base.py``, holding only the fields the
-port's ``generate`` path reads (the JAX module imports JAX, so the port
-keeps its own copy). Field names and defaults match the JAX config, so a
+port's ``generate`` and ``ServingEngine`` paths read (the JAX module imports
+JAX, so the port keeps its own copy). Field names and defaults match the JAX config, so a
 test can hold each shared field against it. The options of other
 architectures (softcaps, sliding windows, local/global layers, families
 other than dense) come with the slice that ports a config using them.
@@ -27,6 +27,11 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 128
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
+    prefill_chunk_budget: int = 512  # chunk tokens appended per engine tick
+    kv_cache_dtype: str = "bf16"  # bf16 (the activation dtype) | int8 + f32 row scales
+    admission_queue_cap: int = 0  # 0 = unbounded
+    request_ttl_s: float = 0.0  # 0 = no deadline
+    stats_ring_events: int = 4096  # engine event ring (0 = unbounded)
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16

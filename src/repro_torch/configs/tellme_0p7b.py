@@ -19,6 +19,7 @@ def full() -> ModelConfig:
         d_ff=4096,
         vocab_size=32000,
         prefill_chunk_sizes=(64, 128, 256),
+        prefill_chunk_budget=512,
     )
 
 
@@ -33,6 +34,7 @@ def smoke() -> ModelConfig:
         d_ff=128,
         vocab_size=256,
         prefill_chunk_sizes=(64, 128, 256),
+        prefill_chunk_budget=256,
     )
 
 

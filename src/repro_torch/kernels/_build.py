@@ -30,6 +30,7 @@ SOURCES = (
     _PKG / "ternary_matmul" / "csrc" / "ternary_matmul.cu",
     _PKG / "ternary_matmul" / "csrc" / "ternary_swiglu.cu",
     _PKG / "decode_attention" / "csrc" / "decode_attention.cu",
+    _PKG / "prefill_append" / "csrc" / "prefill_append.cu",
 )
 HEADERS = (
     _PKG / "csrc" / "common.cuh",
@@ -50,6 +51,14 @@ SIGNATURES = {
     "tm_ternary_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, pos, out, bhk, hk, g, m, d, window, softcap, scale, dtype, stream
     "tm_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    # q, k, v, k_scale, v_scale, pos, out, bhk, hk, g, m, d, window, softcap,
+    # scale, dtype, stream
+    "tm_decode_attention_quant": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                                  _I, _P),
+    # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, offset, out, bhk,
+    # hk, g, c, m, d, window, softcap, scale, prefix_limit, quant, dtype, stream
+    "tm_prefill_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _F, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -80,6 +80,13 @@ __device__ __forceinline__ int8_t act_code(float y, float scale) {
   return (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
 }
 
+// dequantize_kv (ternary.py:102): an int8 KV-cache code times its row's f32
+// scale, in f32, rounded once to the attention dtype T.
+template <typename T>
+__device__ __forceinline__ float kv_dequant(int8_t code, float scale) {
+  return round_to<T>(__fmul_rn((float)code, scale));
+}
+
 // Per-row absmax int8 of a row already rounded to T: `yval(i)` returns
 // element i as float. Writes the codes to q[0..n) and the scale to *qs.
 template <typename T, class F>

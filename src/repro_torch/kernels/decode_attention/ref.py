@@ -5,7 +5,10 @@ the whole cache as one kv block: f32 scores, softcap, the ``-1e30`` mask past
 each slot's frontier ``pos[b]`` and below its window foot, unnormalized
 probabilities cast to the cache dtype before P·V, and the
 ``max(l, 1e-30)`` finalize. The kernel's online softmax rescales block by
-block, so the two agree to rounding, not bit for bit.
+block, so the two agree to rounding, not bit for bit. With an int8 cache
+(``k_scale``/``v_scale`` [B, HK, M] f32) the cache is first dequantized to
+q's dtype (``dequantize_kv``), which defines the quantized kernel
+(``kernel.py:324``).
 """
 
 from __future__ import annotations
@@ -14,12 +17,17 @@ import math
 
 import torch
 
+from ...core.ternary import dequantize_kv
+
 NEG_INF = -1e30
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
-                     softcap: float = 0.0):
+def decode_attention(q, k_cache, v_cache, pos, *, k_scale=None, v_scale=None,
+                     window: int = 0, softcap: float = 0.0):
     """q [B, H, D]; k/v cache [B, HK, M, D]; pos [B] int -> [B, H, D]."""
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
+        v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
     b, h, d = q.shape
     hk, m = k_cache.shape[1], k_cache.shape[2]
     g = h // hk

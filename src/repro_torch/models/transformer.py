@@ -4,7 +4,8 @@
 Parameters keep the JAX tree and layouts: the layer stack lives in
 ``params["blocks"]["b0"]`` with a leading ``[L]`` axis on every leaf (the
 JAX tree's one-layer period: every layer of this family is the same), and
-the KV caches are ``[L, B, HK, M, D]``. The JAX package scans over the
+the KV caches are ``[L, B, HK, M, D]`` (int8 cache: with f32 row scales
+``[L, B, HK, M]``). The JAX package scans over the
 stacked layers; here a Python loop walks them. Every block runs the
 int8-resident pipeline of ``transformer.py:422-447``: norm-quant prologue,
 q/k/v projections on the int8 row, RoPE, attention, the o projection with
@@ -20,6 +21,7 @@ import torch
 
 from ..core import bitlinear
 from ..core.params import ParamSpec
+from ..core.ternary import dequantize_kv, quantize_kv
 from . import attention as attn_ops
 from . import layers as L
 
@@ -86,10 +88,16 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
-def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None):
-    """Attention sub-block on the int8 row ``xq``; returns (x + attn(x),
-    (k, v) of this call). ``cache`` is this layer's ``(k_cache, v_cache)``
-    for a decode step, updated in place; None for prefill."""
+def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
+                prefix_limit=0):
+    """Attention sub-block on the int8 row ``xq``; returns (x + attn(x), the
+    cache rows of this call). ``cache`` is this layer's cache leaves
+    ``{"k", "v"[, "k_scale", "v_scale"]}`` (views, updated in place): for a
+    decode step (one row, written at ``pos``) or a prefill chunk (rows
+    appended at the offsets ``pos``). None for a one-shot prefill, which
+    returns its K/V as ``{"k", "v"}``, or, with ``cfg.kv_cache_dtype ==
+    "int8"``, quantized and attended as their dequantized rows
+    (``transformer.py:242-256``)."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -101,24 +109,40 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None):
     q = L.apply_rope_tables(proj("q", h), rope_h)
     k = L.apply_rope_tables(proj("k", hk), rope_h)
     v = proj("v", hk)
+    new = None
     if cache is None:
+        if cfg.kv_cache_dtype == "int8":
+            (k_i8, ks), (v_i8, vs) = quantize_kv(k), quantize_kv(v)
+            k, v = dequantize_kv(k_i8, ks, k.dtype), dequantize_kv(v_i8, vs, v.dtype)
+            new = {"k": k_i8, "k_scale": ks, "v": v_i8, "v_scale": vs}
+        else:
+            new = {"k": k, "v": v}
         out = attn_ops.prefill_attention(q, k, v)
+    elif s > 1:  # a prefill chunk against the cache prefix
+        out = attn_ops.prefill_append_attention(
+            q, k, v, cache["k"], cache["v"], pos, kernels=kernels,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            prefix_limit=prefix_limit)
     else:
-        k_cache, v_cache = cache
-        attn_ops.update_kv_cache(k_cache, v_cache, k[:, :, 0], v[:, :, 0], pos)
-        out = attn_ops.decode_attention(q[:, :, 0], k_cache, v_cache, pos,
-                                        kernels=kernels)[:, :, None]
+        if "k_scale" in cache:
+            attn_ops.update_kv_cache_quant(cache["k"], cache["v"], cache["k_scale"],
+                                           cache["v_scale"], k[:, :, 0], v[:, :, 0], pos)
+        else:
+            attn_ops.update_kv_cache(cache["k"], cache["v"], k[:, :, 0], v[:, :, 0], pos)
+        out = attn_ops.decode_attention(
+            q[:, :, 0], cache["k"], cache["v"], pos, kernels=kernels,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))[:, :, None]
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     x = bitlinear.apply(bp["o"], out, kernels=kernels, out_dtype=x.dtype, residual=x)
-    return x, (k, v)
+    return x, new
 
 
-def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None):
+def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None, prefix_limit=0):
     """The fused attn+dense block (``transformer.py:422-447``). Returns
-    (x, (k, v)) with the rotated K/V of this call."""
+    (x, the cache rows of a one-shot prefill or None)."""
     hq = L.norm_quant(bp["ln1"], x, kernels=kernels, eps=cfg.norm_eps)
     x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope, kernels=kernels,
-                        cache=cache, pos=pos)
+                        cache=cache, pos=pos, prefix_limit=prefix_limit)
     h2q = L.norm_quant(bp["ln2"], x, kernels=kernels, eps=cfg.norm_eps)
     x = L.mlp_fused(bp["ffn"], h2q, kernels=kernels, out_dtype=x.dtype, residual=x)
     return x, kv
@@ -134,10 +158,15 @@ def _head(params, x, cfg):
     return L.lm_head(params["lm_head"], x)
 
 
+def _layer_cache(caches, li: int) -> dict:
+    """Layer ``li``'s cache leaves (views into the stacked [L, ...] leaves)."""
+    return {n: leaf[li] for n, leaf in caches["blocks"]["b0"].items()}
+
+
 def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool = False):
     """Full-sequence pass over ``tokens [B, S]``. Returns (logits [B, S, V]
-    f32, caches | None) with caches ``{"blocks": {"b0": {"k", "v"}}}`` of
-    shape [L, B, HK, S, D]."""
+    f32, caches | None) with caches ``{"blocks": {"b0": {...}}}`` of
+    :func:`cache_specs` layout at length S."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -145,10 +174,10 @@ def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool =
     caches = cache_zeros(cfg, b, s, x.device) if collect_cache else None
     for li in range(cfg.n_layers):
         bp = layer_slice(params["blocks"]["b0"], li)
-        x, (k, v) = apply_block(bp, x, cfg, rope, kernels=kernels)
+        x, new = apply_block(bp, x, cfg, rope, kernels=kernels)
         if collect_cache:
-            caches["blocks"]["b0"]["k"][li] = k
-            caches["blocks"]["b0"]["v"][li] = v
+            for n, rows in new.items():
+                caches["blocks"]["b0"][n][li] = rows
     return _head(params, x, cfg), caches
 
 
@@ -158,19 +187,54 @@ def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *,
     and returns (logits [B, V], caches)."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     rope = rope_for(cfg, pos[:, None])["attn"]
-    c = caches["blocks"]["b0"]
     for li in range(cfg.n_layers):
         bp = layer_slice(params["blocks"]["b0"], li)
         x, _ = apply_block(bp, x, cfg, rope, kernels=kernels,
-                           cache=(c["k"][li], c["v"][li]), pos=pos)
+                           cache=_layer_cache(caches, li), pos=pos)
     return _head(params, x, cfg)[:, 0], caches
+
+
+def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
+                       kernels, last_row=None, prefix_limit: int = 0):
+    """One chunked-prefill step (``transformer.py:608-666``): ``tokens
+    [B, C]`` at positions ``offset[b] + [0, C)`` (``offset [B]`` int32,
+    ≡ 0 mod C) attend to each slot's cache prefix and to themselves, and
+    every layer appends the chunk's K/V into ``caches`` in place. Offsets
+    at or past ``prefix_limit > 0`` are write-only. Returns (logits, caches):
+    logits [B, C, V], or with ``last_row [B]`` only each slot's row, gathered
+    before the final norm and the LM head, [B, V]."""
+    x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
+    b, c = tokens.shape
+    positions = offset.to(torch.int32)[:, None] + torch.arange(
+        c, dtype=torch.int32, device=x.device)[None, :]
+    rope = rope_for(cfg, positions)["attn"]
+    for li in range(cfg.n_layers):
+        bp = layer_slice(params["blocks"]["b0"], li)
+        x, _ = apply_block(bp, x, cfg, rope, kernels=kernels,
+                           cache=_layer_cache(caches, li), pos=offset,
+                           prefix_limit=prefix_limit)
+    if last_row is not None:
+        idx = last_row.to(torch.int64)[:, None, None].expand(b, 1, x.shape[-1])
+        return _head(params, x.gather(1, idx), cfg)[:, 0], caches
+    return _head(params, x, cfg), caches
 
 
 def cache_specs(cfg, batch: int, seq: int) -> dict:
     """Shape and dtype of every cache leaf: ``{"blocks": {"b0": {"k":
-    (shape, dtype), "v": ...}}}`` with shape [L, B, HK, seq, D]."""
+    (shape, dtype), "v": ...}}}`` with k/v [L, B, HK, seq, D] in ``cfg.dtype``;
+    with ``cfg.kv_cache_dtype == "int8"``, k/v int8 and ``k_scale``/``v_scale``
+    [L, B, HK, seq] f32 row scales."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.head_dim)
-    return {"blocks": {"b0": {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}}}
+    if cfg.kv_cache_dtype == "int8":
+        scales = (shape[:-1], torch.float32)
+        leaves = {"k": (shape, torch.int8), "k_scale": scales,
+                  "v": (shape, torch.int8), "v_scale": scales}
+    elif cfg.kv_cache_dtype == "bf16":
+        leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+    else:
+        raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got "
+                         f"{cfg.kv_cache_dtype!r}")
+    return {"blocks": {"b0": leaves}}
 
 
 def cache_zeros(cfg, batch: int, seq: int, device) -> dict:

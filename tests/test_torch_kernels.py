@@ -214,6 +214,8 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
     KERNELS.ternary_gemv(_t(x), _t(xs), wp, torch.tensor(ws))
     KERNELS.norm_quant(torch.ones(2, 8), torch.ones(8))
     assert set(launch_counts()) == {"norm_quant", "ternary_gemv", "ternary_matmul",
-                                    "ternary_swiglu", "decode_attention"}
+                                    "ternary_swiglu", "decode_attention",
+                                    "decode_attention_quant", "prefill_append",
+                                    "prefill_append_quant"}
     assert sum(launch_counts().values()) == 0
     assert PLAIN.ternary_gemv is tm_ref.ternary_gemv
