@@ -1,24 +1,32 @@
 """On-card check of the PyTorch/CUDA port: builds the CUDA kernels, holds
 each against its plain PyTorch version at tellme-0.7b's real shapes, times
 them, then drives greedy ``generate`` and the chunked continuous-batching
-``ServingEngine`` for tellme-0.7b at full width.
+``ServingEngine`` for tellme-0.7b at full width, on the contiguous and on
+the paged KV layout.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
   build     nvcc builds the five kernel sources (timed).
-  kernels   the eight kernel entry points vs their plain versions: the
+  kernels   the twelve kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
             512 rows) shapes; int8 decode attention at the engine's decode
             shape (8 slots, cache 1280 rows); prefill-append, bf16 and int8
             cache, at the engine's tick shape (8 slots, C = 256, live slots
             at offsets 0 and 512, six write-only slots) and at one slot with
-            C = 128 at offset 768. Kernel, plain, library and bound times.
+            C = 128 at offset 768; the four paged variants at the same
+            shapes over a pool of 161 pages of 64 rows, on a permuted table
+            with shared pages and NaN in the garbage and unmapped pages
+            (output finite and bit-equal to the contiguous kernel on the
+            gathered view; pools byte-equal to the plain version's). Kernel,
+            plain, contiguous-twin, library and bound times.
   smoke     the smoke config in f32 on the card (kernels) against the same
             weights on the CPU (plain versions): equal greedy streams.
   engine_smoke  the same for the ServingEngine, both cache dtypes: equal
             per-request streams and statuses.
+  paged_engine_smoke  the same for the paged engine, a shared prompt prefix
+            included: equal streams, statuses and page statistics.
   generate  full-width tellme-0.7b (24 layers, random weights from seed 0),
             B = 4, prompt 100 (bucket 128), 64 greedy steps, once through
             the kernels (launch counters reset just before, read just after)
@@ -39,6 +47,17 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             last-row logits of kernels vs plain versions to a bar, and the
             kernels' argmax a plain argmax (equal, or one of two exactly
             tied plain logits).
+  paged_engine  the full-width engine with kv_layout="paged" (pool of 161
+            pages of 64 rows), through the kernels, each cache dtype:
+            (a) the engine phase's workload: every request OK, streams equal
+            to the engine phase's contiguous kernel streams (16 of 16), one
+            host transfer per tick, 24 paged attention launches per tick
+            that runs them (counters reset just before, read just after),
+            the pool's bytes, and the contiguous engine run again right
+            after for its tick times; (b) 16 requests sharing a 576-token prefix,
+            the first served alone: 15 prefix hits of 512 tokens, at least
+            15 copy-on-write forks, streams against the contiguous engine on
+            the same requests, tokens/s of both.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -76,6 +95,12 @@ GENERATE_PATH = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu
 # The full-width engine run (and the kernel shapes taken from its ticks)
 ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_REQUESTS, ENGINE_NEW = 8, 1024, 16, 32
 ENGINE_PROMPT_RANGE = (16, 900)  # prompt lengths, uniform, numpy default_rng(0)
+PAGE_SIZE = 64  # kv_page_size of the paged layout (the config's default)
+# The shared-prefix workload: a 576-token system prompt (9 pages) and
+# distinct tails; followers prefill from 512 (the match floored to the
+# largest chunk), so their first chunk rewrites the shared page 8 (a fork)
+PREFIX_LEN, PREFIX_TAILS = 576, (16, 128)
+PAGED_POOL_BYTES = {"bf16": 1_519_386_624, "int8": 791_347_200}  # 161 pages of 64 rows
 
 
 def emit(obj) -> None:
@@ -348,6 +373,10 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     pa_rows = prefill_append_rows(torch, cfg, randn, int8, checks)
     rows += [r for r in pa_rows if r["shape_tag"] == "tick"]
     report["prefill_append_shapes"] = pa_rows
+    rows += paged_decode_rows(torch, cfg, randn, int8, checks)
+    paged_rows = paged_prefill_rows(torch, cfg, randn, int8, checks)
+    rows += [r for r in paged_rows if r["shape_tag"] == "tick"]
+    report["prefill_append_paged_shapes"] = paged_rows
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
     return rows
@@ -529,6 +558,313 @@ def prefill_append_rows(torch, cfg, randn, int8, checks) -> list[dict]:
                                 "their bf16 cache rows up to the chunk's end"
                                 + (", dequantized" if is_quant else "")
                                 + "; the append and the dequant are not timed"})
+    return out_rows
+
+# ---------------------------------------------------------------------------
+# the paged kernels (phase kernels)
+# ---------------------------------------------------------------------------
+
+
+def _bits(torch, t):
+    """The raw bits of a tensor: comparing these is NaN-safe."""
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+
+def _paged_table(rng, b, nb, pages, mapped, share):
+    """A page table over pages 1..pages-1 in a seeded random order: slot s
+    maps its first ``mapped[s]`` blocks and holds the garbage page 0 past
+    them; slot dst's first n blocks are slot src's pages (``share = (dst,
+    src, n)``, read-only)."""
+    import numpy as np
+
+    perm = list(rng.permutation(np.arange(1, pages)))
+    table = np.zeros((b, nb), np.int32)
+    dst, src, n = share
+    for s in range(b):
+        for blk in range(mapped[s]):
+            table[s, blk] = table[src, blk] if s == dst and blk < n else perm.pop()
+    return table
+
+
+def _poison(torch, pools, table):
+    """(poisoned, clean) copies of ``pools``: the garbage page and every page
+    the table does not map hold NaN (int8 codes -128, NaN scales) in the
+    first, zeros in the second. The kernels never read them; the plain
+    versions multiply masked probabilities (exact zeros) by V, so they need
+    finite values there, as the contract of serving/paging.py keeps them."""
+    dead = torch.ones(pools[0].shape[0], dtype=torch.bool)
+    dead[torch.from_numpy(table.reshape(-1)).long()] = False
+    dead[0] = True
+    dead = dead.to(pools[0].device)
+    poisoned, clean = [t.clone() for t in pools], [t.clone() for t in pools]
+    for p, c in zip(poisoned, clean):
+        p[dead] = -128 if p.dtype == torch.int8 else float("nan")
+        c[dead] = 0
+    return poisoned, clean
+
+
+def _scales(pools):
+    return dict(k_scale=pools[2], v_scale=pools[3]) if len(pools) == 4 else {}
+
+
+def paged_decode_rows(torch, cfg, randn, int8, checks) -> list[dict]:
+    """Paged decode attention, bf16 and int8 pools, at the engine's decode
+    shape (8 slots, 1280 logical rows = 20 pages of 64, the auto pool of
+    161 pages): a permuted table with slot 2's first 8 pages shared with
+    slot 1, garbage past each frontier, NaN in the garbage and the unmapped
+    pages. Output finite, bit-equal to the contiguous kernel on the gathered
+    view, within the bars of the plain version."""
+    import numpy as np
+
+    from repro_torch.core.ternary import dequantize_kv, gather_kv_pages
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+
+    dev = torch.device("cuda")
+    b, h, hk, hd, ps = ENGINE_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, PAGE_SIZE
+    m = ENGINE_MAX_LEN + 256
+    nb, pages = m // ps, ENGINE_SLOTS * (m // ps) + 1
+    pos_l = [m - 1, 700, 512, 900, 300, m - 1, 1000, 100]
+    table = _paged_table(np.random.default_rng(15), b, nb, pages, [p // ps + 1 for p in pos_l],
+                         share=(2, 1, 8))
+    pt = torch.from_numpy(table).to(dev)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    q = randn(b, h, hd, dtype=torch.bfloat16)
+    live = sum(p + 1 for p in pos_l) * hk  # rows read
+    entries = sum(p // ps + 1 for p in pos_l)  # table entries read
+    out_rows = []
+    for quant in (False, True):
+        name = "decode_attention_paged" + ("_quant" if quant else "")
+        if quant:
+            base = [int8(pages, hk, ps, hd), int8(pages, hk, ps, hd),
+                    randn(pages, hk, ps).abs() * 4e-3 + 1e-3, randn(pages, hk, ps).abs() * 4e-3 + 1e-3]
+        else:
+            base = [randn(pages, hk, ps, hd), randn(pages, hk, ps, hd)]
+        err = None
+        for dtype, tol in ((torch.bfloat16, ATTN_TOL_BF16), (torch.float32, ATTN_TOL_F32)):
+            cast = base if quant else [t.to(dtype) for t in base]
+            poisoned, clean = _poison(torch, cast, table)
+            qq = q.to(dtype)
+            got = da_ops.decode_attention_paged(qq, poisoned[0], poisoned[1], pt, pos,
+                                                **_scales(poisoned))
+            views = [gather_kv_pages(t, pt) for t in poisoned]
+            twin = da_ops.decode_attention(qq, views[0], views[1], pos, **_scales(views))
+            want = da_ref.decode_attention_paged(qq, clean[0], clean[1], pt, pos, **_scales(clean))
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all())
+            bit_equal = bool(torch.equal(_bits(torch, got), _bits(torch, twin)))
+            dt_err = (got.float() - want.float()).abs().max().item()
+            checks.append({"kernel": name, "shape": f"engine decode {str(dtype)[6:]}",
+                           "max_abs_err": dt_err, "max_abs_out": want.abs().max().item(),
+                           "tol": tol, "finite_on_nan_pools": finite,
+                           "bit_equal_contiguous_on_gathered_view": bit_equal})
+            if not (finite and bit_equal and torch.allclose(got.float(), want.float(), atol=tol,
+                                                            rtol=tol)):
+                fail(f"{name}[{dtype}]: finite {finite}, bit-equal to the contiguous kernel "
+                     f"{bit_equal}, max |kernel - plain| = {dt_err} (bar {tol})")
+            err = dt_err if err is None else err
+        poisoned, clean = _poison(torch, base if quant else [t.to(torch.bfloat16) for t in base],
+                                  table)
+        n = copies_for(2 * _nbytes(poisoned[0]))
+        sets = [(q, *[t.clone() for t in poisoned], pt, pos) for _ in range(n)]
+        clean_sets = [(q, *[t.clone() for t in clean], pt, pos) for _ in range(n)]
+        kern = da_ops.decode_attention_paged_quant if quant else da_ops.decode_attention_paged
+
+        def plain_fn(qq, *a):
+            *pools, ptt, pp = a
+            return da_ref.decode_attention_paged(qq, pools[0], pools[1], ptt, pp,
+                                                 **_scales(pools))
+
+        views = [[gather_kv_pages(t, pt) for t in st[1:-2]] for st in sets]
+        twin_fn = da_ops.decode_attention_quant if quant else da_ops.decode_attention
+        twin_sets = [(q, *v, pos) for v in views]
+        kd = [dequantize_kv(v[0], v[2], torch.bfloat16) for v in views] if quant else None
+        vd = [dequantize_kv(v[1], v[3], torch.bfloat16) for v in views] if quant else None
+        mask = (torch.arange(m, device=dev)[None, :] <= pos[:, None].to(torch.int64))
+        lib_sets = [(q[:, :, None], kd[i] if quant else v[0], vd[i] if quant else v[1],
+                     mask[:, None, None]) for i, v in enumerate(views)]
+        row_b = 2 * hd * (1 if quant else 2) + (2 * 4 if quant else 0)
+        nbytes = 2 * _nbytes(q) + _nbytes(pos) + live * row_b + entries * 4
+        bms, bby = bound_ms(nbytes, 4 * live * (h // hk) * hd, "bf16")
+        out_rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+            "replaces": ("src/repro/kernels/decode_attention/kernel.py:281" if quant
+                         else "src/repro/kernels/decode_attention/kernel.py:261"),
+            "shape": f"q[{b},{h},{hd}] pools[{pages},{hk},{ps},{hd}] "
+                     + ("int8 + scales" if quant else "bf16")
+                     + f", table[{b},{nb}], pos {pos_l}",
+            "max_abs_err": err,
+            "ms": time_ms(torch, kern, sets),
+            "eager_ms": eager_ms(torch, kern, sets),
+            "plain_ms": time_ms(torch, plain_fn, clean_sets),
+            "contiguous_twin_ms": time_ms(torch, twin_fn, twin_sets),
+            "bound_ms": bms, "bound_by": bby,
+            "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib_sets),
+            "library_note": "SDPA over the gathered view" + (" dequantized to bf16" if quant
+                                                             else "")
+                            + " (gather and dequant not timed)"})
+    return out_rows
+
+
+def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
+    """Paged prefill-append, bf16 and int8 pools (161 pages of 64 rows), at
+    two shapes: ``tick`` (8 slots, C = 256, live slots at offsets 0 and 512,
+    six write-only slots at trash_base 1024, whose windows map the garbage
+    page; slot 2 shares slot 1's first 8 pages) and ``one`` (1 slot, C = 128
+    at offset 768). NaN in the garbage and unmapped pages. Output finite and
+    bit-equal to the contiguous kernel on the gathered view, within the bars
+    of the plain version; the pools after the append equal the plain
+    version's byte for byte and the contiguous kernel's cache scattered back,
+    and are unchanged outside the written windows (garbage page excepted)."""
+    import numpy as np
+
+    from repro_torch.core.ternary import dequantize_kv, gather_kv_pages
+    from repro_torch.kernels.prefill_append import ops as pa_ops
+    from repro_torch.kernels.prefill_append import ref as pa_ref
+
+    dev = torch.device("cuda")
+    h, hk, hd, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, PAGE_SIZE
+    m = ENGINE_MAX_LEN + 256
+    nb, pages = m // ps, ENGINE_SLOTS * (m // ps) + 1
+    limit = ENGINE_MAX_LEN  # the engine's trash_base
+    rng = np.random.default_rng(16)
+    shapes = {"tick": (256, [0, 512] + [limit] * 6, [4, 12, 11, 15, 5, 16, 16, 2], (2, 1, 8)),
+              "one": (128, [768], [14], (0, 0, 0))}
+    out_rows = []
+    for tag, (c, offs, mapped, share) in shapes.items():
+        b = len(offs)
+        table = _paged_table(rng, b, nb, pages, mapped, share)
+        pt = torch.from_numpy(table).to(dev)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        q = randn(b, h, c, hd)
+        kn, vn = randn(b, hk, c, hd), randn(b, hk, c, hd) * 0.25
+        live = [i for i, o in enumerate(offs) if o < limit]
+        # (page, row) the live chunks write; the write-only ones write page 0
+        written = torch.zeros((pages, ps), dtype=torch.bool)
+        for i in live:
+            for blk in range(offs[i] // ps, (offs[i] + c) // ps):
+                written[table[i, blk]] = True
+        written = written.to(dev)
+        mapped_pages = torch.zeros(pages, dtype=torch.bool)
+        mapped_pages[torch.from_numpy(table.reshape(-1)).long()] = True
+        mapped_pages[0] = False
+        mapped_pages = mapped_pages.to(dev)
+        not_garbage = torch.ones(pages, dtype=torch.bool, device=dev)
+        not_garbage[0] = False
+        live_rows = sum(offs[i] for i in live)  # prefix rows read, per kv head
+        pairs = sum(offs[i] * c for i in live) + len(live) * c * (c + 1) // 2
+        entries = sum(offs[i] // ps for i in live) + b * (c // ps)  # table entries read
+        for quant in (False, True):
+            name = "prefill_append_paged" + ("_quant" if quant else "")
+            if quant:
+                base = [int8(pages, hk, ps, hd), int8(pages, hk, ps, hd),
+                        randn(pages, hk, ps).abs() * 4e-3 + 1e-3,
+                        randn(pages, hk, ps).abs() * 1e-3 + 2e-4]
+            else:
+                base = [randn(pages, hk, ps, hd), randn(pages, hk, ps, hd) * 0.25]
+            err = None
+            for dtype, tol in ((torch.bfloat16, ATTN_TOL_BF16), (torch.float32, ATTN_TOL_F32)):
+                cast = [t.to(dtype) for t in (q, kn, vn)]
+                poisoned, clean = _poison(torch, base if quant else [t.to(dtype) for t in base],
+                                          table)
+                mine = [t.clone() for t in poisoned]
+                views = [gather_kv_pages(t, pt) for t in poisoned]
+                got = pa_ops.prefill_append_paged(*cast, mine[0], mine[1], pt, off,
+                                                  prefix_limit=limit, **_scales(mine))
+                twin = pa_ops.prefill_append(*cast, views[0], views[1], off, prefix_limit=limit,
+                                             **_scales(views))
+                want = pa_ref.prefill_append_paged(*cast, clean[0], clean[1], pt, off,
+                                                   prefix_limit=limit, **_scales(clean))
+                torch.cuda.synchronize()
+                finite = bool(torch.isfinite(got).all())
+                bit_equal = bool(torch.equal(_bits(torch, got), _bits(torch, twin)))
+                dt_err = (got.float() - want.float()).abs().max().item()
+                same = kept = scattered = True
+                for a, p, before, view in zip(mine, clean, poisoned, views):
+                    same &= torch.equal(_bits(torch, a[mapped_pages]), _bits(torch, p[mapped_pages]))
+                    keep = ~written[:, None, :].expand(a.shape[:3]) & not_garbage[:, None, None]
+                    kept &= torch.equal(_bits(torch, a[keep]), _bits(torch, before[keep]))
+                    for i in live:
+                        for blk in range(offs[i] // ps, (offs[i] + c) // ps):
+                            scattered &= torch.equal(
+                                _bits(torch, a[table[i, blk]]),
+                                _bits(torch, view[i, :, blk * ps:(blk + 1) * ps]))
+                checks.append({"kernel": name, "shape": f"{tag} {str(dtype)[6:]}",
+                               "max_abs_err": dt_err, "max_abs_out": want.abs().max().item(),
+                               "tol": tol, "finite_on_nan_pools": finite,
+                               "bit_equal_contiguous_on_gathered_view": bit_equal,
+                               "pools_equal_plain": same, "other_rows_unchanged": kept,
+                               "pools_equal_contiguous_scattered": scattered})
+                if not (finite and bit_equal and same and kept and scattered
+                        and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)):
+                    fail(f"{name}[{tag}, {dtype}]: finite {finite}, bit-equal to the contiguous "
+                         f"kernel {bit_equal}, max |kernel - plain| = {dt_err} (bar {tol}), "
+                         f"pools equal plain {same}, other rows unchanged {kept}, equal the "
+                         f"contiguous cache scattered {scattered}")
+                err = dt_err if err is None else err
+            bf16 = torch.bfloat16
+            qb, knb, vnb = q.to(bf16), kn.to(bf16), vn.to(bf16)  # the engine's dtype
+            poisoned, clean = _poison(torch, base if quant else [t.to(bf16) for t in base], table)
+            n = copies_for(_nbytes(*poisoned))
+            sets = [(qb, knb, vnb, *[t.clone() for t in poisoned], pt) for _ in range(n)]
+            clean_sets = [(qb, knb, vnb, *[t.clone() for t in clean], pt) for _ in range(n)]
+            twin_sets = [(qb, knb, vnb, *[gather_kv_pages(t, pt) for t in st[3:-1]])
+                         for st in sets]
+
+            def kern(qq, kk, vv, *a):
+                *pools, ptt = a
+                return pa_ops.prefill_append_paged(qq, kk, vv, pools[0], pools[1], ptt, off,
+                                                   prefix_limit=limit, **_scales(pools))
+
+            def plain_fn(qq, kk, vv, *a):
+                *pools, ptt = a
+                return pa_ref.prefill_append_paged(qq, kk, vv, pools[0], pools[1], ptt, off,
+                                                   prefix_limit=limit, **_scales(pools))
+
+            def twin_fn(qq, kk, vv, *cs):
+                return pa_ops.prefill_append(qq, kk, vv, cs[0], cs[1], off, prefix_limit=limit,
+                                             **_scales(list(cs)))
+
+            row_b = 2 * hd * (1 if quant else 2) + (2 * 4 if quant else 0)
+            nbytes = (_nbytes(qb) * len(live) // b + _nbytes(qb) + 2 * _nbytes(knb)
+                      + live_rows * hk * row_b + b * c * hk * row_b + _nbytes(off) + entries * 4)
+            bms, bby = bound_ms(nbytes, 4 * hd * h * pairs, "bf16")
+            # the library call: SDPA for the live slots over their gathered
+            # rows up to the chunk's end, with the offset-causal mask
+            end = max(offs[i] for i in live) + c
+            kpos = torch.arange(end, device=dev)[None, None, :]
+            qpos = off[live, None, None].to(torch.int64) + torch.arange(c, device=dev)[None, :, None]
+            views = [gather_kv_pages(t, pt) for t in clean]
+            if quant:
+                kd, vd = (dequantize_kv(views[0], views[2], bf16),
+                          dequantize_kv(views[1], views[3], bf16))
+            else:
+                kd, vd = views[0], views[1]
+            for i, o in enumerate(offs):  # the chunk's rows, as appended
+                kd[i, :, o:o + c], vd[i, :, o:o + c] = knb[i], vnb[i]
+            lib_sets = [(qb[live].contiguous(), kd[live, :, :end].contiguous(),
+                         vd[live, :, :end].contiguous(), (kpos <= qpos)[:, None])]
+            out_rows.append({
+                "name": name, "route": "cuda", "shape_tag": tag,
+                "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append.cu",
+                "replaces": ("src/repro/kernels/prefill_append/kernel.py:503" if quant
+                             else "src/repro/kernels/prefill_append/kernel.py:477"),
+                "shape": (f"q[{b},{h},{c},{hd}] offsets {offs} prefix_limit {limit} pools "
+                          f"[{pages},{hk},{ps},{hd}] " + ("int8 + scales" if quant else "bf16")
+                          + f", table[{b},{nb}]"),
+                "max_abs_err": err,
+                "ms": time_ms(torch, kern, sets, iters=20),
+                "eager_ms": eager_ms(torch, kern, sets, iters=20),
+                "plain_ms": time_ms(torch, plain_fn, clean_sets, iters=5),
+                "contiguous_twin_ms": time_ms(torch, twin_fn, twin_sets, iters=20),
+                "bound_ms": bms, "bound_by": bby,
+                "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib_sets,
+                                      iters=20),
+                "library_note": "SDPA of the live slots with the offset-causal mask over "
+                                "their gathered bf16 rows up to the chunk's end"
+                                + (", dequantized" if quant else "")
+                                + "; the gather, the append and the dequant are not timed"})
     return out_rows
 
 
@@ -816,10 +1152,12 @@ def _engine_prompts(cfg):
     return [rng.integers(0, cfg.vocab_size, int(n)) for n in lengths]
 
 
-def engine_run(torch, cfg, params, kset, prompts) -> tuple[dict, list]:
-    """Serve ``prompts`` to the end; returns (measurements, requests). The
-    launch counters are reset just before the first tick and read just
-    after the last."""
+def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False
+               ) -> tuple[dict, list]:
+    """Serve ``prompts`` to the end; returns (measurements, requests). With
+    ``first_alone`` the first request is served to its end before the others
+    are submitted. The launch counters are reset just before the first tick
+    and read just after the last."""
     from repro_torch import kernels as K
     from repro_torch.serving import engine as E
 
@@ -829,18 +1167,20 @@ def engine_run(torch, cfg, params, kset, prompts) -> tuple[dict, list]:
     first = {}
     eng.on_emit = lambda req, toks: first.setdefault(
         req.rid, (eng.tick_count, time.perf_counter()))
-    for r in reqs:
-        eng.submit(r)
+    waves = [reqs[:1], reqs[1:]] if first_alone else [reqs]
     torch.cuda.synchronize()
     K.reset_launch_counts()
     fused_ms, decode_ms = [], []
     t0 = time.perf_counter()
-    while eng.queue or any(r is not None for r in eng.live):
-        f0, t = eng.fused_ticks, time.perf_counter()
-        if not eng.step():
-            break
-        (fused_ms if eng.fused_ticks > f0 else decode_ms).append(
-            (time.perf_counter() - t) * 1e3)
+    for wave in waves:
+        for r in wave:
+            eng.submit(r)
+        while eng.queue or any(r is not None for r in eng.live):
+            f0, t = eng.fused_ticks, time.perf_counter()
+            if not eng.step():
+                break
+            (fused_ms if eng.fused_ticks > f0 else decode_ms).append(
+                (time.perf_counter() - t) * 1e3)
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     st = eng.stats()
@@ -856,13 +1196,14 @@ def engine_run(torch, cfg, params, kset, prompts) -> tuple[dict, list]:
             "fused_tick_ms": fused_ms, "decode_tick_ms": decode_ms,
             "first_token_ticks": [first[r.rid][0] for r in reqs if r.rid in first],
             "first_token_ms": [(first[r.rid][1] - t0) * 1e3 for r in reqs if r.rid in first],
-            "cache_bytes": E.cache_nbytes(eng.caches), "launch_counts": counts}, reqs
+            "cache_bytes": E.cache_nbytes(eng.caches), "launch_counts": counts,
+            "kv_layout": st["kv_layout"], "paged": st["paged"]}, reqs
 
 
-def engine_phase(torch, cfg, params, report: dict) -> dict:
+def engine_phase(torch, cfg, params, report: dict) -> tuple[dict, dict]:
     """The full-width ServingEngine for each cache dtype, through the kernels
     and through the plain versions; returns the kernels' launch counts of
-    each run by cache dtype."""
+    each run and their streams, by cache dtype."""
     import dataclasses
 
     from repro_torch import kernels as K
@@ -871,11 +1212,12 @@ def engine_phase(torch, cfg, params, report: dict) -> dict:
     out = {"phase": "engine", "model": cfg.name, "slots": ENGINE_SLOTS,
            "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS, "max_new": ENGINE_NEW,
            "prompt_lengths": [len(p) for p in prompts]}
-    counts_by_kv = {}
+    counts_by_kv, streams_by_kv = {}, {}
     with torch.inference_mode():
         for kv in ("bf16", "int8"):
             c = dataclasses.replace(cfg, kv_cache_dtype=kv)
             got, reqs = engine_run(torch, c, params, K.KERNELS, prompts)
+            streams_by_kv[kv] = [r.generated for r in reqs]
             plain, preqs = engine_run(torch, c, params, K.PLAIN, prompts)
             agree = [sum(a == b for a, b in zip(r.generated, p.generated)) / ENGINE_NEW
                      for r, p in zip(reqs, preqs)]
@@ -909,6 +1251,222 @@ def engine_phase(torch, cfg, params, report: dict) -> dict:
                 emit(out)
                 fail(f"engine[{kv}]: " + "; ".join(problems))
     report["engine"] = out
+    emit(out)
+    return counts_by_kv, streams_by_kv
+
+
+def _parting(torch, cfg, cuda_params, cpu_params, prompt, got, want) -> dict:
+    """Where a card stream parts from the CPU's: the step, both tokens, the
+    gap between their plain logits at that row (a one-shot forward of the
+    common prefix on the CPU), and how far the kernels' logits at that row
+    lie from the plain ones, relative to max |logit|."""
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import transformer as Tr
+
+    step = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+    tokens = torch.as_tensor(list(prompt) + list(want[:step]))[None].long()
+    lk, _ = Tr.forward(cuda_params, tokens.to("cuda"), cfg, kernels=KERNELS)
+    lp, _ = Tr.forward(cpu_params, tokens, cfg, kernels=PLAIN)
+    rk, rp = lk[0, -1].float().cpu(), lp[0, -1].float()
+    scale = rp.abs().max().item()
+    return {"step": step, "tokens": [int(got[step]), int(want[step])],
+            "plain_gap": abs(rp[got[step]] - rp[want[step]]).item(),
+            "kernel_vs_plain": (rk - rp).abs().max().item(), "max_abs_logit": scale}
+
+
+def paged_engine_smoke_phase(torch, report: dict) -> None:
+    """The f32 smoke config in the paged engine, each cache dtype, two
+    prompts sharing a 320-token prefix among them (the second is submitted
+    after the first's prefix is interned). On the card through the kernels:
+    the same streams as the contiguous engine through the kernels (exact,
+    by design), and the same statuses and page statistics as the paged
+    engine through the plain versions on the CPU, with the same streams. The
+    int8 smoke model is chaotic at the ulp level (PERF.md): where an int8
+    stream parts from the CPU's, the parting must be a near tie, the two
+    tokens' plain logits closer than the kernels' logits are to the plain
+    ones at that row, which lie within the 5 % bar."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    base = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                               kv_layout="paged")
+    specs = Tr.param_specs(base)
+    cpu_params = Tr.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=base.dtype)
+    cuda_params = _to_cuda(cpu_params)
+    rng = np.random.default_rng(8)
+    prefix = rng.integers(0, base.vocab_size, 320)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+    prompts += [np.concatenate([prefix, rng.integers(0, base.vocab_size, n)]) for n in (32, 17)]
+    out = {"phase": "paged_engine_smoke"}
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        runs = []
+        for layout, params, kset, device in (("paged", cuda_params, KERNELS, None),
+                                             ("contiguous", cuda_params, KERNELS, None),
+                                             ("paged", cpu_params, PLAIN, "cpu")):
+            eng = E.ServingEngine(params, dataclasses.replace(cfg, kv_layout=layout), slots=2,
+                                  max_len=512, kernels=kset, device=device)
+            reqs = [E.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+            for r in reqs[:-1]:
+                eng.submit(r)
+            eng.run()
+            eng.submit(reqs[-1])
+            eng.run()
+            runs.append(([r.generated for r in reqs], [r.status.name for r in reqs],
+                         eng.stats()))
+        (got, statuses, st), (contiguous, _, _), (want, want_statuses, ref_st) = runs
+        parted = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        partings = [dict(request=i, **_parting(torch, cfg, cuda_params, cpu_params, prompts[i],
+                                               got[i], want[i])) for i in parted]
+        ties = all(kv == "int8" and p["plain_gap"] < p["kernel_vs_plain"]
+                   <= LOGIT_REL_TOL * p["max_abs_logit"] for p in partings)
+        ok = (got == contiguous and statuses == want_statuses and ties
+              and st["paged"] == ref_st["paged"] and st["host_transfers"] == st["ticks"]
+              and st["paged"]["prefix_hits"] >= 1)
+        out[kv] = {"streams_equal_contiguous_on_card": got == contiguous,
+                   "streams_equal_cpu": len(prompts) - len(parted), "partings": partings,
+                   "statuses_equal": statuses == want_statuses,
+                   "paged_stats_equal": st["paged"] == ref_st["paged"],
+                   "ticks": st["ticks"], "host_transfers": st["host_transfers"],
+                   "paged": st["paged"]}
+        if not ok:
+            emit(out)
+            fail(f"paged_engine_smoke[{kv}]: streams equal the contiguous engine's on the "
+                 f"card {got == contiguous}; streams parting from the CPU's {partings}; "
+                 f"statuses equal {statuses == want_statuses}, paged stats equal "
+                 f"{st['paged'] == ref_st['paged']}, transfers {st['host_transfers']} for "
+                 f"{st['ticks']} ticks, prefix hits {st['paged']['prefix_hits']}")
+    report["paged_engine_smoke"] = out
+    emit(out)
+
+
+def _shared_prefix_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    lo, hi = PREFIX_TAILS
+    return [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, int(n))])
+            for n in rng.integers(lo, hi + 1, ENGINE_REQUESTS)]
+
+
+def divergence(torch, cfg, params, prompt, a, b) -> dict:
+    """Where two greedy streams of one prompt part: the step, both tokens,
+    and the gap between their logits at that row of a one-shot forward of
+    the common prefix through the kernels, relative to max |logit|."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import transformer as Tr
+
+    step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    tokens = torch.as_tensor(list(prompt) + list(a[:step]), device="cuda")[None].long()
+    logits, _ = Tr.forward(params, tokens, cfg, kernels=KERNELS)
+    row = logits[0, -1].float()
+    return {"step": step, "tokens": [int(a[step]), int(b[step])],
+            "logit_gap_rel": abs(row[a[step]] - row[b[step]]).item() / row.abs().max().item(),
+            "bar": LOGIT_REL_TOL}
+
+
+def paged_engine_phase(torch, cfg, params, contiguous_streams, report: dict) -> dict:
+    """The full-width paged ServingEngine through the kernels, each cache
+    dtype: (a) the engine phase's workload, whose streams must equal the
+    contiguous kernel streams of the engine phase; (b) 16 requests that
+    share a 576-token prefix, the first served alone, against the
+    contiguous engine on the same requests. Returns the launch counts of (a)
+    by cache dtype."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+
+    prompts, shared = _engine_prompts(cfg), _shared_prefix_prompts(cfg)
+    out = {"phase": "paged_engine", "model": cfg.name, "slots": ENGINE_SLOTS,
+           "max_len": ENGINE_MAX_LEN, "page_size": PAGE_SIZE, "requests": ENGINE_REQUESTS,
+           "max_new": ENGINE_NEW, "shared_prefix": PREFIX_LEN,
+           "shared_prompt_lengths": [len(p) for p in shared]}
+    counts_by_kv = {}
+    with torch.inference_mode():
+        for kv in ("bf16", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv, kv_layout="paged",
+                                    kv_page_size=PAGE_SIZE)
+            sfx = "_quant" if kv == "int8" else ""
+            got, reqs = engine_run(torch, c, params, K.KERNELS, prompts)
+            counts = got["launch_counts"]
+            counts_by_kv[kv] = counts
+            # the contiguous engine again, right after, for the tick times
+            again, _ = engine_run(torch, dataclasses.replace(c, kv_layout="contiguous"), params,
+                                  K.KERNELS, prompts)
+            got["contiguous_after"] = {k: again[k] for k in (
+                "wall_s", "tokens_per_s", "fused_tick_ms_mean", "decode_tick_ms_mean")}
+            streams = [r.generated for r in reqs]
+            got["streams_equal_to_contiguous"] = sum(
+                a == b for a, b in zip(streams, contiguous_streams[kv]))
+            problems = []
+            bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+            if bad:
+                problems.append(f"requests not OK with {ENGINE_NEW} tokens: {bad}")
+            if got["streams_equal_to_contiguous"] != ENGINE_REQUESTS:
+                problems.append(f"{got['streams_equal_to_contiguous']} of {ENGINE_REQUESTS} "
+                                "streams equal the contiguous engine's")
+            if got["host_transfers"] != got["ticks"]:
+                problems.append(f"{got['host_transfers']} transfers for {got['ticks']} ticks")
+            if counts["decode_attention_paged" + sfx] != cfg.n_layers * got["ticks"]:
+                problems.append(f"decode_attention_paged{sfx} launched "
+                                f"{counts['decode_attention_paged' + sfx]} times in "
+                                f"{got['ticks']} ticks")
+            if counts["prefill_append_paged" + sfx] != cfg.n_layers * got["fused_ticks"]:
+                problems.append(f"prefill_append_paged{sfx} launched "
+                                f"{counts['prefill_append_paged' + sfx]} times in "
+                                f"{got['fused_ticks']} fused ticks")
+            if counts["decode_attention" + sfx] or counts["prefill_append" + sfx]:
+                problems.append("contiguous attention kernels launched on the paged path")
+            path = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu")
+            missing = [n for n in path if counts[n] <= 0]
+            if missing:
+                problems.append(f"kernels never launched on the paged path: {missing}")
+            if got["cache_bytes"] != PAGED_POOL_BYTES[kv]:
+                problems.append(f"pool bytes {got['cache_bytes']} != {PAGED_POOL_BYTES[kv]}")
+            # (b) the shared prefix, then the contiguous engine on it
+            pre, preqs = engine_run(torch, c, params, K.KERNELS, shared, first_alone=True)
+            cont, creqs = engine_run(torch, dataclasses.replace(c, kv_layout="contiguous"),
+                                     params, K.KERNELS, shared, first_alone=True)
+            pst = pre["paged"]
+            equal = [r.generated == q.generated for r, q in zip(preqs, creqs)]
+            shared_out = {k: pre[k] for k in ("ticks", "fused_ticks", "host_transfers",
+                                              "wall_s", "tokens_per_s", "fused_tick_ms_mean",
+                                              "decode_tick_ms_mean", "statuses", "paged")}
+            shared_out.update({
+                "prefill_tokens_saved": pst["prefix_hit_tokens"],
+                "contiguous": {k: cont[k] for k in ("ticks", "fused_ticks", "wall_s",
+                                                    "tokens_per_s")},
+                "streams_equal_to_contiguous": sum(equal)})
+            if not all(equal):
+                i = equal.index(False)
+                shared_out["first_divergence"] = {
+                    "request": i, **divergence(torch, c, params, shared[i],
+                                               preqs[i].generated, creqs[i].generated)}
+                if shared_out["first_divergence"]["logit_gap_rel"] > LOGIT_REL_TOL:
+                    problems.append(f"shared prefix: streams part with a logit gap over the "
+                                    f"bar: {shared_out['first_divergence']}")
+            if (pst["prefix_hits"] != ENGINE_REQUESTS - 1
+                    or pst["prefix_hit_tokens"] != (ENGINE_REQUESTS - 1) * 512
+                    or pst["cow_forks"] < ENGINE_REQUESTS - 1):
+                problems.append(f"shared prefix: hits {pst['prefix_hits']}, hit tokens "
+                                f"{pst['prefix_hit_tokens']}, forks {pst['cow_forks']}")
+            if any(r.status.name != "OK" for r in preqs) or pre["host_transfers"] != pre["ticks"]:
+                problems.append("shared prefix: a request not OK or more than one transfer a tick")
+            got["shared_prefix"] = shared_out
+            out[kv] = got
+            if problems:
+                emit(out)
+                fail(f"paged_engine[{kv}]: " + "; ".join(problems))
+    report["paged_engine"] = out
     emit(out)
     return counts_by_kv
 
@@ -1000,16 +1558,19 @@ def main(argv=None) -> int:
     rows = kernel_phase(torch, cfg, report)
     smoke_phase(torch, report)
     engine_smoke_phase(torch, report)
+    paged_engine_smoke_phase(torch, report)
     params = full_params(torch, cfg)
     gen_counts = generate_phase(torch, cfg, params, STEPS, report)
-    eng_counts = engine_phase(torch, cfg, params, report)
+    eng_counts, eng_streams = engine_phase(torch, cfg, params, report)
     chunk_step_phase(torch, cfg, params, report)
+    paged_counts = paged_engine_phase(torch, cfg, params, eng_streams, report)
     for row in rows:  # launches on the main path that runs each kernel
         name = row["name"]
+        counts = paged_counts if "_paged" in name else eng_counts
         if name.endswith("_quant"):
-            row["launches"] = eng_counts["int8"][name]
-        elif name == "prefill_append":
-            row["launches"] = eng_counts["bf16"][name]
+            row["launches"] = counts["int8"][name]
+        elif name.startswith("prefill_append") or "_paged" in name:
+            row["launches"] = counts["bf16"][name]
         else:
             row["launches"] = gen_counts[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -29,6 +29,12 @@ class ModelConfig:
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
     prefill_chunk_budget: int = 512  # chunk tokens appended per engine tick
     kv_cache_dtype: str = "bf16"  # bf16 (the activation dtype) | int8 + f32 row scales
+    # The ServingEngine's KV layout: per-slot rows, or a page pool [P, HK, ps, D]
+    # addressed through a per-slot page table (generate always runs contiguous).
+    kv_layout: str = "contiguous"  # contiguous | paged
+    kv_page_size: int = 64  # tokens per page; must divide prefill_chunk_sizes[0]
+    kv_num_pages: int = 0  # pool size; 0 = auto (slots * cache_len / page_size + 1)
+    prefix_cache: bool = True  # paged only: intern full prompt pages for reuse
     admission_queue_cap: int = 0  # 0 = unbounded
     request_ttl_s: float = 0.0  # 0 = no deadline
     stats_ring_events: int = 4096  # engine event ring (0 = unbounded)

@@ -1,9 +1,14 @@
-"""Ternary weights and int8 activations (``repro/core/ternary.py:36-105,207``).
+"""Ternary weights, int8 activations and the KV page helpers
+(``repro/core/ternary.py:36-105,163-207``).
 
 Weights: absmean scale, then {-1, 0, +1}. Activations and KV-cache rows:
 per-token absmax int8. ``quantize_act`` computes the scale and ``x / scale`` in the *input*
 dtype and rounds half to even (``torch.round``), as the JAX reference does,
 so bf16 rows give the same codes on both sides.
+
+The paged KV layout keeps K/V in a page pool ``[P, HK, ps, ...]`` addressed
+through a page table ``[B, NB]`` int32; ``gather_kv_pages`` gives the dense
+per-slot view, which is exactly the contiguous cache layout.
 """
 
 from __future__ import annotations
@@ -55,6 +60,49 @@ def dequantize_kv(x_i8: torch.Tensor, scale: torch.Tensor,
     """Inverse of :func:`quantize_kv`: the product in f32, then one cast to
     ``dtype`` (the attention compute dtype)."""
     return (x_i8.to(torch.float32) * scale[..., None].to(torch.float32)).to(dtype)
+
+
+def gather_kv_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Dense per-slot view of a page pool: ``[P, HK, ps, ...]`` gathered by
+    ``page_table [B, NB]`` -> ``[B, HK, NB*ps, ...]``, a new tensor. Rows of
+    garbage-page entries land at masked positions."""
+    view = pool[page_table.to(torch.int64)].movedim(1, 2)  # [B, HK, NB, ps, ...]
+    b, hk, nb, ps = view.shape[:4]
+    return view.reshape(b, hk, nb * ps, *view.shape[4:])
+
+
+def scatter_kv_pages(pool: torch.Tensor, page_table: torch.Tensor,
+                     view: torch.Tensor) -> None:
+    """Inverse of :func:`gather_kv_pages`, in place: write a dense ``[B, HK,
+    NB*ps, ...]`` view back through the table. A page that several entries
+    map is either a shared prefix page written back unmodified (the same
+    values) or the garbage page (content free), so which duplicate lands
+    last does not matter."""
+    b, hk, m = view.shape[:3]
+    nb = page_table.shape[1]
+    blocks = view.reshape(b, hk, nb, m // nb, *view.shape[3:]).movedim(2, 1)
+    pool[page_table.reshape(-1).to(torch.int64)] = blocks.reshape(
+        b * nb, *blocks.shape[2:]).to(pool.dtype)
+
+
+def kv_page_rows(page_table: torch.Tensor, pos: torch.Tensor,
+                 page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each slot's frontier row ``pos [B]`` lives in the pool: (page
+    ``table[b, pos // page_size]``, row ``pos % page_size``), both [B] int64."""
+    pos = pos.to(torch.int64)
+    page = page_table.to(torch.int64).gather(1, (pos // page_size)[:, None])[:, 0]
+    return page, pos % page_size
+
+
+def update_kv_pages(pool: torch.Tensor, page_table: torch.Tensor, val: torch.Tensor,
+                    pos: torch.Tensor, page_size: int, *, rows=None) -> None:
+    """The decode append through the table, in place: ``val [B, HK, ...]``
+    lands at row ``pos % page_size`` of page ``table[b, pos // page_size]``.
+    Slots whose block is unmapped write the shared garbage page. ``rows``
+    passes :func:`kv_page_rows` computed once for every leaf and layer of a
+    step."""
+    page, row = kv_page_rows(page_table, pos, page_size) if rows is None else rows
+    pool[page, :, row] = val.to(pool.dtype)
 
 
 def ternary_matmul_ref(x_i8: torch.Tensor, x_scale: torch.Tensor,

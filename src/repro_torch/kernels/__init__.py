@@ -31,16 +31,20 @@ class KernelSet:
     ternary_swiglu: Callable
     decode_attention: Callable  # an int8 cache (k_scale=...) takes the int8 variant
     prefill_append: Callable  # likewise
+    decode_attention_paged: Callable  # the paged layout: pools and a page table
+    prefill_append_paged: Callable  # likewise
 
 
 KERNELS = KernelSet(_nq_ops.norm_quant, _tm_ops.ternary_gemv,
                     _tm_ops.ternary_swiglu, _da_ops.decode_attention,
-                    _pa_ops.prefill_append)
+                    _pa_ops.prefill_append, _da_ops.decode_attention_paged,
+                    _pa_ops.prefill_append_paged)
 PLAIN = KernelSet(_nq_ref.norm_quant, _tm_ref.ternary_gemv,
                   _tm_ref.ternary_swiglu, _da_ref.decode_attention,
-                  _pa_ref.prefill_append)
+                  _pa_ref.prefill_append, _da_ref.decode_attention_paged,
+                  _pa_ref.prefill_append_paged)
 
-# The eight launching wrappers, by the TPU entry point each replaces.
+# The twelve launching wrappers, by the TPU entry point each replaces.
 WRAPPERS = {
     "norm_quant": _nq_ops.norm_quant,
     "ternary_gemv": _tm_ops.ternary_gemv,
@@ -50,6 +54,10 @@ WRAPPERS = {
     "decode_attention_quant": _da_ops.decode_attention_quant,
     "prefill_append": _pa_ops.prefill_append,
     "prefill_append_quant": _pa_ops.prefill_append_quant,
+    "decode_attention_paged": _da_ops.decode_attention_paged,
+    "decode_attention_paged_quant": _da_ops.decode_attention_paged_quant,
+    "prefill_append_paged": _pa_ops.prefill_append_paged,
+    "prefill_append_paged_quant": _pa_ops.prefill_append_paged_quant,
 }
 
 

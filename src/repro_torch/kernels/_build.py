@@ -59,6 +59,15 @@ SIGNATURES = {
     # hk, g, c, m, d, window, softcap, scale, prefix_limit, quant, dtype, stream
     "tm_prefill_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                           _F, _I, _I, _I, _P),
+    # q, k_pool, v_pool, k_scale, v_scale, page_table, pos, out, bhk, hk, g,
+    # nb, ps, d, window, softcap, scale, quant, dtype, stream
+    "tm_decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _F, _I, _I, _P),
+    # q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, page_table, offset,
+    # out, bhk, hk, g, c, nb, ps, d, window, softcap, scale, prefix_limit,
+    # quant, dtype, stream
+    "tm_prefill_append_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _F, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

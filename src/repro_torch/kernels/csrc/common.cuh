@@ -131,6 +131,22 @@ __device__ __forceinline__ void x_words4(const int8_t* xr, int i, int n4, int* o
   out[3] = (int)__byte_perm(ab_hi, cd_hi, 0x7632);
 }
 
+// Where logical row r of (slot b = bh / hk, kv head h = bh % hk) lives, as
+// an index of rows of D elements (and of the int8 cache's row scales): row
+// bh * m + r of a contiguous cache [B*HK, M], or, through the page table pt
+// [B, NB] int32, row (pt[b, r / ps] * HK + h) * ps + r % ps of a page pool
+// [P*HK, ps] (the paged layout, repro/core/ternary.py:163-204).
+template <bool kPaged>
+__device__ __forceinline__ size_t kv_row(const int* __restrict__ pt, int bh, int hk, int m,
+                                         int nb, int ps, int r) {
+  if constexpr (kPaged) {
+    const int b = bh / hk;
+    return ((size_t)pt[b * nb + r / ps] * hk + (bh - b * hk)) * ps + r % ps;
+  } else {
+    return (size_t)bh * m + r;
+  }
+}
+
 // Dynamic shared memory above 48 KB must be asked for per kernel.
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -2,7 +2,10 @@
 //
 // Replaces: repro/kernels/decode_attention/kernel.py::decode_attention_kernel
 // (kernel.py:305 -> _call :113, pallas_call :170) and, with an int8 cache,
-// ::decode_attention_kernel_quant (kernel.py:324, body _kernel :75-106).
+// ::decode_attention_kernel_quant (kernel.py:324, body _kernel :75-106);
+// over a page pool, ::decode_attention_paged_kernel (kernel.py:261) and
+// ::decode_attention_paged_kernel_quant (kernel.py:281), both built by
+// _call_paged (pallas_call :250).
 //
 // Computes, for every (slot b, kv head) row bh of q [B*HK, G, D] against
 // k/v [B*HK, M, D] (bf16 or f32) and the slot's frontier p = pos[b]:
@@ -17,6 +20,13 @@
 // [B*HK, M] and dequantizes each row in registers as T(code * scale) in f32
 // (ternary.py:102) before it is dotted or weighted; the dense path's
 // arithmetic is unchanged.
+// The paged variant (kPaged) reads k/v from page pools [P*HK, ps, D] (int8:
+// scales [P*HK, ps]) through the page table pt [B, NB]: logical row r of
+// slot b, kv head h is pool row (pt[b, r / ps] * HK + h) * ps + r % ps
+// (rtk::kv_row). Nothing else differs, so on any table its output is bit
+// for bit the contiguous kernel's on the gathered dense view. Rows outside
+// [first, last] are not looked up: no table entry or page past the frontier
+// or below the window foot is read.
 //
 // Bound on the H100: bytes. Each live cache row is read once (2*D elements
 // of K and V) for 4*G*D flops, far below the ridge. At tellme's decode
@@ -28,8 +38,10 @@
 // thread scores one row (16-byte loads of its K row for bf16, D = 96 being
 // no power of two), block reductions update (m, l), and then threads own
 // (g, d) outputs for the P.V update, reading rows of V together and
-// unrolled so that several rows' loads are in flight. Split-KV across
-// blocks is later work.
+// unrolled so that several rows' loads are in flight. A 128-row step spans
+// two 64-row pages, so the paged variant looks up each thread's row, and
+// keeps the row indices of the step in shared memory for the P.V loop.
+// Split-KV across blocks is later work.
 
 #include <math.h>
 
@@ -109,14 +121,16 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 }
 
 // CT is the cache's element type: T (dense) or int8_t (with row scales
-// ks, vs; unused and null for a dense cache).
-template <typename T, typename CT>
+// ks, vs; unused and null for a dense cache). With kPaged, k, v, ks, vs are
+// page pools read through pt [B, NB] (null and unused otherwise).
+template <typename T, typename CT, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
                             const CT* __restrict__ v, const float* __restrict__ ks,
                             const float* __restrict__ vs, const int* __restrict__ pos,
-                            T* __restrict__ out, int hk, int g, int m, int d, int window,
-                            float softcap, float scale) {
+                            const int* __restrict__ pt, T* __restrict__ out, int hk, int g,
+                            int m, int d, int nb, int ps, int window, float softcap,
+                            float scale) {
   constexpr bool kQuant = std::is_same<CT, int8_t>::value;
   extern __shared__ float smem[];
   float* qf = smem;             // [g*d] queries in f32
@@ -126,14 +140,11 @@ __global__ void __launch_bounds__(kThreads)
   float* lrow = mrow + g;       // [g] running sum
   float* alpha = lrow + g;      // [g] rescale of this step
   float* red = alpha + g;       // [32] reduction scratch
+  int* rows = reinterpret_cast<int*>(red + 32);  // [kBkv] pool rows (kPaged)
 
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int p = pos[bh / hk];
   const T* qb = q + (size_t)bh * g * d;
-  const CT* kb = k + (size_t)bh * m * d;
-  const CT* vb = v + (size_t)bh * m * d;
-  const float* ksb = kQuant ? ks + (size_t)bh * m : nullptr;
-  const float* vsb = kQuant ? vs + (size_t)bh * m : nullptr;
 
   for (int i = tid; i < g * d; i += kThreads) {
     qf[i] = rtk::Num<T>::to_f(qb[i]);
@@ -149,17 +160,19 @@ __global__ void __launch_bounds__(kThreads)
   const int first = window > 0 ? max(p - window + 1, 0) : 0;  // first live row
   for (int j = first / kBkv; j <= last / kBkv; ++j) {
     // scores: thread tid owns row j*kBkv + tid; rows outside [first, last]
-    // are masked with -1e30 and never read
+    // are masked with -1e30 and never read (nor looked up)
     const int kp = j * kBkv + tid;
     const bool live = kp >= first && kp <= last;
+    const size_t row = live ? rtk::kv_row<kPaged>(pt, bh, hk, m, nb, ps, kp) : 0;
+    if constexpr (kPaged) rows[tid] = (int)row;
     for (int gi = 0; gi < g; ++gi) {
       float sc = kNegInf;
       if (live) {
         float dot;
         if constexpr (kQuant)
-          dot = dot_row_i8<T>(qf + gi * d, kb + (size_t)kp * d, ksb[kp], d);
+          dot = dot_row_i8<T>(qf + gi * d, k + row * d, ks[row], d);
         else
-          dot = dot_row<T>(qf + gi * d, kb + (size_t)kp * d, d);
+          dot = dot_row<T>(qf + gi * d, k + row * d, d);
         sc = __fmul_rn(dot, scale);
         if (softcap > 0.0f) sc = __fmul_rn(softcap, tanhf(__fdiv_rn(sc, softcap)));
       }
@@ -186,23 +199,38 @@ __global__ void __launch_bounds__(kThreads)
     const int r0 = max(first - j * kBkv, 0), r1 = min(last - j * kBkv, kBkv - 1);
     for (int i = tid; i < g * d; i += kThreads) {
       const int gi = i / d, e = i - gi * d;
-      const CT* vcol = vb + (size_t)j * kBkv * d + e;
       const float* pr = s + gi * kBkv;
       float o = 0.0f;
-      if constexpr (kQuant) {
-        const float* vsr = vsb + (size_t)j * kBkv;
+      if constexpr (kPaged) {
 #pragma unroll 8
-        for (int r = r0; r <= r1; ++r)
-          o = __fadd_rn(o, __fmul_rn(rtk::round_to<T>(pr[r]),
-                                     rtk::kv_dequant<T>(vcol[(size_t)r * d], vsr[r])));
+        for (int r = r0; r <= r1; ++r) {
+          const size_t vr = (size_t)rows[r];
+          float vv;
+          if constexpr (kQuant)
+            vv = rtk::kv_dequant<T>(v[vr * d + e], vs[vr]);
+          else
+            vv = rtk::Num<T>::to_f(v[vr * d + e]);
+          o = __fadd_rn(o, __fmul_rn(rtk::round_to<T>(pr[r]), vv));
+        }
       } else {
+        const size_t row0 = (size_t)bh * m + (size_t)j * kBkv;
+        const CT* vcol = v + row0 * d + e;
+        if constexpr (kQuant) {
+          const float* vsr = vs + row0;
 #pragma unroll 8
-        for (int r = r0; r <= r1; ++r)
-          o = __fadd_rn(o, __fmul_rn(rtk::round_to<T>(pr[r]), rtk::Num<T>::to_f(vcol[(size_t)r * d])));
+          for (int r = r0; r <= r1; ++r)
+            o = __fadd_rn(o, __fmul_rn(rtk::round_to<T>(pr[r]),
+                                       rtk::kv_dequant<T>(vcol[(size_t)r * d], vsr[r])));
+        } else {
+#pragma unroll 8
+          for (int r = r0; r <= r1; ++r)
+            o = __fadd_rn(o, __fmul_rn(rtk::round_to<T>(pr[r]),
+                                       rtk::Num<T>::to_f(vcol[(size_t)r * d])));
+        }
       }
       acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha[gi]), o);
     }
-    __syncthreads();  // s is rewritten by the next step
+    __syncthreads();  // s and rows are rewritten by the next step
   }
 
   T* ob = out + (size_t)bh * g * d;
@@ -212,19 +240,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename CT>
+template <typename T, typename CT, bool kPaged>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* pos, void* out, int bhk, int hk, int g, int m, int d, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           const void* pos, const void* pt, void* out, int bhk, int hk, int g, int m, int d,
+           int nb, int ps, int window, float softcap, float scale, cudaStream_t stream) {
   if (bhk == 0) return 0;
-  const size_t smem = (size_t)(2 * g * d + g * kBkv + 3 * g + 32) * sizeof(float);
-  cudaError_t err = rtk::allow_smem(decode_attention_kernel<T, CT>, smem);
+  const size_t smem = (size_t)(2 * g * d + g * kBkv + 3 * g + 32) * sizeof(float) +
+                      (kPaged ? kBkv * sizeof(int) : 0);
+  cudaError_t err = rtk::allow_smem(decode_attention_kernel<T, CT, kPaged>, smem);
   if (err != cudaSuccess) return (int)err;
-  decode_attention_kernel<T, CT><<<bhk, kThreads, smem, stream>>>(
+  decode_attention_kernel<T, CT, kPaged><<<bhk, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(pos), static_cast<T*>(out), hk, g, m, d, window, softcap,
-      scale);
+      static_cast<const int*>(pos), static_cast<const int*>(pt), static_cast<T*>(out), hk, g,
+      m, d, nb, ps, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -236,11 +265,12 @@ extern "C" int tm_decode_attention(const void* q, const void* k, const void* v,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rtk::kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, pos, out, bhk, hk,
-                                                g, m, d, window, softcap, scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(q, k, v, nullptr, nullptr, pos,
+                                                       nullptr, out, bhk, hk, g, m, d, 0, 0,
+                                                       window, softcap, scale, s);
   if (dtype == rtk::kF32)
-    return launch<float, float>(q, k, v, nullptr, nullptr, pos, out, bhk, hk, g, m, d, window,
-                                softcap, scale, s);
+    return launch<float, float, false>(q, k, v, nullptr, nullptr, pos, nullptr, out, bhk, hk,
+                                       g, m, d, 0, 0, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -252,10 +282,36 @@ extern "C" int tm_decode_attention_quant(const void* q, const void* k, const voi
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rtk::kBF16)
-    return launch<__nv_bfloat16, int8_t>(q, k, v, ks, vs, pos, out, bhk, hk, g, m, d, window,
-                                         softcap, scale, s);
+    return launch<__nv_bfloat16, int8_t, false>(q, k, v, ks, vs, pos, nullptr, out, bhk, hk,
+                                                g, m, d, 0, 0, window, softcap, scale, s);
   if (dtype == rtk::kF32)
-    return launch<float, int8_t>(q, k, v, ks, vs, pos, out, bhk, hk, g, m, d, window, softcap,
-                                 scale, s);
+    return launch<float, int8_t, false>(q, k, v, ks, vs, pos, nullptr, out, bhk, hk, g, m, d,
+                                        0, 0, window, softcap, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The paged variants: k, v pools [P*HK, ps, D] of T (quant = 0) or int8 with
+// f32 scale pools ks, vs [P*HK, ps] (quant = 1), read through pt [B, NB]
+// int32; the logical cache holds nb * ps rows.
+extern "C" int tm_decode_attention_paged(const void* q, const void* k, const void* v,
+                                         const void* ks, const void* vs, const void* pt,
+                                         const void* pos, void* out, int bhk, int hk, int g,
+                                         int nb, int ps, int d, int window, float softcap,
+                                         float scale, int quant, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = nb * ps;
+  using bf16 = __nv_bfloat16;
+  if (dtype == rtk::kBF16 && quant)
+    return launch<bf16, int8_t, true>(q, k, v, ks, vs, pos, pt, out, bhk, hk, g, m, d, nb, ps,
+                                      window, softcap, scale, s);
+  if (dtype == rtk::kBF16)
+    return launch<bf16, bf16, true>(q, k, v, nullptr, nullptr, pos, pt, out, bhk, hk, g, m, d,
+                                    nb, ps, window, softcap, scale, s);
+  if (dtype == rtk::kF32 && quant)
+    return launch<float, int8_t, true>(q, k, v, ks, vs, pos, pt, out, bhk, hk, g, m, d, nb, ps,
+                                       window, softcap, scale, s);
+  if (dtype == rtk::kF32)
+    return launch<float, float, true>(q, k, v, nullptr, nullptr, pos, pt, out, bhk, hk, g, m,
+                                      d, nb, ps, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,9 @@ probabilities cast to the cache dtype before P·V, and the
 block, so the two agree to rounding, not bit for bit. With an int8 cache
 (``k_scale``/``v_scale`` [B, HK, M] f32) the cache is first dequantized to
 q's dtype (``dequantize_kv``), which defines the quantized kernel
-(``kernel.py:324``).
+(``kernel.py:324``). The paged form gathers each slot's dense view of the
+page pools (``gather_kv_pages``) and runs the contiguous version on it, as
+``repro/models/attention.py:337-347`` defines the paged XLA form.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import math
 
 import torch
 
-from ...core.ternary import dequantize_kv
+from ...core.ternary import dequantize_kv, gather_kv_pages
 
 NEG_INF = -1e30
 
@@ -47,3 +49,16 @@ def decode_attention(q, k_cache, v_cache, pos, *, k_scale=None, v_scale=None,
     o = torch.matmul(p.to(v_cache.dtype).to(torch.float32), v_cache.to(torch.float32))
     o = o / torch.clamp(l, min=1e-30)
     return o.to(q.dtype).reshape(b, h, d)
+
+
+def decode_attention_paged(q, k_pool, v_pool, page_table, pos, *, k_scale=None,
+                           v_scale=None, window: int = 0, softcap: float = 0.0):
+    """q [B, H, D] against k/v pools [P, HK, ps, D] (int8 with ``k_scale``/
+    ``v_scale`` pools [P, HK, ps] f32) through ``page_table [B, NB]`` int32;
+    pos [B] -> [B, H, D]."""
+    kd, vd = gather_kv_pages(k_pool, page_table), gather_kv_pages(v_pool, page_table)
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = gather_kv_pages(k_scale, page_table), gather_kv_pages(v_scale, page_table)
+    return decode_attention(q, kd, vd, pos, k_scale=ks, v_scale=vs, window=window,
+                            softcap=softcap)

@@ -3,7 +3,10 @@
 //
 // Replaces: repro/kernels/prefill_append/kernel.py::prefill_append_kernel
 // (kernel.py:532) and ::prefill_append_kernel_quant (kernel.py:556), both
-// built by _call (pallas_call at :246) around the body _kernel (:53-157).
+// built by _call (pallas_call at :246) around the body _kernel (:53-157);
+// over a page pool, ::prefill_append_paged_kernel (kernel.py:477) and
+// ::prefill_append_paged_kernel_quant (kernel.py:503), both built by
+// _call_paged (:369, pallas_call :464).
 //
 // Computes, for every (slot b, kv head) row bh = b*HK + h of the grouped
 // chunk queries q [B*HK, G*C, D] (row = g*C + i sits at position off[b] + i):
@@ -22,6 +25,19 @@
 //   only write: their prefix is never read (kernel.py:98-101). Their output
 //   is garbage by contract; here it is zero, and no attention is computed
 //   for them at all (the TPU kernel still runs their chunk phase).
+// The paged variant (kPaged) keeps the cache as page pools [P*HK, ps, D]
+// (int8: scales [P*HK, ps]) read and written through the page table pt
+// [B, NB]: logical row r of slot b, kv head h is pool row
+// (pt[b, r / ps] * HK + h) * ps + r % ps (rtk::kv_row). Everything else is
+// the contiguous kernel, so on any table its output is bit for bit the
+// contiguous kernel's on the gathered dense view, and the pools after the
+// append are that kernel's cache scattered back through the table. A 32-row
+// kv tile starts at a multiple of 32 and so lies inside one page (the
+// wrapper asks ps % 32 == 0), and the chunk's C rows fill whole pages
+// (C % ps == 0, off % C == 0), written one page at a time. Write-only slots
+// write through trash-region entries, which map the garbage page: several
+// slots may write it at once, which is benign because the page is never
+// read unmasked (repro/serving/paging.py:30-35).
 //
 // Bound on the H100: at the engine's tick shapes (C = 256, D = 96, a few
 // hundred prefix rows) a slot's chunk q/k/v/out and its live prefix are a
@@ -39,7 +55,11 @@
 // (16, 32, 64, 96 or 128) and the per-thread slices are read as float4. The
 // blocks of query tile 0 write the chunk into the cache at the end: no block
 // of this launch reads those rows (prefix reads stop below off, chunk reads
-// come from k_new), so the in-place append cannot race.
+// come from k_new), so the in-place append cannot race. Paged, the same
+// holds across slots: a page the chunk writes has refcount 1 (the engine's
+// ensure_writable forks shared pages first), so no other slot's table maps
+// it, and the chunk attends to its own rows from k_new/v_new, never from
+// the pool.
 
 #include <math.h>
 
@@ -105,13 +125,16 @@ __device__ __forceinline__ void load_tile(const CT* __restrict__ src, const floa
   }
 }
 
-template <typename T, typename CT, int D, bool kQuant>
+// With kPaged, kc, vc, ks, vs are page pools read and written through pt
+// [B, NB] (null and unused otherwise); m = nb * ps.
+template <typename T, typename CT, int D, bool kQuant, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
     prefill_append_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                           const T* __restrict__ vn, CT* __restrict__ kc, CT* __restrict__ vc,
                           float* __restrict__ ks, float* __restrict__ vs,
-                          const int* __restrict__ off, T* __restrict__ out, int hk, int g, int c,
-                          int m, int window, float softcap, float scale, int prefix_limit) {
+                          const int* __restrict__ off, const int* __restrict__ pt,
+                          T* __restrict__ out, int hk, int g, int c, int m, int nb, int ps,
+                          int window, float softcap, float scale, int prefix_limit) {
   constexpr int kDp = D / kQuad;  // dims per thread
   __shared__ __align__(16) float k_s[kTk * D];
   __shared__ __align__(16) float v_s[kTk * D];
@@ -198,14 +221,13 @@ __global__ void __launch_bounds__(kThreads)
   const bool write_only = prefix_limit > 0 && o >= prefix_limit;
   const int hi = write_only ? 0 : min(max(o, 0), m);
   const int lo = window > 0 ? max(o - window + 1, 0) : 0;  // row 0's window foot
-  const CT* kcb = kc + (size_t)bh * m * D;
-  const CT* vcb = vc + (size_t)bh * m * D;
   for (int t0 = (lo / kTk) * kTk; t0 < hi; t0 += kTk) {
     const int n = min(kTk, hi - t0);
     __syncthreads();  // the previous tile is consumed
-    const size_t row0 = (size_t)bh * m + t0;
-    load_tile<T, CT, D, kQuant>(kcb + (size_t)t0 * D, kQuant ? ks + row0 : nullptr, n, k_s);
-    load_tile<T, CT, D, kQuant>(vcb + (size_t)t0 * D, kQuant ? vs + row0 : nullptr, n, v_s);
+    // the tile's kTk rows are consecutive in one page (or in the slot's rows)
+    const size_t row0 = rtk::kv_row<kPaged>(pt, bh, hk, m, nb, ps, t0);
+    load_tile<T, CT, D, kQuant>(kc + row0 * D, kQuant ? ks + row0 : nullptr, n, k_s);
+    load_tile<T, CT, D, kQuant>(vc + row0 * D, kQuant ? vs + row0 : nullptr, n, v_s);
     __syncthreads();
     update(t0, n);
   }
@@ -252,53 +274,63 @@ __global__ void __launch_bounds__(kThreads)
 
   // --- the append: tile-0 blocks write rows [o, o + c) of this bh --------
   if (blockIdx.y != 0 || !in_range) return;
-  CT* kdst = kc + ((size_t)bh * m + o) * D;
-  CT* vdst = vc + ((size_t)bh * m + o) * D;
   if constexpr (kQuant) {
     const int w = tid >> 5, lane = tid & 31;
     for (int j = w; j < c; j += kWarps) {
+      const size_t row = rtk::kv_row<kPaged>(pt, bh, hk, m, nb, ps, o + j);
       const T* kx = knb + (size_t)j * D;
       const T* vx = vnb + (size_t)j * D;
       const float ksc = row_scale<T>(kx, D), vsc = row_scale<T>(vx, D);
       for (int e = lane; e < D; e += 32) {
-        kdst[(size_t)j * D + e] = rtk::act_code<T>(rtk::Num<T>::to_f(kx[e]), ksc);
-        vdst[(size_t)j * D + e] = rtk::act_code<T>(rtk::Num<T>::to_f(vx[e]), vsc);
+        kc[row * D + e] = rtk::act_code<T>(rtk::Num<T>::to_f(kx[e]), ksc);
+        vc[row * D + e] = rtk::act_code<T>(rtk::Num<T>::to_f(vx[e]), vsc);
       }
       if (lane == 0) {
-        ks[(size_t)bh * m + o + j] = ksc;
-        vs[(size_t)bh * m + o + j] = vsc;
+        ks[row] = ksc;
+        vs[row] = vsc;
       }
     }
   } else {
-    for (int i = tid; i < c * D; i += kThreads) {
-      kdst[i] = knb[i];
-      vdst[i] = vnb[i];
+    // whole pages (paged) or the slot's c rows at once (contiguous)
+    const int span = kPaged ? ps : c;
+    for (int t0 = 0; t0 < c; t0 += span) {
+      CT* kdst = kc + rtk::kv_row<kPaged>(pt, bh, hk, m, nb, ps, o + t0) * D;
+      CT* vdst = vc + rtk::kv_row<kPaged>(pt, bh, hk, m, nb, ps, o + t0) * D;
+      const T* ksrc = knb + (size_t)t0 * D;
+      const T* vsrc = vnb + (size_t)t0 * D;
+      for (int i = tid; i < span * D; i += kThreads) {
+        kdst[i] = ksrc[i];
+        vdst[i] = vsrc[i];
+      }
     }
   }
 }
 
-template <typename T, typename CT, bool kQuant, int D>
+template <typename T, typename CT, bool kQuant, bool kPaged, int D>
 int launch_d(const void* q, const void* kn, const void* vn, void* kc, void* vc, void* ks,
-             void* vs, const void* off, void* out, int bhk, int hk, int g, int c, int m,
-             int window, float softcap, float scale, int prefix_limit, cudaStream_t stream) {
+             void* vs, const void* off, const void* pt, void* out, int bhk, int hk, int g,
+             int c, int m, int nb, int ps, int window, float softcap, float scale,
+             int prefix_limit, cudaStream_t stream) {
   const dim3 grid(bhk, (g * c + kRows - 1) / kRows);
-  prefill_append_kernel<T, CT, D, kQuant><<<grid, kThreads, 0, stream>>>(
+  prefill_append_kernel<T, CT, D, kQuant, kPaged><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn), static_cast<const T*>(vn),
       static_cast<CT*>(kc), static_cast<CT*>(vc), static_cast<float*>(ks),
-      static_cast<float*>(vs), static_cast<const int*>(off), static_cast<T*>(out), hk, g, c,
-      m, window, softcap, scale, prefix_limit);
+      static_cast<float*>(vs), static_cast<const int*>(off), static_cast<const int*>(pt),
+      static_cast<T*>(out), hk, g, c, m, nb, ps, window, softcap, scale, prefix_limit);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename CT, bool kQuant>
+template <typename T, typename CT, bool kQuant, bool kPaged>
 int launch(const void* q, const void* kn, const void* vn, void* kc, void* vc, void* ks,
-           void* vs, const void* off, void* out, int bhk, int hk, int g, int c, int m, int d,
-           int window, float softcap, float scale, int prefix_limit, cudaStream_t stream) {
+           void* vs, const void* off, const void* pt, void* out, int bhk, int hk, int g, int c,
+           int m, int nb, int ps, int d, int window, float softcap, float scale,
+           int prefix_limit, cudaStream_t stream) {
   if (bhk == 0 || c == 0) return 0;
-#define TM_PA_CASE(D)                                                                         \
-  case D:                                                                                    \
-    return launch_d<T, CT, kQuant, D>(q, kn, vn, kc, vc, ks, vs, off, out, bhk, hk, g, c, m, \
-                                      window, softcap, scale, prefix_limit, stream);
+#define TM_PA_CASE(D)                                                                       \
+  case D:                                                                                  \
+    return launch_d<T, CT, kQuant, kPaged, D>(q, kn, vn, kc, vc, ks, vs, off, pt, out, bhk, \
+                                              hk, g, c, m, nb, ps, window, softcap, scale,  \
+                                              prefix_limit, stream);
   switch (d) {
     TM_PA_CASE(16)
     TM_PA_CASE(32)
@@ -311,6 +343,31 @@ int launch(const void* q, const void* kn, const void* vn, void* kc, void* vc, vo
 #undef TM_PA_CASE
 }
 
+template <bool kPaged>
+int dispatch(const void* q, const void* kn, const void* vn, void* kc, void* vc, void* ks,
+             void* vs, const void* off, const void* pt, void* out, int bhk, int hk, int g,
+             int c, int m, int nb, int ps, int d, int window, float softcap, float scale,
+             int prefix_limit, int quant, int dtype, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == rtk::kBF16 && quant)
+    return launch<bf16, int8_t, true, kPaged>(q, kn, vn, kc, vc, ks, vs, off, pt, out, bhk, hk,
+                                              g, c, m, nb, ps, d, window, softcap, scale,
+                                              prefix_limit, s);
+  if (dtype == rtk::kBF16)
+    return launch<bf16, bf16, false, kPaged>(q, kn, vn, kc, vc, ks, vs, off, pt, out, bhk, hk,
+                                             g, c, m, nb, ps, d, window, softcap, scale,
+                                             prefix_limit, s);
+  if (dtype == rtk::kF32 && quant)
+    return launch<float, int8_t, true, kPaged>(q, kn, vn, kc, vc, ks, vs, off, pt, out, bhk,
+                                               hk, g, c, m, nb, ps, d, window, softcap, scale,
+                                               prefix_limit, s);
+  if (dtype == rtk::kF32)
+    return launch<float, float, false, kPaged>(q, kn, vn, kc, vc, ks, vs, off, pt, out, bhk,
+                                               hk, g, c, m, nb, ps, d, window, softcap, scale,
+                                               prefix_limit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // quant = 0: dense cache of T (ks, vs unused); quant = 1: int8 cache with
@@ -320,19 +377,21 @@ extern "C" int tm_prefill_append(const void* q, const void* kn, const void* vn, 
                                  int bhk, int hk, int g, int c, int m, int d, int window,
                                  float softcap, float scale, int prefix_limit, int quant,
                                  int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  if (dtype == rtk::kBF16 && quant)
-    return launch<bf16, int8_t, true>(q, kn, vn, kc, vc, ks, vs, off, out, bhk, hk, g, c, m, d,
-                                      window, softcap, scale, prefix_limit, s);
-  if (dtype == rtk::kBF16)
-    return launch<bf16, bf16, false>(q, kn, vn, kc, vc, ks, vs, off, out, bhk, hk, g, c, m, d,
-                                     window, softcap, scale, prefix_limit, s);
-  if (dtype == rtk::kF32 && quant)
-    return launch<float, int8_t, true>(q, kn, vn, kc, vc, ks, vs, off, out, bhk, hk, g, c, m,
-                                       d, window, softcap, scale, prefix_limit, s);
-  if (dtype == rtk::kF32)
-    return launch<float, float, false>(q, kn, vn, kc, vc, ks, vs, off, out, bhk, hk, g, c, m,
-                                       d, window, softcap, scale, prefix_limit, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, kn, vn, kc, vc, ks, vs, off, nullptr, out, bhk, hk, g, c, m, 0, 0,
+                         d, window, softcap, scale, prefix_limit, quant, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The paged variants: kc, vc pools [P*HK, ps, D] (ks, vs [P*HK, ps] for
+// quant = 1) read and written through pt [B, NB] int32; the logical cache
+// holds nb * ps rows.
+extern "C" int tm_prefill_append_paged(const void* q, const void* kn, const void* vn, void* kc,
+                                       void* vc, void* ks, void* vs, const void* pt,
+                                       const void* off, void* out, int bhk, int hk, int g,
+                                       int c, int nb, int ps, int d, int window, float softcap,
+                                       float scale, int prefix_limit, int quant, int dtype,
+                                       void* stream) {
+  return dispatch<true>(q, kn, vn, kc, vc, ks, vs, off, pt, out, bhk, hk, g, c, nb * ps, nb,
+                        ps, d, window, softcap, scale, prefix_limit, quant, dtype,
+                        static_cast<cudaStream_t>(stream));
 }

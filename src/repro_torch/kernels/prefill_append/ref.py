@@ -16,6 +16,11 @@ rounding, not bit for bit; the cache bytes they write agree exactly.
 
 The append indexes with device tensors (no per-slot host loop), so the
 plain version makes no device-to-host transfer either.
+
+The paged form gathers each slot's dense view of the page pools, runs the
+contiguous version on it (append included) and scatters the whole view back
+through the table in place, as ``repro/models/attention.py:385-411`` defines
+the paged XLA form.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import math
 
 import torch
 
-from ...core.ternary import dequantize_kv, quantize_kv
+from ...core.ternary import dequantize_kv, gather_kv_pages, quantize_kv, scatter_kv_pages
 
 NEG_INF = -1e30
 
@@ -93,3 +98,19 @@ def prefill_append(q, k_new, v_new, k_cache, v_cache, offset, *, k_scale=None,
     if prefix_limit > 0:  # write-only slots
         o = torch.where(off[:, :, :, None, None] >= prefix_limit, torch.zeros_like(o), o)
     return o.to(q.dtype).reshape(b, h, c, d)
+
+
+def prefill_append_paged(q, k_new, v_new, k_pool, v_pool, page_table, offset, *,
+                         k_scale=None, v_scale=None, window: int = 0,
+                         softcap: float = 0.0, prefix_limit: int = 0):
+    """:func:`prefill_append` over k/v pools [P, HK, ps, D] (int8 with
+    ``k_scale``/``v_scale`` pools [P, HK, ps] f32) through ``page_table
+    [B, NB]`` int32. Writes the chunk into the pools in place; returns out."""
+    pools = [k_pool, v_pool] + ([k_scale, v_scale] if k_scale is not None else [])
+    views = [gather_kv_pages(p, page_table) for p in pools]
+    scales = dict(k_scale=views[2], v_scale=views[3]) if k_scale is not None else {}
+    out = prefill_append(q, k_new, v_new, views[0], views[1], offset, window=window,
+                         softcap=softcap, prefix_limit=prefix_limit, **scales)
+    for pool, view in zip(pools, views):
+        scatter_kv_pages(pool, page_table, view)
+    return out

@@ -1,4 +1,5 @@
-"""Attention paths (``repro/models/attention.py``), contiguous KV layout.
+"""Attention paths (``repro/models/attention.py``), contiguous and paged KV
+layouts.
 
 * ``prefill_attention`` — causal attention over the whole prompt. The JAX
   package runs it in XLA outside any Pallas kernel (``attention.py:62``),
@@ -16,8 +17,15 @@
   the prefill-append kernel fuses. All write in place where the JAX forms
   return new arrays; the values written are the same.
 
-An int8 cache carries ``k_scale``/``v_scale`` [B, HK, M] f32 beside its
-int8 ``k``/``v``; passing them selects the int8 path.
+* ``decode_attention_paged`` / ``prefill_append_attention_paged``
+  (``attention.py:306,350``) — the same over page pools ``[P, HK, ps, D]``
+  addressed through a page table ``[B, NB]``, through the kernel set's
+  paged wrappers. The decode row is written beforehand through the table
+  (``core.ternary.update_kv_pages``); the chunk append is the kernel's.
+
+An int8 cache carries ``k_scale``/``v_scale`` [B, HK, M] f32 (paged: scale
+pools [P, HK, ps]) beside its int8 ``k``/``v``; passing them selects the
+int8 path.
 """
 
 from __future__ import annotations
@@ -67,13 +75,39 @@ def prefill_append_attention(q, k_new, v_new, k_cache, v_cache, offset, *, kerne
     ``offset ≡ 0 (mod C)`` (``aligned``); the unaligned append of
     speculative verify is not ported, and asking for it raises, as the JAX
     kernel route does (``attention.py:256-262``)."""
-    if not aligned:
-        raise ValueError(
-            "prefill_append_attention: the kernel requires chunk-aligned offsets "
-            "(aligned=True); the unaligned append of speculative verify is not ported")
+    _require_aligned("prefill_append_attention", aligned)
     return kernels.prefill_append(q, k_new, v_new, k_cache, v_cache, offset,
                                   k_scale=k_scale, v_scale=v_scale,
                                   prefix_limit=prefix_limit)
+
+
+def _require_aligned(name: str, aligned: bool) -> None:
+    if not aligned:
+        raise ValueError(
+            f"{name}: the kernel requires chunk-aligned offsets "
+            "(aligned=True); the unaligned append of speculative verify is not ported")
+
+
+def decode_attention_paged(q, k_pool, v_pool, page_table, pos, *, kernels, k_scale=None,
+                           v_scale=None):
+    """Page-indirect twin of :func:`decode_attention`: q [B, H, D] against
+    k/v pools [P, HK, ps, D] through ``page_table [B, NB]``. The frontier
+    row is already in the pools (``update_kv_pages``)."""
+    return kernels.decode_attention_paged(q, k_pool, v_pool, page_table, pos,
+                                          k_scale=k_scale, v_scale=v_scale)
+
+
+def prefill_append_attention_paged(q, k_new, v_new, k_pool, v_pool, page_table, offset, *,
+                                   kernels, k_scale=None, v_scale=None,
+                                   prefix_limit: int = 0, aligned: bool = True):
+    """Page-indirect twin of :func:`prefill_append_attention`: the chunk's
+    K/V land in the pool pages ``page_table[b, offset/ps + t]`` in place,
+    which the engine has made exclusive to the slot (``ensure_writable``).
+    The same ``aligned`` contract."""
+    _require_aligned("prefill_append_attention_paged", aligned)
+    return kernels.prefill_append_paged(q, k_new, v_new, k_pool, v_pool, page_table,
+                                        offset, k_scale=k_scale, v_scale=v_scale,
+                                        prefix_limit=prefix_limit)
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos) -> None:

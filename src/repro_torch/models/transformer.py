@@ -5,7 +5,10 @@ Parameters keep the JAX tree and layouts: the layer stack lives in
 ``params["blocks"]["b0"]`` with a leading ``[L]`` axis on every leaf (the
 JAX tree's one-layer period: every layer of this family is the same), and
 the KV caches are ``[L, B, HK, M, D]`` (int8 cache: with f32 row scales
-``[L, B, HK, M]``). The JAX package scans over the
+``[L, B, HK, M]``), or, for the engine's paged layout, page pools
+``[L, P, HK, ps, D]`` (``[L, P, HK, ps]``) that ``decode_step`` and
+``prefill_chunk_step`` address through a ``page_table [B, NB]`` shared by
+every layer. The JAX package scans over the
 stacked layers; here a Python loop walks them. Every block runs the
 int8-resident pipeline of ``transformer.py:422-447``: norm-quant prologue,
 q/k/v projections on the int8 row, RoPE, attention, the o projection with
@@ -21,7 +24,7 @@ import torch
 
 from ..core import bitlinear
 from ..core.params import ParamSpec
-from ..core.ternary import dequantize_kv, quantize_kv
+from ..core.ternary import dequantize_kv, kv_page_rows, quantize_kv, update_kv_pages
 from . import attention as attn_ops
 from . import layers as L
 
@@ -89,15 +92,17 @@ def layer_slice(tree, i: int):
 
 
 def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
-                prefix_limit=0):
+                prefix_limit=0, page_table=None, page_rows=None):
     """Attention sub-block on the int8 row ``xq``; returns (x + attn(x), the
     cache rows of this call). ``cache`` is this layer's cache leaves
     ``{"k", "v"[, "k_scale", "v_scale"]}`` (views, updated in place): for a
     decode step (one row, written at ``pos``) or a prefill chunk (rows
-    appended at the offsets ``pos``). None for a one-shot prefill, which
-    returns its K/V as ``{"k", "v"}``, or, with ``cfg.kv_cache_dtype ==
-    "int8"``, quantized and attended as their dequantized rows
-    (``transformer.py:242-256``)."""
+    appended at the offsets ``pos``); with ``page_table`` they are page
+    pools, read and written through it (``transformer.py:249-330``); a
+    decode step's ``page_rows`` are ``kv_page_rows`` of its frontier. None
+    for a one-shot prefill, which returns its K/V as ``{"k", "v"}``, or,
+    with ``cfg.kv_cache_dtype == "int8"``, quantized and attended as their
+    dequantized rows (``transformer.py:242-256``)."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -110,6 +115,8 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
     k = L.apply_rope_tables(proj("k", hk), rope_h)
     v = proj("v", hk)
     new = None
+    if page_table is not None and cache is None:
+        raise ValueError("paged attention requires an existing cache pool")
     if cache is None:
         if cfg.kv_cache_dtype == "int8":
             (k_i8, ks), (v_i8, vs) = quantize_kv(k), quantize_kv(v)
@@ -118,11 +125,30 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
         else:
             new = {"k": k, "v": v}
         out = attn_ops.prefill_attention(q, k, v)
+    elif s > 1 and page_table is not None:  # a chunk, through the page table
+        out = attn_ops.prefill_append_attention_paged(
+            q, k, v, cache["k"], cache["v"], page_table, pos, kernels=kernels,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            prefix_limit=prefix_limit)
     elif s > 1:  # a prefill chunk against the cache prefix
         out = attn_ops.prefill_append_attention(
             q, k, v, cache["k"], cache["v"], pos, kernels=kernels,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
             prefix_limit=prefix_limit)
+    elif page_table is not None:  # a decode row, through the page table
+        ps = cache["k"].shape[2]
+        if "k_scale" in cache:
+            for name, new_rows in (("k", k[:, :, 0]), ("v", v[:, :, 0])):
+                codes, scales = quantize_kv(new_rows)
+                update_kv_pages(cache[name], page_table, codes, pos, ps, rows=page_rows)
+                update_kv_pages(cache[name + "_scale"], page_table, scales, pos, ps,
+                                rows=page_rows)
+        else:
+            update_kv_pages(cache["k"], page_table, k[:, :, 0], pos, ps, rows=page_rows)
+            update_kv_pages(cache["v"], page_table, v[:, :, 0], pos, ps, rows=page_rows)
+        out = attn_ops.decode_attention_paged(
+            q[:, :, 0], cache["k"], cache["v"], page_table, pos, kernels=kernels,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))[:, :, None]
     else:
         if "k_scale" in cache:
             attn_ops.update_kv_cache_quant(cache["k"], cache["v"], cache["k_scale"],
@@ -137,12 +163,14 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
     return x, new
 
 
-def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None, prefix_limit=0):
+def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None, prefix_limit=0,
+                page_table=None, page_rows=None):
     """The fused attn+dense block (``transformer.py:422-447``). Returns
     (x, the cache rows of a one-shot prefill or None)."""
     hq = L.norm_quant(bp["ln1"], x, kernels=kernels, eps=cfg.norm_eps)
     x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope, kernels=kernels,
-                        cache=cache, pos=pos, prefix_limit=prefix_limit)
+                        cache=cache, pos=pos, prefix_limit=prefix_limit,
+                        page_table=page_table, page_rows=page_rows)
     h2q = L.norm_quant(bp["ln2"], x, kernels=kernels, eps=cfg.norm_eps)
     x = L.mlp_fused(bp["ffn"], h2q, kernels=kernels, out_dtype=x.dtype, residual=x)
     return x, kv
@@ -181,28 +209,34 @@ def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool =
     return _head(params, x, cfg), caches
 
 
-def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *, kernels):
+def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *, kernels,
+                page_table=None):
     """One autoregressive step: ``tokens [B, 1]`` at per-slot positions
     ``pos [B]`` int32. Writes each layer's new K/V into ``caches`` in place
-    and returns (logits [B, V], caches)."""
+    and returns (logits [B, V], caches). ``page_table [B, NB]`` int32 makes
+    ``caches`` page pools (:func:`cache_specs` with ``kv_pages``)."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     rope = rope_for(cfg, pos[:, None])["attn"]
+    page_rows = None
+    if page_table is not None:  # the frontier rows' pool addresses, shared by all layers
+        page_rows = kv_page_rows(page_table, pos, caches["blocks"]["b0"]["k"].shape[3])
     for li in range(cfg.n_layers):
         bp = layer_slice(params["blocks"]["b0"], li)
-        x, _ = apply_block(bp, x, cfg, rope, kernels=kernels,
-                           cache=_layer_cache(caches, li), pos=pos)
+        x, _ = apply_block(bp, x, cfg, rope, kernels=kernels, cache=_layer_cache(caches, li),
+                           pos=pos, page_table=page_table, page_rows=page_rows)
     return _head(params, x, cfg)[:, 0], caches
 
 
 def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
-                       kernels, last_row=None, prefix_limit: int = 0):
+                       kernels, last_row=None, prefix_limit: int = 0, page_table=None):
     """One chunked-prefill step (``transformer.py:608-666``): ``tokens
     [B, C]`` at positions ``offset[b] + [0, C)`` (``offset [B]`` int32,
     ≡ 0 mod C) attend to each slot's cache prefix and to themselves, and
     every layer appends the chunk's K/V into ``caches`` in place. Offsets
     at or past ``prefix_limit > 0`` are write-only. Returns (logits, caches):
     logits [B, C, V], or with ``last_row [B]`` only each slot's row, gathered
-    before the final norm and the LM head, [B, V]."""
+    before the final norm and the LM head, [B, V]. ``page_table`` as in
+    :func:`decode_step`."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, c = tokens.shape
     positions = offset.to(torch.int32)[:, None] + torch.arange(
@@ -212,19 +246,26 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
         bp = layer_slice(params["blocks"]["b0"], li)
         x, _ = apply_block(bp, x, cfg, rope, kernels=kernels,
                            cache=_layer_cache(caches, li), pos=offset,
-                           prefix_limit=prefix_limit)
+                           prefix_limit=prefix_limit, page_table=page_table)
     if last_row is not None:
         idx = last_row.to(torch.int64)[:, None, None].expand(b, 1, x.shape[-1])
         return _head(params, x.gather(1, idx), cfg)[:, 0], caches
     return _head(params, x, cfg), caches
 
 
-def cache_specs(cfg, batch: int, seq: int) -> dict:
+def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> dict:
     """Shape and dtype of every cache leaf: ``{"blocks": {"b0": {"k":
     (shape, dtype), "v": ...}}}`` with k/v [L, B, HK, seq, D] in ``cfg.dtype``;
     with ``cfg.kv_cache_dtype == "int8"``, k/v int8 and ``k_scale``/``v_scale``
-    [L, B, HK, seq] f32 row scales."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.head_dim)
+    [L, B, HK, seq] f32 row scales. ``kv_pages`` switches to the paged
+    layout (``transformer.py:711-741``): one pool shared by every slot, k/v
+    [L, kv_pages, HK, cfg.kv_page_size, D] (and scales [L, kv_pages, HK,
+    cfg.kv_page_size]); ``batch`` and ``seq`` then go unused. It is an
+    explicit opt-in: only the engine pages."""
+    if kv_pages is not None:
+        shape = (cfg.n_layers, kv_pages, cfg.n_kv_heads, cfg.kv_page_size, cfg.head_dim)
+    else:
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         scales = (shape[:-1], torch.float32)
         leaves = {"k": (shape, torch.int8), "k_scale": scales,
@@ -237,8 +278,8 @@ def cache_specs(cfg, batch: int, seq: int) -> dict:
     return {"blocks": {"b0": leaves}}
 
 
-def cache_zeros(cfg, batch: int, seq: int, device) -> dict:
-    specs = cache_specs(cfg, batch, seq)
+def cache_zeros(cfg, batch: int, seq: int, device, *, kv_pages: int | None = None) -> dict:
+    specs = cache_specs(cfg, batch, seq, kv_pages=kv_pages)
     return {"blocks": {b: {n: torch.zeros(shape, dtype=dt, device=device)
                            for n, (shape, dt) in leaves.items()}
                        for b, leaves in specs["blocks"].items()}}

@@ -13,12 +13,15 @@ decode first, then the chunk), so prefill never stalls decode. Slots with no
 work in a tick are diverted into a trash tail past ``max_len``: a chunk at
 ``trash_base``, a decode row at ``cache_len - 1``. Per-slot decode state
 stays on the device, and each tick makes exactly one device-to-host
-transfer, of one packed int32 array. The contiguous layout is ported, with a
-bf16 (activation-dtype) or int8 KV cache. Not ported yet: the legacy
-per-request prefill of other families, speculative ticks, the paged layout,
-fault injection, the straggler monitor and request export. A tick that
-raises propagates out of :meth:`ServingEngine.step`: there is no fallback
-to the plain versions or to the CPU.
+transfer, of one packed int32 array. Both KV layouts are ported, with a
+bf16 (activation-dtype) or int8 KV cache: contiguous per-slot rows, and
+(``cfg.kv_layout="paged"``) a page pool with a per-slot page table, shared
+prompt prefixes and copy-on-write (``serving/paging.py``). Not ported yet:
+the legacy per-request prefill of other families, speculative ticks, fault
+injection, the straggler monitor and request export. A tick that raises
+propagates out of :meth:`ServingEngine.step`: there is no fallback to the
+plain versions or to the CPU; a page pool that runs dry fails the request
+that needed the page (``FAILED``, ``page_pool_exhausted``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from .. import _common as C
 from ..kernels import KERNELS
 from ..models import transformer as Tr
 from . import resilience as R
+from .paging import PagedKV, PagePoolExhausted
 
 
 def bucket_length(s: int, sizes=(64, 128, 256)) -> int:
@@ -65,9 +69,13 @@ def chunk_schedule(length: int, sizes=(64, 128, 256)) -> list[int]:
     return out
 
 
-def init_caches(cfg, batch: int, max_len: int, *, device=None) -> dict:
-    """Zeroed cache tree (:func:`transformer.cache_specs` layout)."""
-    return Tr.cache_zeros(cfg, batch, max_len, C.resolve_device(device))
+def init_caches(cfg, batch: int, max_len: int, *, device=None,
+                kv_pages: int | None = None) -> dict:
+    """Zeroed cache tree (:func:`transformer.cache_specs` layout). ``kv_pages``
+    switches to page pools of that many pages, an explicit opt-in, never
+    read from ``cfg.kv_layout``: ``generate`` always builds the contiguous
+    layout."""
+    return Tr.cache_zeros(cfg, batch, max_len, C.resolve_device(device), kv_pages=kv_pages)
 
 
 def cache_nbytes(caches) -> int:
@@ -195,15 +203,15 @@ def _prefill_handoff(first_logits, finishing, fin_pos, new_tok, new_pos, new_cou
     return first_tok, new_tok, new_pos, new_count, torch.where(finishing, fin_done, new_done)
 
 
-def _guard_row(logit_bad, caches, rows, valid):
+def _guard_row(logit_bad, caches, rows, valid, paged: bool):
     """The packed guard-flag row: resilience.GUARD_* bits per slot."""
-    scale_bad = R.scale_guard(caches, rows, valid)
+    scale_bad = R.scale_guard(caches, rows, valid, paged=paged)
     return (logit_bad.to(torch.int32) * R.GUARD_LOGITS
             + scale_bad.to(torch.int32) * R.GUARD_SCALES)
 
 
 def _advance(logits, pos, done, gen_count, max_new, active, caches, *, eos_id: int,
-             max_len: int, guards: bool):
+             max_len: int, guards: bool, paged: bool = False):
     """State transition of a decode-only tick: greedy tokens, active slots'
     positions and counts advanced, retirements folded into ``done``. Returns
     the new (cur_tok, pos, done, gen_count) and the packed int32 state
@@ -216,27 +224,29 @@ def _advance(logits, pos, done, gen_count, max_new, active, caches, *, eos_id: i
     rows = [next_tok, new_pos, new_done.to(torch.int32), new_count]
     if guards:
         rows.append(_guard_row(R.logits_guard(logits, where=active), caches,
-                               pos[:, None], active[:, None]))
+                               pos[:, None], active[:, None], paged))
     return next_tok, new_pos, new_done, new_count, torch.stack(rows)
 
 
 def _fused_tick_step(params, caches, cur_tok, pos, done, gen_count, max_new, dec_active,
-                     chunk_tok, chunk_off, finishing, last_row, fin_pos, *, cfg, kernels,
-                     eos_id: int, max_len: int, cache_len: int, trash_base: int,
+                     chunk_tok, chunk_off, finishing, last_row, fin_pos, page_table, *, cfg,
+                     kernels, eos_id: int, max_len: int, cache_len: int, trash_base: int,
                      guards: bool):
     """One fused tick (``engine.py:1674-1761``): a decode token for every
     decoding slot (the others diverted to row ``cache_len - 1``), then one
     prompt chunk per selected slot at its offset (the others write into the
     trash tail at ``trash_base``, write-only), the LM head only at each
-    slot's ``last_row``, and the prefill-to-decode handoff. Returns the new
-    (cur_tok, pos, done, gen_count) and the packed int32 state [token,
-    position, done, count (, guard flags)] x slots."""
+    slot's ``last_row``, and the prefill-to-decode handoff. ``page_table``
+    (None on the contiguous layout) addresses the paged pools; the trash
+    region's entries map the garbage page. Returns the new (cur_tok, pos,
+    done, gen_count) and the packed int32 state [token, position, done,
+    count (, guard flags)] x slots."""
     dpos = torch.where(dec_active, pos, torch.full_like(pos, cache_len - 1))
     dec_logits, caches = Tr.decode_step(params, cur_tok[:, None].to(torch.int64), caches,
-                                        dpos, cfg, kernels=kernels)
+                                        dpos, cfg, kernels=kernels, page_table=page_table)
     first_logits, caches = Tr.prefill_chunk_step(
         params, chunk_tok, caches, chunk_off, cfg, kernels=kernels, last_row=last_row,
-        prefix_limit=trash_base)
+        prefix_limit=trash_base, page_table=page_table)
     next_dec = torch.argmax(dec_logits, dim=-1).to(torch.int32)
     inc = dec_active.to(torch.int32)
     new_pos, new_count = pos + inc, gen_count + inc
@@ -257,7 +267,7 @@ def _fused_tick_step(params, caches, cur_tok, pos, done, gen_count, max_new, dec
             R.logits_guard(dec_logits, where=dec_active)
             | R.logits_guard(first_logits, where=finishing), caches,
             torch.cat([dpos[:, None], crows], dim=1),
-            torch.cat([dec_active[:, None], live_chunk], dim=1)))
+            torch.cat([dec_active[:, None], live_chunk], dim=1), page_table is not None))
     return new_tok, new_pos, new_done, new_count, torch.stack(rows)
 
 
@@ -308,6 +318,16 @@ class ServingEngine:
     trash_base + chunk_max`` rows per slot, ``trash_base = round_up(max_len,
     chunk_max)``: the tail absorbs the writes of slots with no work.
 
+    With ``cfg.kv_layout="paged"`` the rows live in a pool of
+    ``cfg.kv_page_size``-row pages (``cfg.kv_num_pages``, 0 = one page per
+    slot and block plus the garbage page) that each slot reaches through its
+    row of ``self.paged.table``. Before each tick the pages it writes are
+    made exclusive (fresh pages, or copy-on-write forks of shared ones);
+    with ``cfg.prefix_cache`` a finished prefill's full prompt pages are
+    interned, and a later prompt with the same prefix maps them read-only
+    and prefills only its tail. The host mirrors each slot's frontier in
+    ``_pos_host`` from the plan and the tick's one transfer.
+
     Every request ends in exactly one terminal ``resilience.Status``:
     ``submit`` applies queue backpressure (``queue_cap`` /
     ``cfg.admission_queue_cap``), deadlines come from ``Request.deadline_s``
@@ -334,7 +354,30 @@ class ServingEngine:
         cmax = self.chunk_sizes[-1]
         self.trash_base = C.round_up(max_len, cmax)
         self.cache_len = self.trash_base + cmax
-        self.caches = init_caches(cfg, slots, self.cache_len, device=self.dev)
+        # the paged layout (engine.py:562-594): a host page allocator with
+        # refcounts, a prefix trie, and one garbage page behind every table
+        # entry that maps nothing (the trash tail's included)
+        if cfg.kv_layout == "paged":
+            ps = int(cfg.kv_page_size)
+            if ps <= 0 or self.chunk_sizes[0] % ps:
+                raise ValueError(
+                    f"kv_page_size={ps} must divide the smallest prefill chunk size "
+                    f"({self.chunk_sizes[0]}) so every chunk append covers whole pages")
+            self.paged = PagedKV(slots=slots, cache_len=self.cache_len, page_size=ps,
+                                 num_pages=int(cfg.kv_num_pages),
+                                 prefix_cache=bool(cfg.prefix_cache))
+            # host mirror of the device frontier: the allocator needs this
+            # tick's written blocks before the tick runs
+            self._pos_host = np.zeros((slots,), np.int32)
+        elif cfg.kv_layout == "contiguous":
+            self.paged = None
+            self._pos_host = None
+        else:
+            raise ValueError(f"kv_layout must be 'contiguous' or 'paged', got "
+                             f"{cfg.kv_layout!r}")
+        self.caches = init_caches(
+            cfg, slots, self.cache_len, device=self.dev,
+            kv_pages=self.paged.num_pages if self.paged is not None else None)
 
         def zeros(dtype):
             return torch.zeros((slots,), dtype=dtype, device=self.dev)
@@ -400,7 +443,8 @@ class ServingEngine:
                 detail: str | None = None):
         """Stamp the terminal status and free the slot. Its device rows need
         no cleanup: they lie past every later occupant's frontier until its
-        own writes land there."""
+        own writes land there. Paged, the slot's pages are released (shared
+        prefix pages live on while the trie or another slot holds them)."""
         req.done = True
         req.status = status
         if detail is not None:
@@ -410,6 +454,12 @@ class ServingEngine:
         if slot is not None:
             self.live[slot] = None
             self._plan[slot] = None
+            self._release_pages(slot)
+
+    def _release_pages(self, slot: int):
+        if self.paged is not None:
+            self.paged.release(slot)
+            self._pos_host[slot] = 0
 
     def _terminal_status(self, req: Request) -> R.Status:
         """Why a device-side retirement fired: EOS or budget (``OK``), else
@@ -460,7 +510,8 @@ class ServingEngine:
             "live": sum(r is not None for r in self.live),
             "preemptions": sum(1 for e in self.events if e["kind"] == "preempt"),
             "quarantined": self.status_counts.get(R.Status.QUARANTINED, 0),
-            "kv_layout": "contiguous",
+            "kv_layout": "paged" if self.paged is not None else "contiguous",
+            "paged": self.paged.stats() if self.paged is not None else None,
             "kv_cache_dtype": self.cfg.kv_cache_dtype,
         }
 
@@ -500,10 +551,19 @@ class ServingEngine:
             self._finish(None, req, R.Status.CACHE_EXHAUSTED)
             return False
         req.status = R.Status.RUNNING
-        chunks = chunk_schedule(plen, self.chunk_sizes)
-        padded = np.zeros((sum(chunks),), np.int64)
+        tail_start = 0
+        if self.paged is not None:
+            # prefix reuse (engine.py:917-935): the matched prompt pages are
+            # mapped read-only and only the tail is prefilled; the tail start
+            # is floored to the largest chunk size, so every chunk C still
+            # starts at a multiple of C
+            tail_start = self.paged.admit(slot, prompt, chunk0=self.chunk_sizes[-1])
+            if tail_start > 0:
+                self._event("prefix_hit", rid=req.rid, slot=slot, tokens=tail_start)
+        chunks = chunk_schedule(plen - tail_start, self.chunk_sizes)
+        padded = np.zeros((tail_start + sum(chunks),), np.int64)
         padded[:plen] = prompt
-        self._plan[slot] = _PrefillPlan(tokens=padded, chunks=chunks, ci=0, off=0,
+        self._plan[slot] = _PrefillPlan(tokens=padded, chunks=chunks, ci=0, off=tail_start,
                                         true_len=plen)
         self.live[slot] = req
         self.max_new_arr[slot] = remaining
@@ -525,6 +585,7 @@ class ServingEngine:
         req.status = R.Status.QUEUED
         self.live[slot] = None
         self._plan[slot] = None
+        self._release_pages(slot)
         req._seq = self._seq
         self._seq += 1
         self.queue.append(req)
@@ -586,6 +647,69 @@ class ServingEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.dev)
 
+    # -- paged-KV write preparation (engine.py:1038-1106) ---------------------
+
+    def _apply_page_copies(self, pairs: list[tuple[int, int]]):
+        """Apply the COW (src, dst) page copies over every pool leaf before
+        the tick runs. The list is padded to a power of two with garbage
+        self-copies, as the JAX engine pads it, so the copy takes few shapes."""
+        n = 1 << max(len(pairs) - 1, 0).bit_length()
+        src = np.full((n,), self.paged.garbage, np.int64)
+        dst = np.full((n,), self.paged.garbage, np.int64)
+        for i, (s, d) in enumerate(pairs):
+            src[i], dst[i] = s, d
+        src, dst = self._to_device(src), self._to_device(dst)
+        for leaves in self.caches["blocks"].values():
+            for leaf in leaves.values():  # [L, P, ...]: pages on axis 1
+                leaf[:, dst] = leaf[:, src]
+
+    def _cow_prepare(self, writes: list) -> list[int]:
+        """Make the blocks this tick writes exclusive (``writes``: (slot,
+        blocks) pairs) and apply the COW copies. A slot the pool cannot cover
+        even after trie eviction ends ``FAILED`` (``page_pool_exhausted``),
+        its pages released; the failed slots are returned so that the caller
+        diverts them out of the tick."""
+        pairs, failed = [], []
+        for s, blocks in writes:
+            if self.live[s] is None:
+                continue
+            try:
+                pairs += self.paged.ensure_writable(s, blocks)
+            except PagePoolExhausted:
+                req = self.live[s]
+                self._event("page_pool_exhausted", rid=req.rid, slot=s)
+                self._finish(s, req, R.Status.FAILED, detail="page_pool_exhausted")
+                failed.append(s)
+        if pairs:
+            self._event("cow_fork", pairs=len(pairs), forks_total=self.paged.cow_forks)
+            self._apply_page_copies(pairs)
+        return failed
+
+    def _prepare_tick_pages(self, selected, chunk, chunk_tok, chunk_off, finishing,
+                            last_row, fin_pos, dec_active):
+        """Page preparation for a fused tick: the chunk windows of the
+        selected slots and the frontier row of each decoding slot become
+        exclusive; slots shed on pool exhaustion are diverted in place (their
+        chunk to the trash tail, their decode and handoff masked off).
+        Returns the device page table, or None on the contiguous layout."""
+        if self.paged is None:
+            return None
+        ps = self.paged.page_size
+        writes = [(s, range(int(chunk_off[s]) // ps, (int(chunk_off[s]) + chunk) // ps))
+                  for s in selected]
+        writes += [(s, [int(self._pos_host[s]) // ps])
+                   for s in range(self.slots) if dec_active[s]]
+        for s in self._cow_prepare(writes):
+            if s in selected:
+                selected.remove(s)
+            chunk_tok[s] = 0
+            chunk_off[s] = self.trash_base
+            finishing[s] = False
+            last_row[s] = 0
+            fin_pos[s] = 0
+            dec_active[s] = False
+        return self._to_device(self.paged.table)
+
     def _transfer(self, packed: torch.Tensor) -> np.ndarray:
         """The tick's one device-to-host transfer."""
         self.host_transfers += 1
@@ -596,17 +720,22 @@ class ServingEngine:
          fin_pos) = self._plan_chunks(prefilling, self._chunk_budget())
         dec_active = np.array([self.live[s] is not None and self._plan[s] is None
                                for s in range(self.slots)])
+        page_table = self._prepare_tick_pages(selected, chunk, chunk_tok, chunk_off,
+                                              finishing, last_row, fin_pos, dec_active)
         self.fused_ticks += 1
         (self.cur_tok, self.pos, self.done, self.gen_count, packed) = _fused_tick_step(
             self.params, self.caches, self.cur_tok, self.pos, self.done, self.gen_count,
             self.max_new_arr, self._to_device(dec_active), self._to_device(chunk_tok),
             self._to_device(chunk_off), self._to_device(finishing),
-            self._to_device(last_row), self._to_device(fin_pos), cfg=self.cfg,
+            self._to_device(last_row), self._to_device(fin_pos), page_table, cfg=self.cfg,
             kernels=self.kernels, eos_id=self.eos_id, max_len=self.max_len,
             cache_len=self.cache_len, trash_base=self.trash_base, guards=self.guards)
         state = self._transfer(packed)
         tok, done = state[0], state[2]
         guard = state[4] if self.guards else np.zeros((self.slots,), np.int64)
+        if self.paged is not None:  # mirror the device frontier's advance
+            self._pos_host[dec_active] += 1
+            self._pos_host[finishing] = fin_pos[finishing]
         for s, req in enumerate(self.live):
             if req is None:
                 continue
@@ -614,6 +743,8 @@ class ServingEngine:
                 self._quarantine(s, req, guard[s])
             elif finishing[s]:
                 self._plan[s] = None
+                if self.paged is not None:  # intern the finished prefill
+                    self.paged.insert_prefix(s)
                 req.generated.append(int(tok[s]))
                 if done[s]:
                     self._finish(s, req, self._terminal_status(req))
@@ -628,14 +759,26 @@ class ServingEngine:
         return True
 
     def _decode_tick(self) -> bool:
+        page_table = None
+        if self.paged is not None:
+            # one frontier row per live slot; empty slots write the garbage
+            # page through their released (all-garbage) table rows
+            ps = self.paged.page_size
+            self._cow_prepare([(s, [int(self._pos_host[s]) // ps])
+                               for s in range(self.slots) if self.live[s] is not None])
+            page_table = self._to_device(self.paged.table)
         active_np = np.array([r is not None for r in self.live])
         active = self._to_device(active_np)
         logits, _ = Tr.decode_step(self.params, self.cur_tok[:, None].to(torch.int64),
-                                   self.caches, self.pos, self.cfg, kernels=self.kernels)
+                                   self.caches, self.pos, self.cfg, kernels=self.kernels,
+                                   page_table=page_table)
         (self.cur_tok, self.pos, self.done, self.gen_count, packed) = _advance(
             logits, self.pos, self.done, self.gen_count, self.max_new_arr, active,
-            self.caches, eos_id=self.eos_id, max_len=self.max_len, guards=self.guards)
+            self.caches, eos_id=self.eos_id, max_len=self.max_len, guards=self.guards,
+            paged=page_table is not None)
         state = self._transfer(packed)
+        if self.paged is not None:  # mirror the device frontier's advance
+            self._pos_host[active_np] += 1
         nxt, done = state[0], state[2]
         guard = state[4] if self.guards else np.zeros((self.slots,), np.int64)
         for s, req in enumerate(self.live):

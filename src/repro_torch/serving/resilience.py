@@ -52,13 +52,21 @@ def logits_guard(logits: torch.Tensor, where=None) -> torch.Tensor:
     return bad & where if where is not None else bad
 
 
-def scale_guard(caches, rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def scale_guard(caches, rows: torch.Tensor, valid: torch.Tensor, *,
+                paged: bool = False) -> torch.Tensor:
     """Per-slot bool: any non-finite scale among this tick's written cache
     rows. ``rows`` [B, R] int seq indices, ``valid`` [B, R] the rows written
     live this tick. Only the int8 layout's ``*_scale`` leaves [L, B, HK, M]
-    are judged, so a bf16 cache gives all False."""
+    are judged, so a bf16 cache gives all False. With ``paged`` (the caches
+    are page pools) nothing is judged: ``repro/serving/resilience.py:118``
+    judges only scale leaves whose axes carry ``act_kv_seq``, and the paged
+    pools' scale leaves carry ``("kv_pages", "act_kv_heads",
+    "kv_page_seq")`` (``transformer.py:725-726``), so on the paged layout
+    only the logits guard acts. The port keeps that behaviour."""
     b, r = rows.shape
     bad = torch.zeros((b,), dtype=torch.bool, device=rows.device)
+    if paged:
+        return bad
     for leaves in caches["blocks"].values():
         for name, leaf in leaves.items():
             if not name.endswith("_scale"):

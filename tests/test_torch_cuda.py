@@ -14,6 +14,18 @@ prefill inputs' V is scaled so that |out| stays near that). The rows the
 prefill-append kernel writes into the cache equal the plain version's
 exactly (bf16 copies, or int8 codes and f32 scales), and every other cache
 row is left as it was.
+
+The paged kernels run on a page table that is a seeded permutation of the
+pool, with pages shared between two slots and garbage-page entries past
+each frontier; the garbage page and every unmapped page hold NaN (int8:
+NaN scales). Their output is finite and bit for bit the contiguous
+kernel's on the gathered view (``gather_kv_pages``); it is within the bars
+above of the plain version, which runs on the same pools with the poison
+replaced by zeros (the plain version multiplies masked probabilities, exact
+zeros, by V, so its unread rows must be finite, as the contract of
+``serving/paging.py`` keeps them). The pools after the append equal the
+plain version's byte for byte, garbage page excepted, and every other row
+is left as it was.
 """
 
 import dataclasses
@@ -25,6 +37,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import packing as PK
 from repro_torch.core import params as PR
+from repro_torch.core.ternary import gather_kv_pages
 from repro_torch.kernels import KERNELS, PLAIN, launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
@@ -253,6 +266,198 @@ def test_smoke_engine_kernels_vs_plain(cuda, kv):
     sfx = "_quant" if kv == "int8" else ""
     assert counts["decode_attention" + sfx] == cfg.n_layers * st["ticks"]
     assert counts["prefill_append" + sfx] == cfg.n_layers * st["fused_ticks"] > 0
+
+
+def _bits(t):
+    """The raw bits of a tensor: equality of these is NaN-safe."""
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+
+def _paged_pools(rng, dev, pages, hk, ps, d, dtype, quant, table):
+    """(poisoned, clean) pools: random, with the garbage page 0 and every
+    page the table does not map set to NaN (int8: NaN scales, codes -128) in
+    ``poisoned`` and to zeros in ``clean``."""
+    dead = torch.ones(pages, dtype=torch.bool)
+    dead[torch.from_numpy(table.reshape(-1)).long()] = False
+    dead[0] = True
+    if quant:
+        base = [_t(rng.integers(-127, 128, (pages, hk, ps, d)).astype(np.int8), dev)
+                for _ in range(2)]
+        base += [_t(rng.uniform(1e-3, 2e-2, (pages, hk, ps)).astype(np.float32), dev)
+                 for _ in range(2)]
+    else:
+        base = [_t(rng.standard_normal((pages, hk, ps, d)).astype(np.float32) * s, dev, dtype)
+                for s in (1.0, 0.25)]
+    poisoned, clean = [t.clone() for t in base], [t.clone() for t in base]
+    dead = dead.to(dev)
+    for p, c in zip(poisoned, clean):
+        p[dead] = -128 if p.dtype == torch.int8 else float("nan")
+        c[dead] = 0
+    return poisoned, clean
+
+
+def _paged_table(rng, b, nb, pages, mapped, share):
+    """Pages 1..pages-1 in a seeded random order: slot s maps its first
+    ``mapped[s]`` blocks, garbage (0) past them; slot dst's first n blocks
+    are slot src's pages (``share = (dst, src, n)``)."""
+    perm = list(rng.permutation(np.arange(1, pages)))
+    table = np.zeros((b, nb), np.int32)
+    dst, src, n = share
+    for s in range(b):
+        for blk in range(mapped[s]):
+            table[s, blk] = table[src, blk] if s == dst and blk < n else perm.pop()
+    return table
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("g,window,softcap", [(1, 0, 0.0), (2, 100, 30.0)])
+def test_decode_attention_paged(cuda, dtype, quant, g, window, softcap):
+    rng = np.random.default_rng(50 + g + 2 * quant)
+    b, hk, d, ps, nb = 4, 8, 96, 64, 5
+    pos_np = np.array([nb * ps - 1, 0, 63, 150], np.int32)
+    pages = b * nb + 4
+    table = _paged_table(rng, b, nb, pages, [p // ps + 1 for p in pos_np], share=(3, 0, 2))
+    poisoned, clean = _paged_pools(rng, cuda, pages, hk, ps, d, TORCH_DT[dtype], quant, table)
+    q = _t(rng.standard_normal((b, hk * g, d)).astype(np.float32), cuda, TORCH_DT[dtype])
+    pos, pt = _t(pos_np, cuda), _t(table, cuda)
+    kw = dict(window=window, softcap=softcap)
+
+    def scales(pools):
+        return dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+
+    got = da_ops.decode_attention_paged(q, poisoned[0], poisoned[1], pt, pos,
+                                        **scales(poisoned), **kw)
+    views = [gather_kv_pages(t, pt) for t in poisoned]
+    contiguous = da_ops.decode_attention(q, views[0], views[1], pos, **scales(views), **kw)
+    want = da_ref.decode_attention_paged(q, clean[0], clean[1], pt, pos, **scales(clean), **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(_bits(got), _bits(contiguous))
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("c,g,window,softcap", [(256, 1, 0, 0.0), (64, 2, 100, 30.0),
+                                                (128, 1, 0, 5.0)])
+def test_prefill_append_paged(cuda, dtype, quant, c, g, window, softcap):
+    """Offsets 0, C and 4C, and a write-only slot at 5C = prefix_limit whose
+    window maps the garbage page; slot 2 reads slot 1's prefix pages."""
+    rng = np.random.default_rng(60 + c + g + quant)
+    b, hk, d, ps = 4, 4, 96, 64
+    nb = 6 * c // ps
+    off_np = np.array([0, c, 4 * c, 5 * c], np.int32)
+    pages = b * nb + 3
+    table = _paged_table(rng, b, nb, pages, [(o + c) // ps for o in off_np[:3]] + [0],
+                         share=(2, 1, c // ps))
+    poisoned, clean = _paged_pools(rng, cuda, pages, hk, ps, d, TORCH_DT[dtype], quant, table)
+    td = TORCH_DT[dtype]
+    q = _t(rng.standard_normal((b, hk * g, c, d)).astype(np.float32), cuda, td)
+    kn = _t(rng.standard_normal((b, hk, c, d)).astype(np.float32), cuda, td)
+    vn = _t(rng.standard_normal((b, hk, c, d)).astype(np.float32) * 0.25, cuda, td)
+    off, pt = _t(off_np, cuda), _t(table, cuda)
+    kw = dict(window=window, softcap=softcap, prefix_limit=5 * c)
+
+    def scales(pools):
+        return dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+
+    mine, plain = [t.clone() for t in poisoned], [t.clone() for t in clean]
+    views = [gather_kv_pages(t, pt) for t in poisoned]
+    got = pa_ops.prefill_append_paged(q, kn, vn, mine[0], mine[1], pt, off, **scales(mine),
+                                      **kw)
+    contiguous = pa_ops.prefill_append(q, kn, vn, views[0], views[1], off, **scales(views),
+                                       **kw)
+    want = pa_ref.prefill_append_paged(q, kn, vn, plain[0], plain[1], pt, off,
+                                       **scales(plain), **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(_bits(got), _bits(contiguous))
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    written = torch.zeros((pages, ps), dtype=torch.bool)  # (page, row) the chunks write
+    for s, o in enumerate(off_np[:3]):
+        for blk in range(o // ps, (o + c) // ps):
+            written[table[s, blk]] = True
+    mapped = torch.zeros(pages, dtype=torch.bool)
+    mapped[torch.from_numpy(table.reshape(-1)).long()] = True
+    mapped[0] = False  # the garbage page: written by the write-only slot
+    written, mapped = written.to(cuda), mapped.to(cuda)
+    not_garbage = torch.ones(pages, dtype=torch.bool, device=cuda)
+    not_garbage[0] = False
+    for a, p, before, view in zip(mine, plain, poisoned, views):
+        assert torch.equal(_bits(a[mapped]), _bits(p[mapped]))  # the plain version's bytes
+        kept = ~written[:, None, :].expand(a.shape[:3]) & not_garbage[:, None, None]
+        assert torch.equal(_bits(a[kept]), _bits(before[kept]))  # the rest untouched
+        # the contiguous kernel's cache, scattered back, on the written rows
+        for s, o in enumerate(off_np[:3]):
+            for blk in range(o // ps, (o + c) // ps):
+                assert torch.equal(_bits(a[table[s, blk]]),
+                                   _bits(view[s, :, blk * ps:(blk + 1) * ps]))
+
+
+def test_paged_wrappers_count_and_check(cuda):
+    pool = torch.zeros((3, 2, 64, 32), device=cuda)
+    pt = torch.ones((1, 2), dtype=torch.int32, device=cuda)
+    pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    q = torch.zeros((1, 2, 32), device=cuda)
+    reset_launch_counts()
+    KERNELS.decode_attention_paged(q, pool, pool.clone(), pt, pos)
+    qc = torch.zeros((1, 2, 64, 32), device=cuda)
+    KERNELS.prefill_append_paged(qc, qc, qc, pool, pool.clone(), pt, pos)
+    counts = launch_counts()
+    assert counts["decode_attention_paged"] == counts["prefill_append_paged"] == 1
+    with pytest.raises(ValueError, match="page size"):
+        pa_ops.prefill_append_paged(qc[:, :, :32].contiguous(), qc[:, :, :32].contiguous(),
+                                    qc[:, :, :32].contiguous(), pool, pool.clone(), pt, pos)
+    with pytest.raises(TypeError, match="page_table"):
+        da_ops.decode_attention_paged(q, pool, pool.clone(), pt.long(), pos)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_smoke_paged_engine_kernels_vs_plain(cuda, kv):
+    """The f32 smoke config in the paged engine, a shared prompt prefix
+    included: through the kernels on the card, the same streams, statuses
+    and page statistics as through the plain versions on the CPU, and the
+    same streams as the contiguous engine through the kernels; one host
+    transfer per tick, and the paged attention kernels of the cache dtype
+    launched 2 (layers) times per tick that runs them."""
+    cfg = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                              kv_cache_dtype=kv, kv_layout="paged")
+    specs = TT.param_specs(cfg)
+    cpu_params = TT.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=cfg.dtype)
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 320)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+    prompts += [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)]) for n in (32, 17)]
+
+    def serve(params, kernels, device, layout="paged"):
+        eng = TE.ServingEngine(params, dataclasses.replace(cfg, kv_layout=layout), slots=2,
+                               max_len=512, kernels=kernels, device=device)
+        reqs = [TE.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+        for r in reqs[:-1]:
+            eng.submit(r)
+        eng.run()
+        eng.submit(reqs[-1])  # after its twin's prefix was interned
+        eng.run()
+        return [(r.generated, r.status) for r in reqs], eng
+
+    cuda_params = _to(cpu_params, cuda)
+    reset_launch_counts()
+    got, eng = serve(cuda_params, KERNELS, None)
+    counts = launch_counts()
+    want, ref_eng = serve(cpu_params, PLAIN, "cpu")
+    assert got == want
+    assert serve(cuda_params, KERNELS, None, layout="contiguous")[0] == got
+    st = eng.stats()
+    assert st["paged"] == ref_eng.stats()["paged"] and st["paged"]["prefix_hits"] >= 1
+    assert st["host_transfers"] == st["ticks"]
+    sfx = "_quant" if kv == "int8" else ""
+    assert counts["decode_attention_paged" + sfx] == cfg.n_layers * st["ticks"]
+    assert counts["prefill_append_paged" + sfx] == cfg.n_layers * st["fused_ticks"] > 0
+    assert counts["decode_attention" + sfx] == counts["prefill_append" + sfx] == 0
 
 
 def _to(tree, dev):

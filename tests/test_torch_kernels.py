@@ -216,6 +216,8 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
     assert set(launch_counts()) == {"norm_quant", "ternary_gemv", "ternary_matmul",
                                     "ternary_swiglu", "decode_attention",
                                     "decode_attention_quant", "prefill_append",
-                                    "prefill_append_quant"}
+                                    "prefill_append_quant", "decode_attention_paged",
+                                    "decode_attention_paged_quant", "prefill_append_paged",
+                                    "prefill_append_paged_quant"}
     assert sum(launch_counts().values()) == 0
     assert PLAIN.ternary_gemv is tm_ref.ternary_gemv
