@@ -2,14 +2,15 @@
 each against its plain PyTorch version at tellme-0.7b's real shapes, times
 them, then drives greedy ``generate`` and the chunked continuous-batching
 ``ServingEngine`` for tellme-0.7b at full width, on the contiguous and on
-the paged KV layout.
+the paged KV layout, with the packed matmul engine and with the
+table-lookup one.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
-  build     nvcc builds the five kernel sources (timed).
-  kernels   the twelve kernel entry points vs their plain versions: the
+  build     nvcc builds the six kernel sources (timed).
+  kernels   the sixteen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
             512 rows) shapes; int8 decode attention at the engine's decode
             shape (8 slots, cache 1280 rows); prefill-append, bf16 and int8
@@ -20,7 +21,15 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             with shared pages and NaN in the garbage and unmapped pages
             (output finite and bit-equal to the contiguous kernel on the
             gathered view; pools byte-equal to the plain version's). Kernel,
-            plain, contiguous-twin, library and bound times.
+            plain, contiguous-twin, library and bound times. The four
+            table-lookup entry points at the shapes of the packed ones
+            (decode q/k/v [4,1536]x[1536,1536] and down [4,4096]x[4096,1536],
+            prefill [512,1536] from tables and from int8 and down+res, SwiGLU
+            [4,1536] and [512,1536] from tables, the prologue with tables at
+            4 and 512 rows): exact against the plain versions (SwiGLU and
+            the prologue's codes within the SwiGLU and norm-quant bars), bit
+            for bit against their packed twins (the prologue: norm_quant's
+            codes and scale, tables build_tables of them), timed beside them.
   smoke     the smoke config in f32 on the card (kernels) against the same
             weights on the CPU (plain versions): equal greedy streams.
   engine_smoke  the same for the ServingEngine, both cache dtypes: equal
@@ -58,6 +67,15 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             the first served alone: 15 prefix hits of 512 tokens, at least
             15 copy-on-write forks, streams against the contiguous engine on
             the same requests, tokens/s of both.
+  tl        matmul_engine="tl" at full width (w_idx made once on the card):
+            generate, the engine phase's workload (contiguous, bf16 cache)
+            and the shared-prefix workload (paged, bf16 cache), through the
+            kernels; every stream equal to the packed kernels' stream of the
+            same workload above (16 of 16), TL kernels launched and the packed
+            projections and the plain prologue not (counters reset just
+            before each run, read just after); decode ms per step, tokens/s
+            and tick times beside the packed runs'. Then the f32 smoke
+            config with an int8 cache, each layout, TL against packed.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -91,6 +109,10 @@ DECODE_CHECK_STEPS = 8  # decode steps held against the plain versions from shar
 # The kernels that generate runs (bf16 cache)
 GENERATE_PATH = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
                  "decode_attention")
+# Under matmul_engine="tl" these take the place of the packed projections
+# and of the plain prologue, which must then not launch
+TL_PATH = ("norm_quant_tables", "tl_matmul", "tl_swiglu")
+TL_REPLACED = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu")
 
 # The full-width engine run (and the kernel shapes taken from its ticks)
 ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_REQUESTS, ENGINE_NEW = 8, 1024, 16, 32
@@ -377,6 +399,10 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     paged_rows = paged_prefill_rows(torch, cfg, randn, int8, checks)
     rows += [r for r in paged_rows if r["shape_tag"] == "tick"]
     report["prefill_append_paged_shapes"] = paged_rows
+    tl_rows = tl_kernel_rows(torch, cfg, randn, int8, packed, unpacked_bf16, quant_close,
+                             checks)
+    rows += [r for r in tl_rows if r.get("main_row")]
+    report["tl_shapes"] = tl_rows
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
     return rows
@@ -869,6 +895,172 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# the table-lookup kernels (phase kernels)
+# ---------------------------------------------------------------------------
+
+
+def tl_kernel_rows(torch, cfg, randn, int8, packed, unpacked_bf16, quant_close,
+                   checks) -> list[dict]:
+    """The four TL entry points at the shapes of rows 1 and 3-5: each against
+    its plain version and, bit for bit, against its packed twin (the
+    prologue: ``norm_quant``'s codes and scale, and tables equal to
+    ``build_tables`` of them), timed beside the twin. Bounds: the bytes of
+    every input read once (indices, int8 rows or the prologue's f32 tables)
+    and every output written once; operations: one lookup-add per (row,
+    group, column), plus two adds per table entry built in the kernel,
+    counted at the f32 peak."""
+    from repro_torch.core import tl_matmul as TL
+    from repro_torch.kernels.fused_norm_quant import ops as nq_ops
+    from repro_torch.kernels.fused_norm_quant import ref as nq_ref
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.tl_gemv import ops as tl_ops
+    from repro_torch.kernels.tl_gemv import ref as tl_ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    d, ff, b = cfg.d_model, cfg.d_ff, 4
+    decode_m, prefill_m = b, b * 128
+    src_tl = "src/repro_torch/kernels/tl_gemv/csrc/tl_gemv.cu"
+    out = []
+
+    def bits_equal(a, w):
+        return bool(torch.equal(_bits(torch, a), _bits(torch, w)))
+
+    # --- norm_quant_tables: the prologue with its tables (row 2) ----------
+    gamma = randn(d)
+    t_d = -(-d // 3)
+    for tag, m in (("decode", decode_m), ("prefill", prefill_m)):
+        x = randn(m, d, dtype=bf16)
+        q, qs, tab = nq_ops.norm_quant_tables(x, gamma)
+        q0, s0 = nq_ops.norm_quant(x, gamma)
+        pq, ps, ptab = nq_ref.norm_quant_tables(x, gamma)
+        twin = bits_equal(q, q0) and bits_equal(qs, s0)
+        own = bits_equal(tab, TL.build_tables(q, t=t_d))
+        code_err = quant_close(f"norm_quant_tables[{tag}]", (q, qs), (pq, ps))
+        err = max(code_err, (tab - ptab).abs().max().item())
+        checks.append({"kernel": "norm_quant_tables", "shape": tag, "max_abs_err": err,
+                       "bit_equal_norm_quant": twin, "tables_equal_build_tables": own})
+        if not (twin and own):
+            fail(f"norm_quant_tables[{tag}]: codes and scale bit-equal to norm_quant {twin}, "
+                 f"tables equal build_tables of the codes {own}")
+        sets = [(x, gamma)]
+        nb = _nbytes(x, gamma, q, qs, tab)
+        bms, bby = bound_ms(nb, 5 * x.numel() + 2 * tab.numel(), "f32")
+        out.append({"name": "norm_quant_tables", "route": "cuda", "main_row": tag == "decode",
+                    "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
+                    "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:105",
+                    "shape": f"x[{m},{d}] bf16 -> tables[{m},{tab.shape[1]}] f32",
+                    "max_abs_err": err,
+                    "ms": time_ms(torch, nq_ops.norm_quant_tables, sets),
+                    "eager_ms": eager_ms(torch, nq_ops.norm_quant_tables, sets),
+                    "plain_ms": time_ms(torch, nq_ref.norm_quant_tables, sets, iters=20),
+                    "twin_ms": time_ms(torch, nq_ops.norm_quant, sets),
+                    "twin": "norm_quant", "bound_ms": bms, "bound_by": bby,
+                    "library_ms": None})
+
+    # --- projections: tl_gemv (row 14) and tl_matmul (row 15) -------------
+    def projection(name, m, n, k, *, residual, from_tables, main=False):
+        wp = packed(n, k)
+        w_idx = TL.tl_indices(wp)
+        t = w_idx.shape[0]
+        ws = torch.tensor(0.02, device=dev)
+        x, xs = int8(m, n), randn(m, 1).abs() * 1e-3 + 1e-4
+        tab = TL.build_tables(x, t=t) if from_tables else None
+        res = randn(m, k, dtype=bf16) if residual else None
+        out_dtype = torch.float32 if name == "tl_gemv" else bf16
+        if name == "tl_gemv":
+            fn, plain, twin_fn = tl_ops.tl_gemv, tl_ref.tl_gemv, tm_ops.ternary_gemv
+            kw, twin_kw = {}, {}
+        else:
+            fn, plain = tl_ops.tl_matmul, tl_ref.tl_matmul
+            twin_fn = tm_ops.ternary_gemv if m <= 16 else tm_ops.ternary_matmul
+            kw = {"tables": tab, "residual": res, "out_dtype": bf16}
+            twin_kw = {"residual": res, "out_dtype": bf16}
+        got = fn(x, xs, w_idx, ws, **kw)
+        want = plain(x, xs, w_idx, ws, **kw)
+        twin = twin_fn(x, xs, wp, ws, **twin_kw)
+        err = (got.float() - want.float()).abs().max().item()
+        same = bits_equal(got, twin)
+        tag = (("decode" if m <= 16 else "prefill") + (" tables" if from_tables else " int8")
+               + (" +res" if residual else ""))
+        checks.append({"kernel": name, "shape": f"[{m},{n}]x[{t},{k}] {tag}",
+                       "max_abs_err": err, "bit_equal_packed_twin": same})
+        if err != 0.0 or not same:
+            fail(f"{name}[{m},{n},{k} {tag}]: max |kernel - plain| = {err} (bar exact), "
+                 f"bit-equal to {twin_fn.__name__} {same}")
+        sets = [(x, xs, w_idx.clone(), ws) for _ in range(copies_for(w_idx.numel()))]
+        twin_sets = [(x, xs, wp.clone(), ws) for _ in range(copies_for(wp.numel()))]
+        lib_n = copies_for(n * k * 2, limit=32)
+        wbf = unpacked_bf16(wp, ws)
+        xb = (x.to(torch.float32) * xs).to(bf16)
+        lib_sets = [(xb, wbf.clone()) for _ in range(lib_n)]
+        nb = (_nbytes(xs, w_idx, ws, res) + (_nbytes(tab) if from_tables else _nbytes(x))
+              + m * k * got.element_size())
+        ops = m * t * k + (0 if from_tables else 2 * 27 * m * t)
+        bms, bby = bound_ms(nb, ops, "f32")
+        call = lambda *a: fn(*a, **kw)  # noqa: E731
+        return {"name": name, "route": "cuda", "main_row": main, "source": src_tl,
+                "replaces": ("src/repro/kernels/tl_gemv/kernel.py:91" if name == "tl_gemv"
+                             else "src/repro/kernels/tl_gemv/kernel.py:141"),
+                "shape": f"x[{m},{n}] x w_idx[{t},{k}] u8, {tag}, {str(out_dtype)[6:]} out",
+                "max_abs_err": err,
+                "ms": time_ms(torch, call, sets),
+                "eager_ms": eager_ms(torch, call, sets),
+                "plain_ms": time_ms(torch, lambda *a: plain(*a, **kw), sets,
+                                    iters=100 if m <= 16 else 5),
+                "twin_ms": time_ms(torch, lambda *a: twin_fn(*a, **twin_kw), twin_sets),
+                "twin": twin_fn.__name__, "bound_ms": bms, "bound_by": bby,
+                "library_ms": time_ms(torch, torch.matmul, lib_sets)}
+
+    out += [
+        projection("tl_gemv", decode_m, d, d, residual=False, from_tables=False, main=True),
+        projection("tl_gemv", decode_m, ff, d, residual=False, from_tables=False),
+        projection("tl_matmul", decode_m, d, d, residual=False, from_tables=True, main=True),
+        projection("tl_matmul", decode_m, ff, d, residual=True, from_tables=False),
+        projection("tl_matmul", prefill_m, d, d, residual=False, from_tables=True),
+        projection("tl_matmul", prefill_m, d, d, residual=False, from_tables=False),
+        projection("tl_matmul", prefill_m, ff, d, residual=True, from_tables=False),
+    ]
+
+    # --- tl_swiglu (row 16), from the prologue's tables --------------------
+    wg, wu = packed(d, ff), packed(d, ff)
+    ig, iu = TL.tl_indices(wg), TL.tl_indices(wu)
+    sg, su = torch.tensor(0.03, device=dev), torch.tensor(0.025, device=dev)
+    for tag, m in (("decode", decode_m), ("prefill", prefill_m)):
+        x, xs = int8(m, d), randn(m, 1).abs() * 1e-3 + 1e-4
+        tab = TL.build_tables(x, t=ig.shape[0])
+        kw = {"tables": tab, "act_dtype": bf16}
+        got = tl_ops.tl_swiglu(x, xs, ig, sg, iu, su, **kw)
+        twin = tm_ops.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=bf16)
+        same = bits_equal(got[0], twin[0]) and bits_equal(got[1], twin[1])
+        err = quant_close(f"tl_swiglu[{tag}]", got,
+                          tl_ref.tl_swiglu(x, xs, ig, sg, iu, su, **kw))
+        checks.append({"kernel": "tl_swiglu", "shape": tag, "max_abs_err": err,
+                       "bit_equal_packed_twin": same})
+        if not same:
+            fail(f"tl_swiglu[{tag}]: codes and scales differ from ternary_swiglu's")
+        sets = [(x, xs, ig.clone(), sg, iu.clone(), su) for _ in range(copies_for(2 * ig.numel()))]
+        twin_sets = [(x, xs, wg.clone(), sg, wu.clone(), su)
+                     for _ in range(copies_for(2 * wg.numel()))]
+        t = ig.shape[0]
+        nb = _nbytes(tab, xs, ig, iu, sg, su) + m * ff + m * 4
+        bms, bby = bound_ms(nb, 2 * m * t * ff, "f32")
+        out.append({"name": "tl_swiglu", "route": "cuda", "main_row": tag == "decode",
+                    "source": src_tl, "replaces": "src/repro/kernels/tl_gemv/kernel.py:216",
+                    "shape": f"tables[{m},{tab.shape[1]}] x 2 w_idx[{t},{ff}] u8",
+                    "max_abs_err": err,
+                    "ms": time_ms(torch, lambda *a: tl_ops.tl_swiglu(*a, **kw), sets),
+                    "eager_ms": eager_ms(torch, lambda *a: tl_ops.tl_swiglu(*a, **kw), sets),
+                    "plain_ms": time_ms(torch, lambda *a: tl_ref.tl_swiglu(*a, **kw), sets,
+                                        iters=100 if m <= 16 else 5),
+                    "twin_ms": time_ms(torch, lambda *a: tm_ops.ternary_swiglu(
+                        *a, act_dtype=bf16), twin_sets),
+                    "twin": "ternary_swiglu", "bound_ms": bms, "bound_by": bby,
+                    "library_ms": None})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase: smoke (small input, card vs CPU reference)
 # ---------------------------------------------------------------------------
 
@@ -993,42 +1185,54 @@ def full_params(torch, cfg):
     return params
 
 
-def generate_phase(torch, cfg, params, steps: int, report: dict) -> dict:
+def generate_prompts(torch, cfg):
+    """generate's workload: B = 4 prompts of 100 tokens, seed 0."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return torch.randint(0, cfg.vocab_size, (4, 100), generator=gen, device="cuda")
+
+
+def generate_run(torch, cfg, params, prompts, steps: int, kset):
+    """The prefill alone, timed after a warm-up, then the whole ``generate``
+    (the launch counters reset just before it and read just after, for the
+    kernels); returns (result, counts or None, times)."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    b = prompts.shape[0]
+    with torch.inference_mode():
+        E.prefill_bucketed(params, cfg, prompts, kernels=kset)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        E.prefill_bucketed(params, cfg, prompts, kernels=kset)
+        torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    if kset is K.KERNELS:
+        K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = E.generate(params, cfg, prompts, steps=steps, kernels=kset)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t) * 1e3
+    counts = K.launch_counts() if kset is K.KERNELS else None
+    decode_ms = (total_ms - prefill_ms) / (steps - 1)
+    return res, counts, {"prefill_ms": prefill_ms, "generate_ms": total_ms,
+                         "decode_ms_per_step": decode_ms,
+                         "decode_tokens_per_s": b * 1e3 / decode_ms,
+                         "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def generate_phase(torch, cfg, params, steps: int, report: dict):
+    """Returns the kernels' launch counts and their greedy tokens."""
     from repro_torch import kernels as K
     from repro_torch.models import transformer as Tr
     from repro_torch.serving import engine as E
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    b, s = 4, 100
-    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
-
-    def run(kset):
-        # prefill alone, for its time; then the whole generate
-        with torch.inference_mode():
-            E.prefill_bucketed(params, cfg, prompts, kernels=kset)  # warm-up
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            E.prefill_bucketed(params, cfg, prompts, kernels=kset)
-            torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t) * 1e3
-        torch.cuda.reset_peak_memory_stats()
-        if kset is K.KERNELS:
-            K.reset_launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = E.generate(params, cfg, prompts, steps=steps, kernels=kset)
-        torch.cuda.synchronize()
-        total_ms = (time.perf_counter() - t) * 1e3
-        counts = K.launch_counts() if kset is K.KERNELS else None
-        decode_ms = (total_ms - prefill_ms) / (steps - 1)
-        return res, counts, {"prefill_ms": prefill_ms, "generate_ms": total_ms,
-                             "decode_ms_per_step": decode_ms,
-                             "decode_tokens_per_s": b * 1e3 / decode_ms,
-                             "max_memory_allocated": torch.cuda.max_memory_allocated()}
-
-    res_k, counts, times_k = run(K.KERNELS)
-    res_p, _, times_p = run(K.PLAIN)
+    prompts = generate_prompts(torch, cfg)
+    b, s = prompts.shape
+    res_k, counts, times_k = generate_run(torch, cfg, params, prompts, steps, K.KERNELS)
+    res_p, _, times_p = generate_run(torch, cfg, params, prompts, steps, K.PLAIN)
     toks_k, toks_p = res_k.tokens, res_p.tokens
     if tuple(toks_k.shape) != (b, steps) or not torch.isfinite(res_k.prefill_logits).all():
         fail("generate: wrong token shape or non-finite logits")
@@ -1086,7 +1290,10 @@ def generate_phase(torch, cfg, params, steps: int, report: dict) -> dict:
     missing = [n for n in GENERATE_PATH if counts[n] <= 0]
     if missing:
         fail(f"generate: kernels never launched on the main path: {missing}")
-    return counts
+    tl = {n: counts[n] for n in TL_PATH + ("tl_gemv",) if counts[n]}
+    if tl:
+        fail(f"generate: the default engine launched TL kernels: {tl}")
+    return counts, toks_k
 
 
 # ---------------------------------------------------------------------------
@@ -1247,6 +1454,9 @@ def engine_phase(torch, cfg, params, report: dict) -> tuple[dict, dict]:
             missing = [n for n in path if counts[n] <= 0]
             if missing:
                 problems.append(f"kernels never launched on the engine path: {missing}")
+            tl = {n: counts[n] for n in TL_PATH + ("tl_gemv",) if counts[n]}
+            if tl:
+                problems.append(f"the default engine launched TL kernels: {tl}")
             if problems:
                 emit(out)
                 fail(f"engine[{kv}]: " + "; ".join(problems))
@@ -1380,7 +1590,7 @@ def paged_engine_phase(torch, cfg, params, contiguous_streams, report: dict) -> 
     contiguous kernel streams of the engine phase; (b) 16 requests that
     share a 576-token prefix, the first served alone, against the
     contiguous engine on the same requests. Returns the launch counts of (a)
-    by cache dtype."""
+    by cache dtype, and the streams of (b), paged, by cache dtype."""
     import dataclasses
 
     from repro_torch import kernels as K
@@ -1390,7 +1600,7 @@ def paged_engine_phase(torch, cfg, params, contiguous_streams, report: dict) -> 
            "max_len": ENGINE_MAX_LEN, "page_size": PAGE_SIZE, "requests": ENGINE_REQUESTS,
            "max_new": ENGINE_NEW, "shared_prefix": PREFIX_LEN,
            "shared_prompt_lengths": [len(p) for p in shared]}
-    counts_by_kv = {}
+    counts_by_kv, shared_streams = {}, {}
     with torch.inference_mode():
         for kv in ("bf16", "int8"):
             c = dataclasses.replace(cfg, kv_cache_dtype=kv, kv_layout="paged",
@@ -1437,6 +1647,7 @@ def paged_engine_phase(torch, cfg, params, contiguous_streams, report: dict) -> 
             cont, creqs = engine_run(torch, dataclasses.replace(c, kv_layout="contiguous"),
                                      params, K.KERNELS, shared, first_alone=True)
             pst = pre["paged"]
+            shared_streams[kv] = [r.generated for r in preqs]
             equal = [r.generated == q.generated for r, q in zip(preqs, creqs)]
             shared_out = {k: pre[k] for k in ("ticks", "fused_ticks", "host_transfers",
                                               "wall_s", "tokens_per_s", "fused_tick_ms_mean",
@@ -1468,7 +1679,7 @@ def paged_engine_phase(torch, cfg, params, contiguous_streams, report: dict) -> 
                 fail(f"paged_engine[{kv}]: " + "; ".join(problems))
     report["paged_engine"] = out
     emit(out)
-    return counts_by_kv
+    return counts_by_kv, shared_streams
 
 
 def chunk_step_phase(torch, cfg, params, report: dict) -> None:
@@ -1522,6 +1733,140 @@ def chunk_step_phase(torch, cfg, params, report: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase: tl (the table-lookup engine at full width)
+# ---------------------------------------------------------------------------
+
+
+def _tl_problems(counts) -> list[str]:
+    """A TL run launched every TL kernel of the path and none it replaces."""
+    out = []
+    missing = [n for n in TL_PATH if counts[n] <= 0]
+    if missing:
+        out.append(f"TL kernels never launched: {missing}")
+    packed = {n: counts[n] for n in TL_REPLACED if counts[n]}
+    if packed:
+        out.append(f"packed projection kernels launched under TL: {packed}")
+    return out
+
+
+def tl_smoke_int8(torch) -> dict:
+    """The f32 smoke config in the engine with an int8 cache, each layout:
+    TL and packed through the kernels on the card, equal streams and
+    statuses."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    base = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                               kv_cache_dtype="int8")
+    specs = Tr.param_specs(base)
+    params = Tr.pack_tree(PR.init_params(specs, seed=0, device=torch.device("cuda")), specs,
+                          dtype=base.dtype)
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, base.vocab_size, 192)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+    prompts += [np.concatenate([prefix, rng.integers(0, base.vocab_size, n)]) for n in (20, 9)]
+    out = {}
+    for layout in ("contiguous", "paged"):
+        runs = []
+        for engine in ("tl", "packed"):
+            cfg = dataclasses.replace(base, kv_layout=layout, matmul_engine=engine)
+            eng = E.ServingEngine(params, cfg, slots=2, max_len=512, kernels=KERNELS)
+            reqs = [E.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            runs.append([(r.generated, r.status.name) for r in reqs])
+        out[layout] = {"streams_equal": runs[0] == runs[1],
+                       "requests": len(prompts)}
+    return out
+
+
+def tl_phase(torch, cfg, params, packed_tokens, engine_streams, shared_streams,
+             report: dict) -> dict:
+    """The full-width model with matmul_engine="tl" through the kernels:
+    generate, the ragged engine workload (contiguous, bf16 cache) and the
+    shared-prefix workload (paged, bf16 cache). Every greedy stream equals
+    the packed kernels' stream of the same workload from the phases above;
+    in every TL run the TL kernels launch and the packed projections and
+    the plain prologue do not. Times beside the packed runs' (same call).
+    Then the smoke config with an int8 cache, TL against packed. Returns the
+    launch counts of the TL generate run."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    gc.collect()  # the earlier phases' engines (on_emit closes a cycle) and their caches
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tl_cfg = dataclasses.replace(cfg, matmul_engine="tl")
+    tl_params = E.engine_params(params, tl_cfg)  # w_idx of every node, once, on the card
+    torch.cuda.synchronize()
+    idx_s = time.perf_counter() - t
+    blocks = tl_params["blocks"]["b0"]
+    idx_bytes = sum(node["w_idx"].numel() for sub in blocks.values() for node in sub.values()
+                    if isinstance(node, dict) and "w_idx" in node)
+    out = {"phase": "tl", "model": cfg.name, "w_idx_build_s": idx_s, "w_idx_bytes": idx_bytes}
+    problems = []
+
+    # (a) generate
+    prompts = generate_prompts(torch, cfg)
+    res, gen_counts, times = generate_run(torch, tl_cfg, tl_params, prompts, STEPS, K.KERNELS)
+    equal = int((res.tokens == packed_tokens).all(dim=1).sum().item())
+    packed_times = report["generate"]["kernels"]
+    out["generate"] = {"tl": times, "packed": {k: packed_times[k] for k in times},
+                       "streams_equal_packed": equal, "rows": prompts.shape[0],
+                       "launch_counts": gen_counts}
+    if equal != prompts.shape[0]:
+        problems.append(f"generate: {equal} of {prompts.shape[0]} streams equal packed")
+    problems += [f"generate: {p}" for p in _tl_problems(gen_counts)]
+
+    # (b) the ragged engine workload, contiguous bf16; (c) the shared prefix, paged bf16
+    keys = ("ticks", "fused_ticks", "wall_s", "tokens_per_s", "fused_tick_ms_mean",
+            "decode_tick_ms_mean")
+    with torch.inference_mode():
+        for tag, c, prompts_e, want, packed_run, first_alone in (
+                ("engine", dataclasses.replace(tl_cfg, kv_cache_dtype="bf16"),
+                 _engine_prompts(cfg), engine_streams, report["engine"]["bf16"], False),
+                ("shared_prefix_paged", dataclasses.replace(
+                    tl_cfg, kv_cache_dtype="bf16", kv_layout="paged", kv_page_size=PAGE_SIZE),
+                 _shared_prefix_prompts(cfg), shared_streams,
+                 report["paged_engine"]["bf16"]["shared_prefix"], True)):
+            got, reqs = engine_run(torch, c, tl_params, K.KERNELS, prompts_e,
+                                   first_alone=first_alone)
+            equal = sum(r.generated == w for r, w in zip(reqs, want))
+            res = {"tl": {k: got[k] for k in keys + ("host_transfers", "statuses")},
+                   "packed": {k: packed_run[k] for k in keys},
+                   "streams_equal_packed": equal, "launch_counts": got["launch_counts"]}
+            if got["paged"]:
+                res["tl"]["paged"] = got["paged"]
+            out[tag] = res
+            if equal != len(reqs):
+                problems.append(f"{tag}: {equal} of {len(reqs)} streams equal packed")
+            if any(r.status.name != "OK" for r in reqs) or got["host_transfers"] != got["ticks"]:
+                problems.append(f"{tag}: a request not OK or more than one transfer a tick")
+            problems += [f"{tag}: {p}" for p in _tl_problems(got["launch_counts"])]
+    out["smoke_int8"] = tl_smoke_int8(torch)
+    for layout, r in out["smoke_int8"].items():
+        if not r["streams_equal"]:
+            problems.append(f"smoke int8 {layout}: TL streams differ from packed")
+    report["tl"] = out
+    emit(out)
+    if problems:
+        fail("tl: " + "; ".join(problems))
+    return gen_counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1560,14 +1905,18 @@ def main(argv=None) -> int:
     engine_smoke_phase(torch, report)
     paged_engine_smoke_phase(torch, report)
     params = full_params(torch, cfg)
-    gen_counts = generate_phase(torch, cfg, params, STEPS, report)
+    gen_counts, gen_tokens = generate_phase(torch, cfg, params, STEPS, report)
     eng_counts, eng_streams = engine_phase(torch, cfg, params, report)
     chunk_step_phase(torch, cfg, params, report)
-    paged_counts = paged_engine_phase(torch, cfg, params, eng_streams, report)
+    paged_counts, shared_streams = paged_engine_phase(torch, cfg, params, eng_streams, report)
+    tl_counts = tl_phase(torch, cfg, params, gen_tokens, eng_streams["bf16"],
+                         shared_streams["bf16"], report)
     for row in rows:  # launches on the main path that runs each kernel
         name = row["name"]
         counts = paged_counts if "_paged" in name else eng_counts
-        if name.endswith("_quant"):
+        if name in TL_PATH or name == "tl_gemv":  # the TL generate run
+            row["launches"] = tl_counts[name]
+        elif name.endswith("_quant"):
             row["launches"] = counts["int8"][name]
         elif name.startswith("prefill_append") or "_paged" in name:
             row["launches"] = counts["bf16"][name]

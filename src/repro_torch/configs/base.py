@@ -35,6 +35,10 @@ class ModelConfig:
     kv_page_size: int = 64  # tokens per page; must divide prefill_chunk_sizes[0]
     kv_num_pages: int = 0  # pool size; 0 = auto (slots * cache_len / page_size + 1)
     prefix_cache: bool = True  # paged only: intern full prompt pages for reuse
+    # The ternary matmul engine: "packed" pins the pack2 kernels, "tl" forces
+    # the table-lookup engine, "auto" takes TL only where a measured TL win
+    # is on record (kernels/autotune.py) and the tree carries w_idx.
+    matmul_engine: str = "auto"  # packed | tl | auto
     admission_queue_cap: int = 0  # 0 = unbounded
     request_ttl_s: float = 0.0  # 0 = no deadline
     stats_ring_events: int = 4096  # engine event ring (0 = unbounded)

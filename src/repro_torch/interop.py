@@ -6,7 +6,10 @@ The ``wp`` bytes and f32 ``scale``s cross as they are, so both packages run
 identical ternary weights; nothing is re-ternarized (``ternary_scale`` is an
 f32 mean whose summation order would differ). The embedding table and the
 LM head weight are cast to ``cfg.dtype`` once, the cast the JAX forms apply
-per call. This module imports neither JAX nor ``repro``: numpy in, torch out.
+per call. A tree that ``with_tl_tree`` prepared carries its int32 group
+indices ``w_idx`` across as the port's uint8, after checking that every
+value lies in [0, 27). This module imports neither JAX nor ``repro``:
+numpy in, torch out.
 """
 
 from __future__ import annotations
@@ -31,6 +34,11 @@ def from_jax_params(np_tree, cfg, device=None) -> dict:
     def rec(node, path):
         if isinstance(node, dict):
             return {k: rec(v, path + (k,)) for k, v in node.items()}
+        if path[-1] == "w_idx":
+            node = np.asarray(node)
+            if node.size and not (node.min() >= 0 and node.max() < 27):
+                raise ValueError(f"{'/'.join(path)}: group indices outside [0, 27)")
+            return _to_torch(node.astype(np.uint8), dev)
         t = _to_torch(node, dev)
         if path[-2:] in DENSE_LEAVES:
             t = t.to(cfg.dtype)

@@ -22,6 +22,8 @@ from .prefill_append import ops as _pa_ops
 from .prefill_append import ref as _pa_ref
 from .ternary_matmul import ops as _tm_ops
 from .ternary_matmul import ref as _tm_ref
+from .tl_gemv import ops as _tl_ops
+from .tl_gemv import ref as _tl_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,20 +35,26 @@ class KernelSet:
     prefill_append: Callable  # likewise
     decode_attention_paged: Callable  # the paged layout: pools and a page table
     prefill_append_paged: Callable  # likewise
+    norm_quant_tables: Callable  # the TL engine: the prologue with its tables,
+    tl_matmul: Callable  # the projections at every M,
+    tl_swiglu: Callable  # and gate + up
 
 
 KERNELS = KernelSet(_nq_ops.norm_quant, _tm_ops.ternary_gemv,
                     _tm_ops.ternary_swiglu, _da_ops.decode_attention,
                     _pa_ops.prefill_append, _da_ops.decode_attention_paged,
-                    _pa_ops.prefill_append_paged)
+                    _pa_ops.prefill_append_paged, _nq_ops.norm_quant_tables,
+                    _tl_ops.tl_matmul, _tl_ops.tl_swiglu)
 PLAIN = KernelSet(_nq_ref.norm_quant, _tm_ref.ternary_gemv,
                   _tm_ref.ternary_swiglu, _da_ref.decode_attention,
                   _pa_ref.prefill_append, _da_ref.decode_attention_paged,
-                  _pa_ref.prefill_append_paged)
+                  _pa_ref.prefill_append_paged, _nq_ref.norm_quant_tables,
+                  _tl_ref.tl_matmul, _tl_ref.tl_swiglu)
 
-# The twelve launching wrappers, by the TPU entry point each replaces.
+# The sixteen launching wrappers, by the TPU entry point each replaces.
 WRAPPERS = {
     "norm_quant": _nq_ops.norm_quant,
+    "norm_quant_tables": _nq_ops.norm_quant_tables,
     "ternary_gemv": _tm_ops.ternary_gemv,
     "ternary_matmul": _tm_ops.ternary_matmul,
     "ternary_swiglu": _tm_ops.ternary_swiglu,
@@ -58,6 +66,9 @@ WRAPPERS = {
     "decode_attention_paged_quant": _da_ops.decode_attention_paged_quant,
     "prefill_append_paged": _pa_ops.prefill_append_paged,
     "prefill_append_paged_quant": _pa_ops.prefill_append_paged_quant,
+    "tl_gemv": _tl_ops.tl_gemv,
+    "tl_matmul": _tl_ops.tl_matmul,
+    "tl_swiglu": _tl_ops.tl_swiglu,
 }
 
 

@@ -31,6 +31,7 @@ SOURCES = (
     _PKG / "ternary_matmul" / "csrc" / "ternary_swiglu.cu",
     _PKG / "decode_attention" / "csrc" / "decode_attention.cu",
     _PKG / "prefill_append" / "csrc" / "prefill_append.cu",
+    _PKG / "tl_gemv" / "csrc" / "tl_gemv.cu",
 )
 HEADERS = (
     _PKG / "csrc" / "common.cuh",
@@ -44,11 +45,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, gamma, q, qs, m, n, eps, dtype, stream
     "tm_norm_quant": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, gamma, q, qs, tables, m, n, eps, dtype, stream
+    "tm_norm_quant_tables": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # x, xs, wp, ws, residual, out, m, n, k, dtype, stream
     "tm_ternary_gemv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tm_ternary_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, xs, wg, wgs, wu, wus, h, q, qs, m, n, k, dtype, stream
     "tm_ternary_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, xs, w_idx, ws, ws_stride, out, m, n, groups, k, stream
+    "tm_tl_gemv": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    # x, tables, xs, w_idx, ws, ws_stride, res, out, m, n, groups, k, dtype, stream
+    "tm_tl_matmul": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, tables, xs, wg, wgs, wu, wus, h, q, qs, m, n, groups, k, dtype, stream
+    "tm_tl_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, pos, out, bhk, hk, g, m, d, window, softcap, scale, dtype, stream
     "tm_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     # q, k, v, k_scale, v_scale, pos, out, bhk, hk, g, m, d, window, softcap,

@@ -147,6 +147,29 @@ __device__ __forceinline__ size_t kv_row(const int* __restrict__ pt, int bh, int
   }
 }
 
+// Table-lookup (TL) engine, paper Algorithm 1 with G = 3: a group of three
+// int8 activations (a0, a1, a2) has 27 table entries, entry c being
+// sum_i a_i * (digit_i(c) - 1) with digit_i the base-3 digits of c
+// (repro/core/packing.py combo_matrix, repro/core/tl_matmul.py
+// build_tables). |entry| <= 381, an exact integer. Index 13 is the group
+// of three zero trits, whose entry is 0: the pad column.
+constexpr int kTlGroup = 3, kTlCombos = 27, kTlZeroGroup = 13;
+
+__device__ __forceinline__ int tl_entry(int a0, int a1, int a2, int c) {
+  const int d2 = c / 9, d1 = (c - 9 * d2) / 3, d0 = c - 9 * d2 - 3 * d1;
+  return a0 * (d0 - 1) + a1 * (d1 - 1) + a2 * (d2 - 1);
+}
+
+// The three activations of group t of row xr [n] (zero past n: a ragged
+// last group is padded with zero activations, after the norm).
+__device__ __forceinline__ void tl_group(const int8_t* xr, int n, int t, int* a) {
+#pragma unroll
+  for (int i = 0; i < kTlGroup; ++i) {
+    const int j = kTlGroup * t + i;
+    a[i] = j < n ? (int)xr[j] : 0;
+  }
+}
+
 // Dynamic shared memory above 48 KB must be asked for per kernel.
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -27,27 +27,10 @@
 namespace {
 
 template <typename T>
-struct DequantEpi {
-  const float* xs;  // [M] per-row activation scales
-  const float* ws;  // device scalar weight scale
-  const T* res;     // [M, K] or nullptr
-  T* out;           // [M, K]
-  int k;
-  __device__ __forceinline__ void operator()(int m, int col, const int* acc) const {
-    const float v = __fmul_rn(__fmul_rn((float)acc[0], xs[m]), *ws);
-    T o = rtk::Num<T>::from_f(v);
-    const size_t at = (size_t)m * k + col;
-    if (res != nullptr)
-      o = rtk::Num<T>::from_f(__fadd_rn(rtk::Num<T>::to_f(o), rtk::Num<T>::to_f(res[at])));
-    out[at] = o;
-  }
-};
-
-template <typename T>
 int launch(const void* x, const void* xs, const void* wp, const void* ws, const void* res,
            void* out, int m, int n, int k, bool small_m, cudaStream_t stream) {
-  DequantEpi<T> epi{static_cast<const float*>(xs), static_cast<const float*>(ws),
-                    static_cast<const T*>(res), static_cast<T*>(out), k};
+  rtk::DequantEpi<T> epi{static_cast<const float*>(xs), static_cast<const float*>(ws),
+                         static_cast<const T*>(res), static_cast<T*>(out), k, 0};
   return (int)rtk::launch_ternary<1>(static_cast<const int8_t*>(x), m, n / 4, k,
                                     static_cast<const uint8_t*>(wp), nullptr, epi, small_m,
                                     stream);

@@ -26,48 +26,18 @@
 namespace {
 
 template <typename T>
-struct SwigluEpi {
-  const float* xs;
-  const float* wgs;
-  const float* wus;
-  T* h;  // [M, K] scratch
-  int k;
-  __device__ __forceinline__ void operator()(int m, int col, const int* acc) const {
-    const float xsm = xs[m];
-    const float g = rtk::round_to<T>(__fmul_rn(__fmul_rn((float)acc[0], xsm), *wgs));
-    const float u = rtk::round_to<T>(__fmul_rn(__fmul_rn((float)acc[1], xsm), *wus));
-    const float sig = rtk::round_to<T>(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g))));
-    const float a = rtk::round_to<T>(__fmul_rn(g, sig));
-    h[(size_t)m * k + col] = rtk::Num<T>::from_f(__fmul_rn(a, u));
-  }
-};
-
-constexpr int kRequantThreads = 256;
-
-template <typename T>
-__global__ void requant_kernel(const T* __restrict__ h, int8_t* __restrict__ q,
-                               float* __restrict__ qs, int k) {
-  __shared__ float red[32];
-  const size_t row = blockIdx.x;
-  const T* hr = h + row * k;
-  auto y = [&](int i) { return rtk::Num<T>::to_f(hr[i]); };
-  rtk::quantize_row<T>(y, k, q + row * k, qs + row, red);
-}
-
-template <typename T>
 int launch(const void* x, const void* xs, const void* wg, const void* wgs, const void* wu,
            const void* wus, void* h, void* q, void* qs, int m, int n, int k,
            cudaStream_t stream) {
   if (m == 0) return 0;
-  SwigluEpi<T> epi{static_cast<const float*>(xs), static_cast<const float*>(wgs),
-                   static_cast<const float*>(wus), static_cast<T*>(h), k};
+  rtk::SwigluEpi<T> epi{static_cast<const float*>(xs), static_cast<const float*>(wgs),
+                        static_cast<const float*>(wus), static_cast<T*>(h), k};
   cudaError_t err = rtk::launch_ternary<2>(
       static_cast<const int8_t*>(x), m, n / 4, k, static_cast<const uint8_t*>(wg),
       static_cast<const uint8_t*>(wu), epi, m <= 16, stream);
   if (err != cudaSuccess) return (int)err;
-  requant_kernel<T><<<m, kRequantThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<int8_t*>(q), static_cast<float*>(qs), k);
-  return (int)cudaGetLastError();
+  return (int)rtk::launch_requant<T>(static_cast<const T*>(h), static_cast<int8_t*>(q),
+                                     static_cast<float*>(qs), m, k, stream);
 }
 
 }  // namespace

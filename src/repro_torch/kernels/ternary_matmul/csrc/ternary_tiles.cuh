@@ -8,7 +8,10 @@
 // `rtk::x_word` packs the four activations those planes meet in the same
 // order, so one __dp4a does the byte's four multiply-adds. Accumulation is
 // int32, hence exact and independent of order; the epilogue functor turns
-// the accumulators of output (m, k) into the result.
+// the accumulators of output (m, k) into the result. The epilogues and the
+// SwiGLU requant pass live here too: the table-lookup kernels
+// (tl_gemv/csrc/tl_gemv.cu) end in the same code, so both engines round
+// their int32 sums identically.
 #pragma once
 
 #include "common.cuh"
@@ -238,6 +241,69 @@ inline cudaError_t launch_ternary(const int8_t* x, int m, int n4, int k, const u
   }
   const dim3 grid((k + kMmBK - 1) / kMmBK, (m + kMmBM - 1) / kMmBM);
   matmul_kernel<NW, Epi><<<grid, kMmThreads, 0, stream>>>(x, m, n4, k, w0, w1, xvec, epi);
+  return cudaGetLastError();
+}
+
+// Projection epilogue: out[m, k] = T((float(acc) * xs[m]) * ws), then
+// T(out + residual[m, k]) when a residual is given (the reference's
+// `(acc * x_scale * w_scale).astype(T)` and `out + r`). `ws` is one scalar
+// (ws_stride 0) or a per-output-channel row (ws_stride 1).
+template <typename T>
+struct DequantEpi {
+  const float* xs;  // [M] per-row activation scales
+  const float* ws;  // device scalar or [K] weight scale
+  const T* res;     // [M, K] or nullptr
+  T* out;           // [M, K]
+  int k;
+  int ws_stride;
+  __device__ __forceinline__ void operator()(int m, int col, const int* acc) const {
+    const float v = __fmul_rn(__fmul_rn((float)acc[0], xs[m]), ws[col * ws_stride]);
+    T o = Num<T>::from_f(v);
+    const size_t at = (size_t)m * k + col;
+    if (res != nullptr) o = Num<T>::from_f(__fadd_rn(Num<T>::to_f(o), Num<T>::to_f(res[at])));
+    out[at] = o;
+  }
+};
+
+// SwiGLU epilogue (pass 1 of two): gate and up accumulators ->
+//   g = T((acc_g * xs) * wgs),  u = T((acc_u * xs) * wus)
+//   h = T(T(g * T(sigmoid(g))) * u)            (silu in the act dtype T)
+// written to the scratch row h [M, K]; requant_kernel is pass 2.
+template <typename T>
+struct SwigluEpi {
+  const float* xs;
+  const float* wgs;
+  const float* wus;
+  T* h;  // [M, K] scratch
+  int k;
+  __device__ __forceinline__ void operator()(int m, int col, const int* acc) const {
+    const float xsm = xs[m];
+    const float g = round_to<T>(__fmul_rn(__fmul_rn((float)acc[0], xsm), *wgs));
+    const float u = round_to<T>(__fmul_rn(__fmul_rn((float)acc[1], xsm), *wus));
+    const float sig = round_to<T>(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g))));
+    const float a = round_to<T>(__fmul_rn(g, sig));
+    h[(size_t)m * k + col] = Num<T>::from_f(__fmul_rn(a, u));
+  }
+};
+
+constexpr int kRequantThreads = 256;
+
+// SwiGLU pass 2: one block per row of h takes the absmax of all K values
+// and writes the int8 codes and the row scale (quantize_act).
+template <typename T>
+__global__ void requant_kernel(const T* __restrict__ h, int8_t* __restrict__ q,
+                               float* __restrict__ qs, int k) {
+  __shared__ float red[32];
+  const size_t row = blockIdx.x;
+  const T* hr = h + row * k;
+  auto y = [&](int i) { return Num<T>::to_f(hr[i]); };
+  quantize_row<T>(y, k, q + row * k, qs + row, red);
+}
+
+template <typename T>
+inline cudaError_t launch_requant(const T* h, int8_t* q, float* qs, int m, int k,
+                                  cudaStream_t stream) {
+  requant_kernel<T><<<m, kRequantThreads, 0, stream>>>(h, q, qs, k);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """Shared model layers (``repro/models/layers.py:29-175``): RMSNorm, the
-fused norm-quant prologue, RoPE, embedding, LM head and the fused packed
-SwiGLU MLP."""
+fused norm-quant prologue (with or without the TL tables), RoPE, embedding,
+LM head and the fused SwiGLU MLP."""
 
 from __future__ import annotations
 
@@ -20,9 +20,14 @@ def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor
     return (xf * rms * params["gamma"].to(torch.float32)).to(x.dtype)
 
 
-def norm_quant(params: dict, x: torch.Tensor, *, kernels, eps: float = 1e-5) -> tuple:
+def norm_quant(params: dict, x: torch.Tensor, *, kernels, eps: float = 1e-5,
+               tables: bool = False) -> tuple:
     """Fused RMSNorm + per-token int8: ``(x_i8 [..., N], x_scale [..., 1])``,
-    equal to ``quantize_act(rmsnorm(params, x))``."""
+    equal to ``quantize_act(rmsnorm(params, x))``; with ``tables`` also the
+    TL engine's tables of the int8 row, ``(x_i8, x_scale, tables)``, the
+    first two unchanged."""
+    if tables:
+        return kernels.norm_quant_tables(x, params["gamma"], eps=eps)
     return kernels.norm_quant(x, params["gamma"], eps=eps)
 
 
@@ -70,10 +75,13 @@ def mlp_spec(dim: int, hidden: int) -> dict:
     }
 
 
-def mlp_fused(params: dict, xq: tuple, *, kernels, out_dtype, residual=None):
-    """Packed SwiGLU over the int8 pipeline: fused gate/up/SiLU/requant,
-    then the down projection with ``residual`` in its epilogue."""
+def mlp_fused(params: dict, xq: tuple, *, kernels, out_dtype, residual=None,
+              engines=None):
+    """SwiGLU over the int8 pipeline: fused gate/up/SiLU/requant, then the
+    down projection with ``residual`` in its epilogue. ``engines`` maps
+    ``"gate"`` and ``"down"`` to their matmul engine (default ``"auto"``)."""
+    engines = engines or {}
     hq = bitlinear.swiglu(params["gate"], params["up"], xq, kernels=kernels,
-                          act_dtype=out_dtype)
-    return bitlinear.apply(params["down"], hq, kernels=kernels,
-                           out_dtype=out_dtype, residual=residual)
+                          act_dtype=out_dtype, engine=engines.get("gate", "auto"))
+    return bitlinear.apply(params["down"], hq, kernels=kernels, out_dtype=out_dtype,
+                           residual=residual, engine=engines.get("down", "auto"))

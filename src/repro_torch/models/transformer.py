@@ -13,7 +13,11 @@ stacked layers; here a Python loop walks them. Every block runs the
 int8-resident pipeline of ``transformer.py:422-447``: norm-quant prologue,
 q/k/v projections on the int8 row, RoPE, attention, the o projection with
 the residual in its epilogue, norm-quant, fused SwiGLU, and the down
-projection with the residual in its epilogue.
+projection with the residual in its epilogue. Each block resolves the
+matmul engine of its projections once (``cfg.matmul_engine``); where q
+(gate) resolves to the table-lookup engine, the first (second) prologue
+also emits the TL tables, which q, k and v (gate and up) consume; o and
+down quantize their own input.
 """
 
 from __future__ import annotations
@@ -91,9 +95,30 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
-def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
+# The projections of a block, by (sub-block, name).
+PROJECTIONS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
+               ("ffn", "gate"), ("ffn", "down"))
+
+
+_FIXED = {e: {name: e for _, name in PROJECTIONS} for e in ("tl", "packed")}
+
+
+def block_engines(bp, rows: int, engine: str) -> dict:
+    """The matmul engine of each projection of one block over ``rows`` rows
+    (``transformer.py:428-445``), resolved once per block: a forced or
+    pinned engine is every projection's; ``"auto"`` asks each node."""
+    if engine in _FIXED:
+        return _FIXED[engine]
+    return {name: bitlinear.resolve_engine(bp[sub][name], rows, engine=engine)
+            for sub, name in PROJECTIONS}
+
+
+def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=None,
                 prefix_limit=0, page_table=None, page_rows=None):
-    """Attention sub-block on the int8 row ``xq``; returns (x + attn(x), the
+    """Attention sub-block on the int8 row ``xq`` (the prologue's pair, or
+    its triple with TL tables); ``engines`` maps q, k, v and o to their
+    matmul engine (:func:`block_engines`; alone, each resolves
+    ``cfg.matmul_engine``). Returns (x + attn(x), the
     cache rows of this call). ``cache`` is this layer's cache leaves
     ``{"k", "v"[, "k_scale", "v_scale"]}`` (views, updated in place): for a
     decode step (one row, written at ``pos``) or a prefill chunk (rows
@@ -105,9 +130,11 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
     dequantized rows (``transformer.py:242-256``)."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    engines = engines or dict.fromkeys(("q", "k", "v", "o"), cfg.matmul_engine)
 
     def proj(name, heads):
-        y = bitlinear.apply(bp[name], xq, kernels=kernels, out_dtype=x.dtype)
+        y = bitlinear.apply(bp[name], xq, kernels=kernels, out_dtype=x.dtype,
+                            engine=engines[name])
         return y.reshape(b, s, heads, hd).transpose(1, 2)
 
     rope_h = (rope[0][:, None], rope[1][:, None])  # broadcast over heads
@@ -159,7 +186,8 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, cache=None, pos=None,
             q[:, :, 0], cache["k"], cache["v"], pos, kernels=kernels,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))[:, :, None]
     out = out.transpose(1, 2).reshape(b, s, h * hd)
-    x = bitlinear.apply(bp["o"], out, kernels=kernels, out_dtype=x.dtype, residual=x)
+    x = bitlinear.apply(bp["o"], out, kernels=kernels, out_dtype=x.dtype, residual=x,
+                        engine=engines["o"])
     return x, new
 
 
@@ -167,12 +195,16 @@ def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None, prefix_limit
                 page_table=None, page_rows=None):
     """The fused attn+dense block (``transformer.py:422-447``). Returns
     (x, the cache rows of a one-shot prefill or None)."""
-    hq = L.norm_quant(bp["ln1"], x, kernels=kernels, eps=cfg.norm_eps)
-    x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope, kernels=kernels,
+    engines = block_engines(bp, x.shape[0] * x.shape[1], cfg.matmul_engine)
+    hq = L.norm_quant(bp["ln1"], x, kernels=kernels, eps=cfg.norm_eps,
+                      tables=engines["q"] == "tl")
+    x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope, kernels=kernels, engines=engines,
                         cache=cache, pos=pos, prefix_limit=prefix_limit,
                         page_table=page_table, page_rows=page_rows)
-    h2q = L.norm_quant(bp["ln2"], x, kernels=kernels, eps=cfg.norm_eps)
-    x = L.mlp_fused(bp["ffn"], h2q, kernels=kernels, out_dtype=x.dtype, residual=x)
+    h2q = L.norm_quant(bp["ln2"], x, kernels=kernels, eps=cfg.norm_eps,
+                       tables=engines["gate"] == "tl")
+    x = L.mlp_fused(bp["ffn"], h2q, kernels=kernels, out_dtype=x.dtype, residual=x,
+                    engines=engines)
     return x, kv
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import _common as C
+from ..core import bitlinear
 from ..kernels import KERNELS
 from ..models import transformer as Tr
 from . import resilience as R
@@ -117,6 +118,16 @@ def fit_caches(caches, cfg, max_len: int) -> dict:
     return _resize_caches(caches, cfg, max_len, crop=True)
 
 
+def engine_params(params, cfg):
+    """The table-lookup engine's offline step (``engine.py:77-87``): with
+    ``cfg.matmul_engine == "tl"`` every packed node gains its group indices
+    ``w_idx``, made once on the device of ``wp``; a tree that already has
+    them, and every tree under another engine, passes through."""
+    if cfg.matmul_engine == "tl":
+        return bitlinear.with_tl_tree(params)
+    return params
+
+
 def prefill_bucketed(params, cfg, prompts: torch.Tensor, *, kernels=KERNELS):
     """Prefill ``prompts [B, S]`` padded (with token 0) to the chunk-size
     bucket; pad tokens sit past every row's causal frontier. Returns
@@ -154,6 +165,7 @@ def generate(params, cfg, prompts, *, steps: int, temperature: float = 0.0,
     prompts = torch.as_tensor(prompts, device=dev).to(torch.int64)
     b, s = prompts.shape
     with torch.inference_mode():
+        params = engine_params(params, cfg)
         last_logits, caches = prefill_bucketed(params, cfg, prompts, kernels=kernels)
         caches = fit_caches(caches, cfg, s + steps)
         tok = _sample(last_logits, temperature, generator)
@@ -345,7 +357,7 @@ class ServingEngine:
                  eos_id: int = -1, queue_cap: int | None = None, guards: bool = True,
                  clock=time.monotonic, kernels=KERNELS, device=None):
         self.dev = C.resolve_device(device)
-        self.params, self.cfg, self.kernels = params, cfg, kernels
+        self.params, self.cfg, self.kernels = engine_params(params, cfg), cfg, kernels
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
         sizes = tuple(sorted(cfg.prefill_chunk_sizes)) or (64, 128, 256)
         # chunk sizes no admissible prompt (len < max_len) can fill are dropped

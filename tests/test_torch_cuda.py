@@ -26,6 +26,15 @@ zeros, by V, so its unread rows must be finite, as the contract of
 ``serving/paging.py`` keeps them). The pools after the append equal the
 plain version's byte for byte, garbage page excepted, and every other row
 is left as it was.
+
+The table-lookup (TL) kernels are bit-equal to their plain versions and to
+their packed twins (the same int32 sums through the same epilogues), at
+decode and prefill shapes, with and without a residual, from the
+prologue's tables and from int8 rows, at a ragged contraction (N = 4096
+and 64 fill their last group of 3 with one trit); the TL SwiGLU's codes
+equal the packed kernel's and lie within the SwiGLU bar of its plain
+version. ``norm_quant_tables`` gives ``norm_quant``'s codes and scales bit
+for bit, and its tables equal ``build_tables`` of those codes.
 """
 
 import dataclasses
@@ -37,6 +46,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import packing as PK
 from repro_torch.core import params as PR
+from repro_torch.core import tl_matmul as TL
 from repro_torch.core.ternary import gather_kv_pages
 from repro_torch.kernels import KERNELS, PLAIN, launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -47,6 +57,8 @@ from repro_torch.kernels.prefill_append import ops as pa_ops
 from repro_torch.kernels.prefill_append import ref as pa_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul import ref as tm_ref
+from repro_torch.kernels.tl_gemv import ops as tl_ops
+from repro_torch.kernels.tl_gemv import ref as tl_ref
 from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as TE
 
@@ -463,3 +475,135 @@ def test_smoke_paged_engine_kernels_vs_plain(cuda, kv):
 def _to(tree, dev):
     return ({k: _to(v, dev) for k, v in tree.items()} if isinstance(tree, dict)
             else tree.to(dev))
+
+
+# ---------------------------------------------------------------------------
+# the table-lookup engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 7, 512])
+@pytest.mark.parametrize("n", [1536, 64])
+def test_norm_quant_tables(cuda, dtype, m, n):
+    rng = np.random.default_rng(60 + m + n)
+    x = _t(rng.standard_normal((m, n)).astype(np.float32) * 3, cuda, TORCH_DT[dtype])
+    g = _t(rng.standard_normal(n).astype(np.float32), cuda)
+    q, s, tab = nq_ops.norm_quant_tables(x, g)
+    q0, s0 = nq_ops.norm_quant(x, g)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+    assert tab.shape == (m, -(-n // 3) * 27)
+    assert torch.equal(tab, TL.build_tables(q, t=-(-n // 3)))
+    _assert_quant_close((q, s), nq_ref.norm_quant(x, g), QUANT_RTOL[dtype])
+
+
+def _tl_operands(rng, m, n, k, dev):
+    w = _t(rng.integers(-1, 2, (n, k)).astype(np.int8), dev)
+    wp = PK.pack2(w)
+    x = _t(rng.integers(-127, 128, (m, n)).astype(np.int8), dev)
+    xs = _t(rng.uniform(1e-4, 1e-2, (m, 1)).astype(np.float32), dev)
+    return wp, TL.tl_indices(wp), x, xs
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 40, 130])
+@pytest.mark.parametrize("n,k", [(1536, 1536), (4096, 1536), (64, 44)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tl_matmul(cuda, m, n, k, dtype):
+    rng = np.random.default_rng(70 + m + n + k)
+    wp, w_idx, x, xs = _tl_operands(rng, m, n, k, cuda)
+    ws = torch.tensor(0.61, device=cuda)
+    res = _t(rng.standard_normal((m, k)).astype(np.float32), cuda, TORCH_DT[dtype])
+    tables = TL.build_tables(x, t=w_idx.shape[0])
+    out = TORCH_DT[dtype]
+    for residual in (None, res):
+        twin = tm_ops.ternary_matmul(x, xs, wp, ws, out_dtype=out, residual=residual)
+        for tab in (None, tables):
+            got = tl_ops.tl_matmul(x, xs, w_idx, ws, tables=tab, residual=residual,
+                                   out_dtype=out)
+            want = tl_ref.tl_matmul(x, xs, w_idx, ws, tables=tab, residual=residual,
+                                    out_dtype=out)
+            assert torch.equal(got, want) and torch.equal(got, twin)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 40])
+@pytest.mark.parametrize("n,k", [(1536, 1536), (4096, 1536), (64, 44)])
+def test_tl_gemv(cuda, m, n, k):
+    rng = np.random.default_rng(80 + m + n + k)
+    wp, w_idx, x, xs = _tl_operands(rng, m, n, k, cuda)
+    scalar = torch.tensor(0.61, device=cuda)
+    per_channel = _t(rng.uniform(0.1, 1.0, k).astype(np.float32), cuda)
+    for ws in (scalar, per_channel):
+        got = tl_ops.tl_gemv(x, xs, w_idx, ws)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, tl_ref.tl_gemv(x, xs, w_idx, ws))
+    assert torch.equal(tl_ops.tl_gemv(x, xs, w_idx, scalar),
+                       tm_ops.ternary_gemv(x, xs, wp, scalar))
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+@pytest.mark.parametrize("n,k", [(1536, 4096), (64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tl_swiglu(cuda, m, n, k, dtype):
+    rng = np.random.default_rng(90 + m + n)
+    wg, wg_idx, x, xs = _tl_operands(rng, m, n, k, cuda)
+    wu = PK.pack2(_t(rng.integers(-1, 2, (n, k)).astype(np.int8), cuda))
+    wu_idx = TL.tl_indices(wu)
+    sg, su = torch.tensor(0.05, device=cuda), torch.tensor(0.04, device=cuda)
+    act = TORCH_DT[dtype]
+    twin = tm_ops.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=act)
+    for tab in (None, TL.build_tables(x, t=wg_idx.shape[0])):
+        got = tl_ops.tl_swiglu(x, xs, wg_idx, sg, wu_idx, su, tables=tab, act_dtype=act)
+        assert torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
+        want = tl_ref.tl_swiglu(x, xs, wg_idx, sg, wu_idx, su, tables=tab, act_dtype=act)
+        _assert_quant_close(got, want, QUANT_RTOL[dtype])
+
+
+def test_tl_wrappers_count_and_validate(cuda):
+    rng = np.random.default_rng(99)
+    wp, w_idx, x, xs = _tl_operands(rng, 4, 64, 32, cuda)
+    ws = torch.tensor(0.5, device=cuda)
+    reset_launch_counts()
+    tl_ops.tl_gemv(x, xs, w_idx, ws)
+    tl_ops.tl_matmul(x, xs, w_idx, ws)
+    tl_ops.tl_swiglu(x, xs, w_idx, ws, w_idx, ws)
+    nq_ops.norm_quant_tables(torch.ones((4, 64), device=cuda), torch.ones(64, device=cuda))
+    counts = launch_counts()
+    assert all(counts[n] == 1 for n in ("tl_gemv", "tl_matmul", "tl_swiglu",
+                                        "norm_quant_tables")), counts
+    with pytest.raises(TypeError):
+        tl_ops.tl_matmul(x, xs, w_idx.to(torch.int32), ws)
+    with pytest.raises(ValueError):
+        tl_ops.tl_matmul(x[:, :30].contiguous(), xs, w_idx, ws)
+    with pytest.raises(ValueError):
+        tl_ops.tl_matmul(None, xs, w_idx, ws, tables=torch.zeros((4, 27), device=cuda))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_smoke_tl_engine_vs_packed(cuda, layout):
+    """The f32 smoke config with matmul_engine="tl" through the kernels:
+    generate and the engine give the packed kernels' streams, and only the
+    TL kernels run the projections."""
+    cfg = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                              kv_layout=layout)
+    tl_cfg = dataclasses.replace(cfg, matmul_engine="tl")
+    specs = TT.param_specs(cfg)
+    params = TT.pack_tree(PR.init_params(specs, seed=0, device=cuda), specs, dtype=cfg.dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 13), generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(0, cfg.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+
+    def run(c):
+        reset_launch_counts()
+        gen = TE.generate(params, c, prompts, steps=8, kernels=KERNELS)
+        eng = TE.ServingEngine(params, c, slots=2, max_len=256, kernels=KERNELS)
+        rs = [TE.Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(reqs)]
+        for r in rs:
+            eng.submit(r)
+        eng.run()
+        return gen.tokens, [(r.generated, r.status) for r in rs], launch_counts()
+
+    g_tl, e_tl, counts = run(tl_cfg)
+    g_pk, e_pk, _ = run(cfg)
+    assert torch.equal(g_tl, g_pk) and e_tl == e_pk
+    assert all(counts[n] > 0 for n in ("norm_quant_tables", "tl_matmul", "tl_swiglu")), counts
+    assert all(counts[n] == 0 for n in ("ternary_gemv", "ternary_matmul", "ternary_swiglu"))
