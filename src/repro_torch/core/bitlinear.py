@@ -55,19 +55,19 @@ def pack_params(w: torch.Tensor) -> dict:
     return {"wp": wp, "scale": torch.stack(scales).reshape(w.shape[:-2])}
 
 
-def with_tl_indices(params: dict, *, g: int = TL_GROUP) -> dict:
-    """A packed node with its group indices ``w_idx [..., ⌈N/g⌉, K]`` uint8
+def with_tl_indices(params: dict) -> dict:
+    """A packed node with its group indices ``w_idx [..., ⌈N/3⌉, K]`` uint8
     added (``core.tl_matmul.tl_indices``, on the device of ``wp``)."""
-    return dict(params, w_idx=tl_indices(params["wp"], g=g))
+    return dict(params, w_idx=tl_indices(params["wp"]))
 
 
-def with_tl_tree(params, *, g: int = TL_GROUP):
+def with_tl_tree(params):
     """Add ``w_idx`` to every packed node of a tree, once, before serving;
     idempotent, and nodes without packed weights pass through."""
     if isinstance(params, dict):
         if "wp" in params and "scale" in params:
-            return params if "w_idx" in params else with_tl_indices(params, g=g)
-        return {k: with_tl_tree(v, g=g) for k, v in params.items()}
+            return params if "w_idx" in params else with_tl_indices(params)
+        return {k: with_tl_tree(v) for k, v in params.items()}
     return params
 
 

@@ -10,9 +10,9 @@ module (``tune``, ``_candidates``, ``_runner``, ``main``) is not ported: no
 port kernel reads a tuned knob yet.
 
 The file is the port's own, never the JAX package's ``autotune-*.json``:
-``$REPRO_TORCH_AUTOTUNE_CACHE`` or ``build/repro_torch/autotune-<device>.json``
-at the repo root (beside the kernel builds), one file per device, keyed on
-``torch.cuda.get_device_name(0)`` or ``cpu``. Format (version 1):
+``build/repro_torch/autotune-<device>.json`` at the repo root (beside the
+kernel builds) unless :func:`set_cache_path` points elsewhere, one file per
+device, keyed on ``torch.cuda.get_device_name(0)`` or ``cpu``. Format (version 1):
 
     {"version": 1, "device": "NVIDIA_H100_80GB_HBM3",
      "kernels": {"engine": {"k1536-m4-n1536": {"knobs": {"engine": "tl"},
@@ -48,12 +48,9 @@ def device_key() -> str:
 
 def cache_path() -> Path:
     """The store's file: the override set with :func:`set_cache_path`, else
-    ``$REPRO_TORCH_AUTOTUNE_CACHE``, else the per-device default."""
+    the per-device default."""
     if _CACHE_PATH is not None:
         return _CACHE_PATH
-    env = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
-    if env:
-        return Path(env)
     return _DEFAULT_DIR / f"autotune-{device_key()}.json"
 
 

@@ -36,16 +36,12 @@ def norm_quant(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5):
     return q.reshape(*lead, n), qs.reshape(*lead, 1)
 
 
-def norm_quant_tables(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5,
-                      tl_g: int = 3):
+def norm_quant_tables(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5):
     """:func:`norm_quant` plus the TL tables of the int8 row: -> (int8
-    [..., N], f32 [..., 1], f32 [..., ⌈N/3⌉·27]). The kernel takes groups
-    of 3 only."""
+    [..., N], f32 [..., 1], f32 [..., ⌈N/3⌉·27])."""
     if x.device.type == "cpu":
-        return ref.norm_quant_tables(x, gamma, eps=eps, tl_g=tl_g)
+        return ref.norm_quant_tables(x, gamma, eps=eps)
     name = "norm_quant_tables"
-    if tl_g != 3:
-        raise ValueError(f"{name}: the kernel builds tables of 3-trit groups, not {tl_g}")
     x2, lead, m, n, q, qs = _outputs(name, x, gamma)
     width = -(-n // 3) * 27
     tables = torch.empty((m, width), dtype=torch.float32, device=x.device)

@@ -23,11 +23,10 @@ def norm_quant(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5):
     return ternary.quantize_act(rmsnorm(x, gamma, eps=eps))
 
 
-def norm_quant_tables(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5,
-                      tl_g: int = GROUP):
-    """-> (int8 [..., N], f32 scale [..., 1], f32 tables [..., ⌈N/g⌉·3^g]):
+def norm_quant_tables(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5):
+    """-> (int8 [..., N], f32 scale [..., 1], f32 tables [..., ⌈N/3⌉·27]):
     :func:`norm_quant`, then ``build_tables`` of the int8 row, zero-padded
     after the norm."""
     x_i8, scale = norm_quant(x, gamma, eps=eps)
-    t = -(-x.shape[-1] // tl_g)
-    return x_i8, scale, build_tables(x_i8, t=t, g=tl_g)
+    t = -(-x.shape[-1] // GROUP)
+    return x_i8, scale, build_tables(x_i8, t=t)

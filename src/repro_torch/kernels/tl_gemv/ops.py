@@ -6,8 +6,7 @@ tensors, the CUDA kernels (``csrc/tl_gemv.cu``) for CUDA tensors.
 picks its decode or tiled configuration by M. ``tl_gemv`` is the decode
 GEMV of ``repro/kernels/tl_gemv/kernel.py:91`` (int8 rows, tables built in
 the kernel, f32 out); no model path calls it, as in the JAX package. More
-than 16 rows go to :func:`tl_matmul`, as ``ternary_gemv`` does. Only groups
-of 3 trits have a kernel."""
+than 16 rows go to :func:`tl_matmul`, as ``ternary_gemv`` does."""
 
 from __future__ import annotations
 
@@ -17,11 +16,6 @@ from ... import _common as C
 from .. import _build as B
 from ..ternary_matmul.ops import GEMV_MAX_ROWS
 from . import ref
-
-
-def _require_g(name, g):
-    if g != 3:
-        raise ValueError(f"{name}: the kernels look up 3-trit groups, not {g}")
 
 
 def _operands(name, x_i8, tables, x_scale, w_idx):
@@ -66,15 +60,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def tl_gemv(x_i8, x_scale, w_idx, w_scale, *, g: int = 3, out_dtype=torch.float32):
+def tl_gemv(x_i8, x_scale, w_idx, w_scale, *, out_dtype=torch.float32):
     """x_i8 [..., N] int8 × group indices w_idx [⌈N/3⌉, K] uint8 -> [..., K]
     (computed in f32, then cast to out_dtype); ``w_scale`` a scalar or [K]."""
     if x_i8.device.type == "cpu":
-        return ref.tl_gemv(x_i8, x_scale, w_idx, w_scale, g=g, out_dtype=out_dtype)
+        return ref.tl_gemv(x_i8, x_scale, w_idx, w_scale, out_dtype=out_dtype)
     name = "tl_gemv"
-    _require_g(name, g)
     if x_i8.numel() // x_i8.shape[-1] > GEMV_MAX_ROWS:
-        return tl_matmul(x_i8, x_scale, w_idx, w_scale, g=g).to(out_dtype)
+        return tl_matmul(x_i8, x_scale, w_idx, w_scale).to(out_dtype)
     x2, _, lead, m, n = _operands(name, x_i8, None, x_scale, w_idx)
     t, k = w_idx.shape
     ws, stride = _w_scale(name, w_scale, k)
@@ -87,17 +80,16 @@ def tl_gemv(x_i8, x_scale, w_idx, w_scale, *, g: int = 3, out_dtype=torch.float3
     return out.reshape(*lead, k).to(out_dtype)
 
 
-def tl_matmul(x_i8, x_scale, w_idx, w_scale, *, g: int = 3, tables=None, residual=None,
+def tl_matmul(x_i8, x_scale, w_idx, w_scale, *, tables=None, residual=None,
               out_dtype=torch.float32):
     """x_i8 [..., N] int8, or the prologue's ``tables [..., T·27]`` f32 (then
     used instead of x_i8, which may be None), × w_idx [T, K] uint8 ->
     [..., K] in out_dtype, ``residual [..., K]`` added in the epilogue."""
     src = tables if tables is not None else x_i8
     if src.device.type == "cpu":
-        return ref.tl_matmul(x_i8, x_scale, w_idx, w_scale, g=g, tables=tables,
+        return ref.tl_matmul(x_i8, x_scale, w_idx, w_scale, tables=tables,
                              residual=residual, out_dtype=out_dtype)
     name = "tl_matmul"
-    _require_g(name, g)
     x2, tab2, lead, m, n = _operands(name, x_i8, tables, x_scale, w_idx)
     t, k = w_idx.shape
     ws, stride = _w_scale(name, w_scale, k)
@@ -116,17 +108,16 @@ def tl_matmul(x_i8, x_scale, w_idx, w_scale, *, g: int = 3, tables=None, residua
     return out.reshape(*lead, k)
 
 
-def tl_swiglu(x_i8, x_scale, wg_idx, wg_scale, wu_idx, wu_scale, *, g: int = 3, tables=None,
+def tl_swiglu(x_i8, x_scale, wg_idx, wg_scale, wu_idx, wu_scale, *, tables=None,
               act_dtype=torch.bfloat16):
     """int8 x [..., N] (or the prologue's tables) × gate/up group indices
     [T, K] -> (h_i8 [..., K], h_scale [..., 1]), h = silu(x·Wg)·(x·Wu)
     requantized per row; gate and up share one staged table set."""
     src = tables if tables is not None else x_i8
     if src.device.type == "cpu":
-        return ref.tl_swiglu(x_i8, x_scale, wg_idx, wg_scale, wu_idx, wu_scale, g=g,
+        return ref.tl_swiglu(x_i8, x_scale, wg_idx, wg_scale, wu_idx, wu_scale,
                              tables=tables, act_dtype=act_dtype)
     name = "tl_swiglu"
-    _require_g(name, g)
     x2, tab2, lead, m, n = _operands(name, x_i8, tables, x_scale, wg_idx)
     if wu_idx.shape != wg_idx.shape:
         raise ValueError(f"{name}: gate {tuple(wg_idx.shape)} != up {tuple(wu_idx.shape)}")
