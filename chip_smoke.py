@@ -1,16 +1,16 @@
 """On-card check of the PyTorch/CUDA port: builds the CUDA kernels, holds
 each against its plain PyTorch version at tellme-0.7b's real shapes, times
-them, then drives greedy ``generate`` and the chunked continuous-batching
-``ServingEngine`` for tellme-0.7b at full width, on the contiguous and on
-the paged KV layout, with the packed matmul engine and with the
-table-lookup one.
+them, then drives greedy ``generate``, the one-shot prefill, and the
+continuous-batching ``ServingEngine`` for tellme-0.7b at full width, on the
+contiguous and on the paged KV layout, with the packed matmul engine and
+with the table-lookup one, with chunked and with per-request prefill.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
-  build     nvcc builds the six kernel sources (timed).
-  kernels   the sixteen kernel entry points vs their plain versions: the
+  build     nvcc builds the seven kernel sources (timed).
+  kernels   the seventeen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
             512 rows) shapes; int8 decode attention at the engine's decode
             shape (8 slots, cache 1280 rows); prefill-append, bf16 and int8
@@ -30,6 +30,11 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             the prologue's codes within the SwiGLU and norm-quant bars), bit
             for bit against their packed twins (the prologue: norm_quant's
             codes and scale, tables build_tables of them), timed beside them.
+            Flash attention (the one-shot prefill) at generate's bucket
+            q[4,16,128,96], at 1024 and 4096 tokens in bf16, at 4096 in f32
+            and with GQA in f32 at a ragged S (q[1,8,200,64], k/v 2 heads):
+            kernel, plain, bound and SDPA times, and at 4096 the dense
+            schedule (causal_skip=False, bit-equal) beside the causal skip.
   smoke     the smoke config in f32 on the card (kernels) against the same
             weights on the CPU (plain versions): equal greedy streams.
   engine_smoke  the same for the ServingEngine, both cache dtypes: equal
@@ -76,6 +81,20 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             before each run, read just after); decode ms per step, tokens/s
             and tick times beside the packed runs'. Then the f32 smoke
             config with an int8 cache, each layout, TL against packed.
+  prefill   prefill_bucketed at full width through the kernels and through
+            the plain versions: B = 4 x 100 tokens (bucket 128), 1 x 1000
+            (1024) and 1 x 4000 (4096); last-token logits to the bar, ms per
+            prefill of each, the peak memory it adds to what was resident,
+            24 flash-attention launches per prefill (counters reset just
+            before, read just after).
+  legacy_engine  the engine phase's workload with prefill="legacy" (each
+            request prefilled whole at admission), each cache dtype,
+            through the kernels: every request OK, each stream equal to the
+            port's own generate of that prompt alone (B = 1), one host
+            transfer per tick, 24 flash-attention launches per request and
+            no prefill-append launch (counters reset just before, read just
+            after); agreement with the chunked engine's streams, and where
+            one parts, the logit gap of the two tokens.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -100,6 +119,7 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense, 700 W
 QUANT_SCALE_RTOL = 4.1e-3  # one bf16 ulp of the row scale
 ATTN_TOL_BF16 = 4e-3  # atol = rtol: two bf16 ulps at |out| <= 0.5
 ATTN_TOL_F32 = 1e-5  # atol = rtol, the same inputs in f32
+FLASH_TOL_BF16 = 2e-2  # of |want| + the RMS of want's row (flash_attention_rows)
 LOGIT_REL_TOL = 5e-2  # full-width prefill and decode-step logits, relative to max |logit|
 SMOKE_LOGIT_TOL = 1e-3  # f32 smoke prefill logits, card vs CPU
 
@@ -108,7 +128,7 @@ DECODE_CHECK_STEPS = 8  # decode steps held against the plain versions from shar
 
 # The kernels that generate runs (bf16 cache)
 GENERATE_PATH = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
-                 "decode_attention")
+                 "decode_attention", "flash_attention")
 # Under matmul_engine="tl" these take the place of the packed projections
 # and of the plain prologue, which must then not launch
 TL_PATH = ("norm_quant_tables", "tl_matmul", "tl_swiglu")
@@ -123,6 +143,7 @@ PAGE_SIZE = 64  # kv_page_size of the paged layout (the config's default)
 # largest chunk), so their first chunk rewrites the shared page 8 (a fork)
 PREFIX_LEN, PREFIX_TAILS = 576, (16, 128)
 PAGED_POOL_BYTES = {"bf16": 1_519_386_624, "int8": 791_347_200}  # 161 pages of 64 rows
+PREFILL_SHAPES = ((4, 100), (1, 1000), (1, 4000))  # (batch, prompt): buckets 128, 1024, 4096
 
 
 def emit(obj) -> None:
@@ -403,6 +424,9 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
                              checks)
     rows += [r for r in tl_rows if r.get("main_row")]
     report["tl_shapes"] = tl_rows
+    fa_rows = flash_attention_rows(torch, cfg, randn, checks)
+    rows += [r for r in fa_rows if r["shape_tag"] == "generate"]
+    report["flash_attention_shapes"] = fa_rows
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
     return rows
@@ -585,6 +609,95 @@ def prefill_append_rows(torch, cfg, randn, int8, checks) -> list[dict]:
                                 + (", dequantized" if is_quant else "")
                                 + "; the append and the dequant are not timed"})
     return out_rows
+
+def flash_attention_rows(torch, cfg, randn, checks) -> list[dict]:
+    """Flash attention, the one-shot prefill's attention, at generate's
+    bucket, at 1024 and 4096 tokens in bf16, at 4096 in f32 and with GQA in
+    f32 at a ragged S: each against its plain version, timed beside its
+    bound, the plain version and SDPA; at 4096 also the dense schedule
+    (causal_skip=False), which must give the same bits, and its time over
+    the causal skip's (the paper's Table II saving, on this card).
+
+    f32 is held at ATTN_TOL_F32 (atol = rtol). In bf16 each element is held
+    within FLASH_TOL_BF16 of |want| + the RMS of its output row: P is
+    rounded to bf16 against the kernel's running maximum and the plain
+    version's row maximum, which moves an output by a small share of its
+    row's scale (about sqrt(e / n) over n live keys with unit-normal inputs),
+    and the output's own rounding can differ by one ulp (2^-7 of |want|)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = (  # tag, (B, H, HK, S, D), dtype
+        ("generate", (4, h, hk, 128, hd), bf16),
+        ("1024", (1, h, hk, 1024, hd), bf16),
+        ("4096", (1, h, hk, 4096, hd), bf16),
+        ("4096_f32", (1, h, hk, 4096, hd), f32),
+        ("gqa", (1, 8, 2, 200, 64), f32))
+    rows = []
+    for tag, (b, nh, nk, s, d), dtype in shapes:
+        q, k, v = (randn(b, n, s, d, dtype=dtype) for n in (nh, nk, nk))
+        got = fa_ops.flash_attention(q, k, v)
+        want = fa_ref.flash_attention(q, k, v).float()
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        rms_row = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        scaled = (diff / (want.abs() + rms_row).clamp_min(1e-30)).max().item()
+        err = diff.max().item()
+        check = {"kernel": "flash_attention", "shape": tag, "max_abs_err": err,
+                 "max_abs_out": want.abs().max().item(),
+                 "rms_out": want.pow(2).mean().sqrt().item(),
+                 "max_err_over_abs_plus_row_rms": scaled}
+        if dtype is bf16:
+            check["tol_of_abs_plus_row_rms"] = FLASH_TOL_BF16
+            ok = scaled <= FLASH_TOL_BF16
+        else:
+            check["tol"] = ATTN_TOL_F32
+            ok = torch.allclose(got, want, atol=ATTN_TOL_F32, rtol=ATTN_TOL_F32)
+        checks.append(check)
+        if not ok:
+            fail(f"flash_attention[{tag}]: {check}")
+        n = copies_for(_nbytes(q, k, v))
+        sets = [(q, k.clone(), v.clone()) for _ in range(n)]
+        iters = 100 if s <= 256 else 20
+        # live (query, key) pairs: causal
+        pairs = b * nh * s * (s + 1) // 2
+        nb = 2 * _nbytes(q) + _nbytes(k, v)
+        bms, bby = bound_ms(nb, 4 * d * pairs, "bf16" if dtype is bf16 else "f32")
+        # the yardstick: SDPA on the same tensors (k/v repeated to H heads
+        # for GQA, outside the timing)
+        kl, vl = k.repeat_interleave(nh // nk, dim=1), v.repeat_interleave(nh // nk, dim=1)
+        lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, is_causal=True),
+                         [(q, kl, vl)], iters=iters)
+        lib_note = "SDPA, is_causal=True" + (", k/v repeated to H heads" if nh != nk else "")
+
+        row = {"name": "flash_attention", "route": "cuda", "shape_tag": tag,
+               "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+               "shape": f"q[{b},{nh},{s},{d}] k/v[{b},{nk},{s},{d}] {str(dtype)[6:]}",
+               "max_abs_err": err,
+               "ms": time_ms(torch, fa_ops.flash_attention, sets, iters=iters),
+               "eager_ms": eager_ms(torch, fa_ops.flash_attention, sets, iters=2 * iters),
+               "plain_ms": time_ms(torch, fa_ref.flash_attention, sets[:1],
+                                   iters=min(iters, 5)),
+               "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
+               "library_note": lib_note, "live_pairs": pairs}
+        if tag == "4096":  # the dense schedule: every kv tile visited and masked
+            dense = fa_ops.flash_attention(q, k, v, causal_skip=False)
+            same = bool(torch.equal(dense, got))
+            checks.append({"kernel": "flash_attention", "shape": "4096 dense schedule",
+                           "equal_to_causal_skip": same})
+            if not same:
+                fail("flash_attention[4096]: the dense schedule's output differs from the "
+                     "causal skip's")
+            row["dense_ms"] = time_ms(torch, lambda *a: fa_ops.flash_attention(
+                *a, causal_skip=False), sets, iters=iters)
+            row["dense_over_skip"] = row["dense_ms"] / row["ms"]
+        rows.append(row)
+    return rows
+
 
 # ---------------------------------------------------------------------------
 # the paged kernels (phase kernels)
@@ -1359,8 +1472,8 @@ def _engine_prompts(cfg):
     return [rng.integers(0, cfg.vocab_size, int(n)) for n in lengths]
 
 
-def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False
-               ) -> tuple[dict, list]:
+def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
+               prefill: str = "auto") -> tuple[dict, list]:
     """Serve ``prompts`` to the end; returns (measurements, requests). With
     ``first_alone`` the first request is served to its end before the others
     are submitted. The launch counters are reset just before the first tick
@@ -1369,7 +1482,7 @@ def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False
     from repro_torch.serving import engine as E
 
     eng = E.ServingEngine(params, cfg, slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
-                          kernels=kset, eos_id=-1)
+                          kernels=kset, eos_id=-1, prefill=prefill)
     reqs = [E.Request(rid=i, prompt=p, max_new=ENGINE_NEW) for i, p in enumerate(prompts)]
     first = {}
     eng.on_emit = lambda req, toks: first.setdefault(
@@ -1733,6 +1846,134 @@ def chunk_step_phase(torch, cfg, params, report: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases: the one-shot prefill and the per-request (legacy) engine
+# ---------------------------------------------------------------------------
+
+
+def prefill_phase(torch, cfg, params, report: dict) -> None:
+    """prefill_bucketed at full width at each of PREFILL_SHAPES, through the
+    kernels and through the plain versions on the same prompts: last-token
+    logits within the bar, ms per prefill and added peak memory of each, and the
+    kernels' launches (counters reset just before the timed prefill, read
+    just after): 24 flash-attention launches, one per layer."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {"phase": "prefill", "model": cfg.name, "runs": []}
+    problems = []
+    with torch.inference_mode():
+        for b, s in PREFILL_SHAPES:
+            prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+            run = {"batch": b, "prompt": s, "bucket": E.bucket_length(s, cfg.prefill_chunk_sizes)}
+            logits = {}
+            for name, kset in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+                E.prefill_bucketed(params, cfg, prompts, kernels=kset)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                K.reset_launch_counts()
+                t = time.perf_counter()
+                last, _ = E.prefill_bucketed(params, cfg, prompts, kernels=kset)
+                torch.cuda.synchronize()
+                run[f"{name}_ms"] = (time.perf_counter() - t) * 1e3
+                run[f"{name}_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - resident
+                if kset is K.KERNELS:
+                    counts = K.launch_counts()
+                logits[name] = last.float()
+            lk, lp = logits["kernels"], logits["plain"]
+            top2 = lp.topk(2, dim=-1).values
+            picked = lp.gather(1, lk.argmax(-1, keepdim=True))[:, 0]
+            run.update({
+                "logit_max_abs_err": (lk - lp).abs().max().item(),
+                "logit_max_abs": lp.abs().max().item(),
+                "argmax_equal": bool(torch.equal(lk.argmax(-1), lp.argmax(-1))),
+                "argmax_is_plain_argmax": bool(torch.equal(picked, top2[:, 0])),
+                "min_top2_gap": (top2[:, 0] - top2[:, 1]).min().item(),
+                "launch_counts": {n: c for n, c in counts.items() if c}})
+            out["runs"].append(run)
+            tag = f"{b}x{s}"
+            if not torch.isfinite(lk).all():
+                problems.append(f"{tag}: non-finite logits")
+            if run["logit_max_abs_err"] > LOGIT_REL_TOL * run["logit_max_abs"]:
+                problems.append(f"{tag}: logits differ by {run['logit_max_abs_err']} "
+                                f"(max |logit| {run['logit_max_abs']})")
+            if counts["flash_attention"] != cfg.n_layers:
+                problems.append(f"{tag}: flash_attention launched {counts['flash_attention']} "
+                                f"times in one prefill")
+            missing = [n for n in ("norm_quant", "ternary_matmul", "ternary_swiglu")
+                       if counts[n] <= 0]
+            if missing:
+                problems.append(f"{tag}: kernels never launched: {missing}")
+    report["prefill"] = out
+    emit(out)
+    if problems:
+        fail("prefill: " + "; ".join(problems))
+
+
+def legacy_engine_phase(torch, cfg, params, chunked_streams, report: dict) -> None:
+    """The engine phase's workload with prefill="legacy", each cache dtype,
+    through the kernels: each request's stream held to the port's own
+    ``generate`` of that prompt alone (B = 1, the same kernels), and set
+    beside the chunked engine's stream of the same request."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    prompts = _engine_prompts(cfg)
+    out = {"phase": "legacy_engine", "model": cfg.name, "slots": ENGINE_SLOTS,
+           "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS, "max_new": ENGINE_NEW}
+    with torch.inference_mode():
+        for kv in ("bf16", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            sfx = "_quant" if kv == "int8" else ""
+            got, reqs = engine_run(torch, c, params, K.KERNELS, prompts, prefill="legacy")
+            counts = got["launch_counts"]
+            streams = [r.generated for r in reqs]
+            alone = [E.generate(params, c, torch.as_tensor(p, device="cuda")[None],
+                                steps=ENGINE_NEW).tokens[0].tolist() for p in prompts]
+            got["streams_equal_to_generate"] = sum(a == g for a, g in zip(streams, alone))
+            parted = [i for i, (a, w) in enumerate(zip(streams, chunked_streams[kv])) if a != w]
+            got["streams_equal_to_chunked"] = ENGINE_REQUESTS - len(parted)
+            got["chunked_partings"] = [
+                dict(request=i, **divergence(torch, c, params, prompts[i], streams[i],
+                                             chunked_streams[kv][i])) for i in parted]
+            out[kv] = got
+            problems = []
+            bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+            if bad:
+                problems.append(f"requests not OK with {ENGINE_NEW} tokens: {bad}")
+            if got["streams_equal_to_generate"] != ENGINE_REQUESTS:
+                problems.append(f"{got['streams_equal_to_generate']} of {ENGINE_REQUESTS} "
+                                "streams equal generate's")
+            if got["host_transfers"] != got["ticks"] or got["fused_ticks"]:
+                problems.append(f"{got['host_transfers']} transfers for {got['ticks']} ticks, "
+                                f"{got['fused_ticks']} fused ticks")
+            if counts["flash_attention"] != cfg.n_layers * ENGINE_REQUESTS:
+                problems.append(f"flash_attention launched {counts['flash_attention']} times "
+                                f"for {ENGINE_REQUESTS} requests")
+            if counts["decode_attention" + sfx] != cfg.n_layers * got["ticks"]:
+                problems.append(f"decode_attention{sfx} launched "
+                                f"{counts['decode_attention' + sfx]} times in {got['ticks']} ticks")
+            if counts["prefill_append" + sfx]:
+                problems.append(f"prefill_append{sfx} launched on the legacy path")
+            path = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu")
+            missing = [n for n in path if counts[n] <= 0]
+            if missing:
+                problems.append(f"kernels never launched on the legacy path: {missing}")
+            far = [p for p in got["chunked_partings"] if p["logit_gap_rel"] > LOGIT_REL_TOL]
+            if far:
+                problems.append(f"streams part from the chunked engine's with a logit gap "
+                                f"over the bar: {far}")
+            if problems:
+                emit(out)
+                fail(f"legacy_engine[{kv}]: " + "; ".join(problems))
+    report["legacy_engine"] = out
+    emit(out)
+
+
+# ---------------------------------------------------------------------------
 # phase: tl (the table-lookup engine at full width)
 # ---------------------------------------------------------------------------
 
@@ -1911,12 +2152,14 @@ def main(argv=None) -> int:
     paged_counts, shared_streams = paged_engine_phase(torch, cfg, params, eng_streams, report)
     tl_counts = tl_phase(torch, cfg, params, gen_tokens, eng_streams["bf16"],
                          shared_streams["bf16"], report)
+    prefill_phase(torch, cfg, params, report)
+    legacy_engine_phase(torch, cfg, params, eng_streams, report)
     for row in rows:  # launches on the main path that runs each kernel
         name = row["name"]
         counts = paged_counts if "_paged" in name else eng_counts
         if name in TL_PATH or name == "tl_gemv":  # the TL generate run
             row["launches"] = tl_counts[name]
-        elif name.endswith("_quant"):
+        elif name.endswith("_quant") and name != "norm_quant":  # the int8 cache's variants
             row["launches"] = counts["int8"][name]
         elif name.startswith("prefill_append") or "_paged" in name:
             row["launches"] = counts["bf16"][name]

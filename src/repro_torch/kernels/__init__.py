@@ -16,6 +16,8 @@ from typing import Callable
 
 from .decode_attention import ops as _da_ops
 from .decode_attention import ref as _da_ref
+from .flash_attention import ops as _fa_ops
+from .flash_attention import ref as _fa_ref
 from .fused_norm_quant import ops as _nq_ops
 from .fused_norm_quant import ref as _nq_ref
 from .prefill_append import ops as _pa_ops
@@ -38,20 +40,21 @@ class KernelSet:
     norm_quant_tables: Callable  # the TL engine: the prologue with its tables,
     tl_matmul: Callable  # the projections at every M,
     tl_swiglu: Callable  # and gate + up
+    flash_attention: Callable  # the one-shot prefill's causal attention
 
 
 KERNELS = KernelSet(_nq_ops.norm_quant, _tm_ops.ternary_gemv,
                     _tm_ops.ternary_swiglu, _da_ops.decode_attention,
                     _pa_ops.prefill_append, _da_ops.decode_attention_paged,
                     _pa_ops.prefill_append_paged, _nq_ops.norm_quant_tables,
-                    _tl_ops.tl_matmul, _tl_ops.tl_swiglu)
+                    _tl_ops.tl_matmul, _tl_ops.tl_swiglu, _fa_ops.flash_attention)
 PLAIN = KernelSet(_nq_ref.norm_quant, _tm_ref.ternary_gemv,
                   _tm_ref.ternary_swiglu, _da_ref.decode_attention,
                   _pa_ref.prefill_append, _da_ref.decode_attention_paged,
                   _pa_ref.prefill_append_paged, _nq_ref.norm_quant_tables,
-                  _tl_ref.tl_matmul, _tl_ref.tl_swiglu)
+                  _tl_ref.tl_matmul, _tl_ref.tl_swiglu, _fa_ref.flash_attention)
 
-# The sixteen launching wrappers, by the TPU entry point each replaces.
+# The seventeen launching wrappers, by the TPU entry point each replaces.
 WRAPPERS = {
     "norm_quant": _nq_ops.norm_quant,
     "norm_quant_tables": _nq_ops.norm_quant_tables,
@@ -69,6 +72,7 @@ WRAPPERS = {
     "tl_gemv": _tl_ops.tl_gemv,
     "tl_matmul": _tl_ops.tl_matmul,
     "tl_swiglu": _tl_ops.tl_swiglu,
+    "flash_attention": _fa_ops.flash_attention,
 }
 
 

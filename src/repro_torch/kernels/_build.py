@@ -32,6 +32,7 @@ SOURCES = (
     _PKG / "decode_attention" / "csrc" / "decode_attention.cu",
     _PKG / "prefill_append" / "csrc" / "prefill_append.cu",
     _PKG / "tl_gemv" / "csrc" / "tl_gemv.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 )
 HEADERS = (
     _PKG / "csrc" / "common.cuh",
@@ -77,6 +78,8 @@ SIGNATURES = {
     # quant, dtype, stream
     "tm_prefill_append_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _F, _I, _I, _I, _P),
+    # q, k, v, out, b, h, hk, s, d, window, softcap, scale, causal_skip, dtype, stream
+    "tm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

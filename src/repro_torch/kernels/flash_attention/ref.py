@@ -1,0 +1,40 @@
+"""Plain PyTorch version of the flash-attention kernel.
+
+It computes what ``repro/kernels/flash_attention/kernel.py`` computes with
+the whole sequence as one kv block: f32 scores, the ``-1e30`` mask above
+the diagonal, unnormalized probabilities cast to q's dtype before P·V, and
+the ``max(l, 1e-30)`` finalize. The kernel's online softmax rescales block
+by block, so the two agree to rounding, not bit for bit. ``causal_skip``
+picks the kernel's schedule (skip the blocks above the diagonal, or visit
+and mask them, the paper's Table II ablation); both compute the same
+function, so here it is accepted and ignored. The JAX wrapper's optional
+sliding ``window`` and ``softcap`` are not ported: no model of the port
+sets them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention(q, k, v, *, causal_skip: bool = True) -> torch.Tensor:
+    """q [B, H, S, D], k/v [B, HK, S, D] (GQA: H % HK == 0) -> [B, H, S, D]."""
+    del causal_skip  # a schedule of the kernel, not part of the function
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    qg = q.reshape(b, hk, g, s, d).to(torch.float32)
+    kf = k.to(torch.float32)[:, :, None]
+    sc = torch.matmul(qg, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B, HK, G, S, S]
+    idx = torch.arange(s, device=q.device)
+    mask = idx[:, None] >= idx[None, :]
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(q.dtype).to(torch.float32), v.to(torch.float32)[:, :, None])
+    o = o / torch.clamp(l, min=1e-30)
+    return o.to(q.dtype).reshape(b, h, s, d)

@@ -1,10 +1,10 @@
 """Attention paths (``repro/models/attention.py``), contiguous and paged KV
 layouts.
 
-* ``prefill_attention`` — causal attention over the whole prompt. The JAX
-  package runs it in XLA outside any Pallas kernel (``attention.py:62``),
-  so here it is plain PyTorch: f32 scores, ``-1e30`` mask, softmax with the
-  unnormalized probabilities cast to the activation dtype before P·V.
+* ``prefill_attention`` — causal attention over the whole prompt (the
+  one-shot prefill), through the kernel set (the CUDA flash-attention
+  kernel on the card, the counterpart of the JAX package's Pallas
+  ``flash_attention`` and of its XLA form at ``attention.py:62``).
 * ``decode_attention`` — one new token per slot against the cache, through
   the kernel set (the CUDA decode-attention kernel on the card, its int8
   variant for an int8 cache).
@@ -30,32 +30,15 @@ int8 path.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..core.ternary import quantize_kv
 from ..kernels.prefill_append.ref import append_kv_cache, append_kv_cache_quant  # noqa: F401
 
-NEG_INF = -1e30
 
-
-def prefill_attention(q, k, v) -> torch.Tensor:
-    """q [B, H, S, D], k/v [B, HK, S, D] -> [B, H, S, D] (GQA grouped)."""
-    b, h, s, d = q.shape
-    hk = k.shape[1]
-    g = h // hk
-    qg = q.reshape(b, hk, g, s, d).to(torch.float32)
-    kf = k.to(torch.float32)[:, :, None]
-    sc = torch.matmul(qg, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B, HK, G, S, S]
-    idx = torch.arange(s, device=q.device)
-    mask = idx[:, None] >= idx[None, :]
-    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(q.dtype).to(torch.float32), v.to(torch.float32)[:, :, None])
-    o = o / torch.clamp(l, min=1e-30)
-    return o.to(q.dtype).reshape(b, h, s, d)
+def prefill_attention(q, k, v, *, kernels) -> torch.Tensor:
+    """q [B, H, S, D], k/v [B, HK, S, D] -> [B, H, S, D] (GQA grouped), causal."""
+    return kernels.flash_attention(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, kernels, k_scale=None, v_scale=None):

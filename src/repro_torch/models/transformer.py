@@ -151,7 +151,7 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=
             new = {"k": k_i8, "k_scale": ks, "v": v_i8, "v_scale": vs}
         else:
             new = {"k": k, "v": v}
-        out = attn_ops.prefill_attention(q, k, v)
+        out = attn_ops.prefill_attention(q, k, v, kernels=kernels)
     elif s > 1 and page_table is not None:  # a chunk, through the page table
         out = attn_ops.prefill_append_attention_paged(
             q, k, v, cache["k"], cache["v"], page_table, pos, kernels=kernels,

@@ -16,9 +16,13 @@ stays on the device, and each tick makes exactly one device-to-host
 transfer, of one packed int32 array. Both KV layouts are ported, with a
 bf16 (activation-dtype) or int8 KV cache: contiguous per-slot rows, and
 (``cfg.kv_layout="paged"``) a page pool with a per-slot page table, shared
-prompt prefixes and copy-on-write (``serving/paging.py``). Not ported yet:
-the legacy per-request prefill of other families, speculative ticks, fault
-injection, the straggler monitor and request export. A tick that raises
+prompt prefixes and copy-on-write (``serving/paging.py``). With
+``prefill="legacy"`` (contiguous layout only) a request is instead
+prefilled whole at admission, by the one-shot ``prefill_bucketed`` of
+``generate``, and its caches are written into the slot's rows; its first
+token is recorded on the next decode-only tick. Not ported yet: other model
+families, speculative ticks, fault injection, the straggler monitor and
+request export. A tick that raises
 propagates out of :meth:`ServingEngine.step`: there is no fallback to the
 plain versions or to the CPU; a page pool that runs dry fails the request
 that needed the page (``FAILED``, ``page_pool_exhausted``).
@@ -222,18 +226,22 @@ def _guard_row(logit_bad, caches, rows, valid, paged: bool):
             + scale_bad.to(torch.int32) * R.GUARD_SCALES)
 
 
-def _advance(logits, pos, done, gen_count, max_new, active, caches, *, eos_id: int,
+def _advance(logits, first_tok, pos, done, gen_count, max_new, active, caches, *, eos_id: int,
              max_len: int, guards: bool, paged: bool = False):
-    """State transition of a decode-only tick: greedy tokens, active slots'
-    positions and counts advanced, retirements folded into ``done``. Returns
-    the new (cur_tok, pos, done, gen_count) and the packed int32 state
-    [next token, position, done, count (, guard flags)] x slots."""
+    """State transition of a decode-only tick (``engine.py:1501-1549``):
+    greedy tokens, active slots' positions and counts advanced, retirements
+    folded into ``done``. Returns the new (cur_tok, pos, done, gen_count) and
+    the packed int32 state [prefill token, next token, position, done,
+    count, done at entry (, guard flags)] x slots: ``first_tok`` is the
+    token each slot entered the tick with, which a legacy prefill set, and a
+    slot done at entry retired on it, so its decode output is dropped."""
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     inc = active.to(torch.int32)
     new_pos, new_count = pos + inc, gen_count + inc
     new_done = done | (active & _retire(next_tok, new_pos, new_count, max_new,
                                         eos_id=eos_id, max_len=max_len))
-    rows = [next_tok, new_pos, new_done.to(torch.int32), new_count]
+    rows = [first_tok, next_tok, new_pos, new_done.to(torch.int32), new_count,
+            done.to(torch.int32)]
     if guards:
         rows.append(_guard_row(R.logits_guard(logits, where=active), caches,
                                pos[:, None], active[:, None], paged))
@@ -340,6 +348,12 @@ class ServingEngine:
     and prefills only its tail. The host mirrors each slot's frontier in
     ``_pos_host`` from the plan and the tick's one transfer.
 
+    ``prefill="legacy"`` (``engine.py:539-560``) prefills each request
+    whole at admission (:meth:`_prefill_slot`): the cache then holds
+    ``cache_len = max_len`` rows per slot with no trash tail, every tick is
+    a decode-only tick, and the paged layout is refused. ``"auto"`` is
+    ``"chunked"``, as for the JAX package's dense family.
+
     Every request ends in exactly one terminal ``resilience.Status``:
     ``submit`` applies queue backpressure (``queue_cap`` /
     ``cfg.admission_queue_cap``), deadlines come from ``Request.deadline_s``
@@ -354,22 +368,34 @@ class ServingEngine:
     """
 
     def __init__(self, params, cfg, *, slots: int = 8, max_len: int = 2048,
-                 eos_id: int = -1, queue_cap: int | None = None, guards: bool = True,
-                 clock=time.monotonic, kernels=KERNELS, device=None):
+                 eos_id: int = -1, prefill: str = "auto", queue_cap: int | None = None,
+                 guards: bool = True, clock=time.monotonic, kernels=KERNELS, device=None):
         self.dev = C.resolve_device(device)
         self.params, self.cfg, self.kernels = engine_params(params, cfg), cfg, kernels
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
+        if prefill == "auto":  # the dense family, the only one ported
+            prefill = "chunked"
+        if prefill not in ("chunked", "legacy"):
+            raise ValueError(f"prefill must be 'auto', 'chunked' or 'legacy', got {prefill!r}")
+        self.prefill = prefill
         sizes = tuple(sorted(cfg.prefill_chunk_sizes)) or (64, 128, 256)
         # chunk sizes no admissible prompt (len < max_len) can fill are dropped
         self.chunk_sizes = tuple(s for s in sizes if s <= bucket_length(max_len, sizes))
         chunk_schedule(1, self.chunk_sizes)  # validates the divisibility chain
         cmax = self.chunk_sizes[-1]
-        self.trash_base = C.round_up(max_len, cmax)
-        self.cache_len = self.trash_base + cmax
+        if prefill == "chunked":  # [0, trash_base) usable, then the trash tail
+            self.trash_base = C.round_up(max_len, cmax)
+            self.cache_len = self.trash_base + cmax
+        else:
+            self.trash_base = None
+            self.cache_len = max_len
         # the paged layout (engine.py:562-594): a host page allocator with
         # refcounts, a prefix trie, and one garbage page behind every table
         # entry that maps nothing (the trash tail's included)
         if cfg.kv_layout == "paged":
+            if prefill != "chunked":
+                raise ValueError("kv_layout='paged' requires the chunked prefill path "
+                                 f"(prefill={prefill!r})")
             ps = int(cfg.kv_page_size)
             if ps <= 0 or self.chunk_sizes[0] % ps:
                 raise ValueError(
@@ -400,6 +426,7 @@ class ServingEngine:
         self.live: list[Request | None] = [None] * slots
         self.queue: list[Request] = []
         self._plan: list[_PrefillPlan | None] = [None] * slots
+        self._pending_first: set[int] = set()  # legacy: prefill token not yet recorded
         self.queue_cap = int(cfg.admission_queue_cap if queue_cap is None else queue_cap)
         self.guards = bool(guards)
         self._clock = clock
@@ -466,6 +493,7 @@ class ServingEngine:
         if slot is not None:
             self.live[slot] = None
             self._plan[slot] = None
+            self._pending_first.discard(slot)
             self._release_pages(slot)
 
     def _release_pages(self, slot: int):
@@ -563,6 +591,9 @@ class ServingEngine:
             self._finish(None, req, R.Status.CACHE_EXHAUSTED)
             return False
         req.status = R.Status.RUNNING
+        if self.prefill == "legacy":
+            self._prefill_slot(slot, req, prompt, remaining)
+            return True
         tail_start = 0
         if self.paged is not None:
             # prefix reuse (engine.py:917-935): the matched prompt pages are
@@ -581,6 +612,32 @@ class ServingEngine:
         self.max_new_arr[slot] = remaining
         return True
 
+    def _prefill_slot(self, slot: int, req: Request, prompt: np.ndarray, remaining: int):
+        """The legacy per-request prefill (``engine.py:994-1036``): the one-shot
+        ``prefill_bucketed`` of ``prompt`` alone, its caches fitted to
+        ``cache_len`` and written into the slot's rows in place. The prefill
+        token goes through the retirement predicate on the device (no
+        transfer); the next decode-only tick records it. A preempted request
+        resumes here with its prompt, its emitted tokens and the budget left."""
+        tokens = torch.as_tensor(prompt, device=self.dev).to(torch.int64)[None]
+        plen = int(prompt.shape[0])
+        with torch.no_grad():
+            logits, caches = prefill_bucketed(self.params, self.cfg, tokens,
+                                              kernels=self.kernels)
+            caches = fit_caches(caches, self.cfg, self.cache_len)
+            for b, leaves in caches["blocks"].items():
+                for name, leaf in leaves.items():  # [L, 1, ...] into the slot's [L, B, ...]
+                    self.caches["blocks"][b][name][:, slot] = leaf[:, 0]
+            first = torch.argmax(logits[0]).to(torch.int32)
+            self.pos[slot] = plen
+            self.cur_tok[slot] = first
+            self.done[slot] = _retire(first, plen, 1, remaining, eos_id=self.eos_id,
+                                      max_len=self.max_len)
+            self.gen_count[slot] = 1
+            self.max_new_arr[slot] = remaining
+        self.live[slot] = req
+        self._pending_first.add(slot)
+
     def _pop_queued(self) -> Request:
         """Highest-priority waiter, FIFO within a priority."""
         i = max(range(len(self.queue)),
@@ -597,6 +654,7 @@ class ServingEngine:
         req.status = R.Status.QUEUED
         self.live[slot] = None
         self._plan[slot] = None
+        self._pending_first.discard(slot)
         self._release_pages(slot)
         req._seq = self._seq
         self._seq += 1
@@ -781,24 +839,34 @@ class ServingEngine:
             page_table = self._to_device(self.paged.table)
         active_np = np.array([r is not None for r in self.live])
         active = self._to_device(active_np)
+        # idle slots write and read row cache_len - 1, as in the fused tick: a
+        # retired slot's position may stand at max_len, which is cache_len
+        # under the legacy prefill
+        dpos = torch.where(active, self.pos, torch.full_like(self.pos, self.cache_len - 1))
         logits, _ = Tr.decode_step(self.params, self.cur_tok[:, None].to(torch.int64),
-                                   self.caches, self.pos, self.cfg, kernels=self.kernels,
+                                   self.caches, dpos, self.cfg, kernels=self.kernels,
                                    page_table=page_table)
         (self.cur_tok, self.pos, self.done, self.gen_count, packed) = _advance(
-            logits, self.pos, self.done, self.gen_count, self.max_new_arr, active,
-            self.caches, eos_id=self.eos_id, max_len=self.max_len, guards=self.guards,
-            paged=page_table is not None)
+            logits, self.cur_tok, self.pos, self.done, self.gen_count, self.max_new_arr,
+            active, self.caches, eos_id=self.eos_id, max_len=self.max_len,
+            guards=self.guards, paged=page_table is not None)
         state = self._transfer(packed)
         if self.paged is not None:  # mirror the device frontier's advance
             self._pos_host[active_np] += 1
-        nxt, done = state[0], state[2]
-        guard = state[4] if self.guards else np.zeros((self.slots,), np.int64)
+        first, nxt, done, entry_done = state[0], state[1], state[3], state[5]
+        guard = state[6] if self.guards else np.zeros((self.slots,), np.int64)
         for s, req in enumerate(self.live):
             if req is None:
                 continue
             if guard[s]:
                 self._quarantine(s, req, guard[s])
                 continue
+            if s in self._pending_first:  # the legacy prefill's token
+                req.generated.append(int(first[s]))
+                self._pending_first.discard(s)
+                if entry_done[s]:  # retired on it: this tick's token is dropped
+                    self._finish(s, req, self._terminal_status(req))
+                    continue
             req.generated.append(int(nxt[s]))
             if done[s]:
                 self._finish(s, req, self._terminal_status(req))

@@ -35,6 +35,16 @@ and 64 fill their last group of 3 with one trit); the TL SwiGLU's codes
 equal the packed kernel's and lie within the SwiGLU bar of its plain
 version. ``norm_quant_tables`` gives ``norm_quant``'s codes and scales bit
 for bit, and its tables equal ``build_tables`` of those codes.
+
+The flash-attention kernel (the one-shot prefill) is within 1e-5 (f32,
+atol = rtol) of its plain version at the shapes of ``chip_smoke.py`` (the
+4096-token one in f32 too), the smoke config's D = 16, with GQA and a
+ragged S. In bf16 each element is within 2e-2 of (|want| + the RMS of its
+output row): P is rounded to bf16 against the kernel's running maximum and
+the plain version's row maximum, which moves an output by a small share of
+its row's scale, and the output's own rounding can differ by one bf16 ulp
+(2^-7 of |want| at most). The dense schedule gives the causal-skip
+schedule's output bit for bit.
 """
 
 import dataclasses
@@ -51,6 +61,8 @@ from repro_torch.core.ternary import gather_kv_pages
 from repro_torch.kernels import KERNELS, PLAIN, launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fused_norm_quant import ops as nq_ops
 from repro_torch.kernels.fused_norm_quant import ref as nq_ref
 from repro_torch.kernels.prefill_append import ops as pa_ops
@@ -59,6 +71,7 @@ from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul import ref as tm_ref
 from repro_torch.kernels.tl_gemv import ops as tl_ops
 from repro_torch.kernels.tl_gemv import ref as tl_ref
+from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as TE
 
@@ -607,3 +620,97 @@ def test_smoke_tl_engine_vs_packed(cuda, layout):
     assert torch.equal(g_tl, g_pk) and e_tl == e_pk
     assert all(counts[n] > 0 for n in ("norm_quant_tables", "tl_matmul", "tl_swiglu")), counts
     assert all(counts[n] == 0 for n in ("ternary_gemv", "ternary_matmul", "ternary_swiglu"))
+
+
+FLASH_TOL_F32 = 1e-5
+FLASH_TOL_BF16 = 2e-2  # of |want| + the RMS of want's row
+
+
+# (B, H, HK, S, D, dtype): chip_smoke.py's shapes (generate's bucket, 1024
+# and 4096 tokens in bf16, 4096 in f32, GQA at a ragged S), then the smoke
+# config's D = 16 and the JAX tests' D = 32, ragged
+@pytest.mark.parametrize("b,h,hk,s,d,dtype", [
+    (4, 16, 16, 128, 96, "bfloat16"), (1, 16, 16, 1024, 96, "bfloat16"),
+    (1, 16, 16, 4096, 96, "bfloat16"), (1, 16, 16, 4096, 96, "float32"),
+    (1, 8, 2, 200, 64, "float32"), (3, 4, 4, 64, 16, "float32"),
+    (2, 4, 2, 77, 32, "bfloat16"), (1, 4, 4, 200, 96, "float32")])
+def test_flash_attention(cuda, b, h, hk, s, d, dtype):
+    rng = np.random.default_rng(s + d + h)
+    td = TORCH_DT[dtype]
+    q = _t(rng.standard_normal((b, h, s, d)).astype(np.float32), cuda, td)
+    k = _t(rng.standard_normal((b, hk, s, d)).astype(np.float32), cuda, td)
+    v = _t(rng.standard_normal((b, hk, s, d)).astype(np.float32), cuda, td)
+    got = fa_ops.flash_attention(q, k, v)
+    dense = fa_ops.flash_attention(q, k, v, causal_skip=False)
+    want = fa_ref.flash_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    assert got.dtype == td and got.shape == q.shape
+    if td is torch.float32:
+        torch.testing.assert_close(got, want, atol=FLASH_TOL_F32, rtol=FLASH_TOL_F32)
+    else:
+        rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        err = (got.float() - want).abs()
+        worst = (err / (want.abs() + rms)).max().item()
+        assert worst <= FLASH_TOL_BF16, worst
+    assert torch.equal(dense, got)  # masked tiles add exact zeros
+
+
+def test_flash_attention_counts_and_checks(cuda):
+    """A CUDA tensor launches the kernel (the count goes up, through the
+    kernel set too) and never takes the plain version; bad inputs raise."""
+    q = torch.randn((1, 4, 64, 32), device=cuda)
+    k = torch.randn((1, 2, 64, 32), device=cuda)
+    reset_launch_counts()
+    fa_ops.flash_attention(q, k, k.clone())
+    KERNELS.flash_attention(q, k, k.clone(), causal_skip=False)
+    TA.prefill_attention(q, k, k.clone(), kernels=KERNELS)
+    assert launch_counts()["flash_attention"] == 3
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                               k[..., :24].contiguous())
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, k.to(torch.bfloat16), k.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k[:, :, :32].contiguous(), k[:, :, :32].contiguous())
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, torch.randn((1, 3, 64, 32), device=cuda),
+                               torch.randn((1, 3, 64, 32), device=cuda))
+    assert launch_counts()["flash_attention"] == 3
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_smoke_legacy_engine_kernels_vs_plain(cuda, kv):
+    """The f32 smoke config in the engine with prefill="legacy": through the
+    kernels on the card, the streams and statuses of the plain versions on
+    the CPU and of the chunked engine on the card; one flash-attention
+    launch per layer and admission, no prefill-append launch."""
+    cfg = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                              kv_cache_dtype=kv)
+    specs = TT.param_specs(cfg)
+    cpu_params = TT.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=cfg.dtype)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 30, 70, 130, 200, 255)]
+
+    def serve(params, kernels, device, prefill):
+        eng = TE.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kernels,
+                               device=device, prefill=prefill)
+        reqs = [TE.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [(r.generated, r.status) for r in reqs], eng
+
+    cuda_params = _to(cpu_params, cuda)
+    reset_launch_counts()
+    got, eng = serve(cuda_params, KERNELS, None, "legacy")
+    counts = launch_counts()
+    want, _ = serve(cpu_params, PLAIN, "cpu", "legacy")
+    chunked, _ = serve(cuda_params, KERNELS, None, "chunked")
+    assert got == want == chunked
+    st = eng.stats()
+    assert st["host_transfers"] == st["ticks"] and st["fused_ticks"] == 0
+    sfx = "_quant" if kv == "int8" else ""
+    assert counts["flash_attention"] == cfg.n_layers * len(prompts)
+    assert counts["decode_attention" + sfx] == cfg.n_layers * st["ticks"]
+    assert counts["prefill_append" + sfx] == 0

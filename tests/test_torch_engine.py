@@ -153,14 +153,19 @@ def test_cancel_and_deadline_equal_jax(models, kv):
     assert got[3][0] == [] and got[2][1] == "OK"
 
 
+def _preemption_script():
+    """Two low-priority requests take both slots; five ticks later a
+    higher-priority arrival evicts the latest of them."""
+    a, b, c = _prompts((60, 90, 30), seed=3)
+    return [("submit", 0, a, 12, {}), ("submit", 1, b, 12, {}), ("step", 5),
+            ("submit", 2, c, 4, {"priority": 3}), ("run",)]
+
+
 @KV
 def test_priority_preemption_equal_jax(models, kv):
     """A higher-priority arrival evicts the latest low-priority slot, which
     re-prefills its prompt and emitted tokens and finishes its stream."""
-    a, b, c = _prompts((60, 90, 30), seed=3)
-    script = [("submit", 0, a, 12, {}), ("submit", 1, b, 12, {}), ("step", 5),
-              ("submit", 2, c, 4, {"priority": 3}), ("run",)]
-    got, eng = _assert_same(models, kv, script)
+    got, eng = _assert_same(models, kv, _preemption_script())
     assert got[1][3] == 1 and got[0][3] == 0  # the latest low-priority slot went
     assert all(s == "OK" for _, s, *_ in got.values())
     assert eng.stats()["preemptions"] == 1
@@ -358,3 +363,57 @@ def test_engine_raises_without_cuda(models):
     _, tcfg, _, tp = models
     with pytest.raises(RuntimeError, match="CUDA"):
         TE.ServingEngine(tp, tcfg, slots=1, max_len=64)
+
+
+# --- the legacy per-request prefill (prefill="legacy") ----------------------
+
+
+@KV
+def test_legacy_ragged_streams_equal_jax(models, kv):
+    """Each request prefilled whole at admission (one-shot, bucketed), its
+    first token recorded on the next decode-only tick: streams and statuses
+    equal to the JAX legacy engine's, and to the chunked engine's."""
+    script = _submit_all(_prompts(RAGGED), 8) + [("run",)]
+    got, eng = _assert_same(models, kv, script, prefill="legacy")
+    assert all(s == "OK" and len(t) == 8 for t, s, *_ in got.values())
+    assert eng.fused_ticks == 0 and eng.prefill == "legacy"
+    assert eng.trash_base is None and eng.cache_len == MAX_LEN
+    chunked, _ = _drive("torch", models, kv, script)
+    assert got == chunked
+
+
+@KV
+def test_legacy_edge_requests_equal_jax(models, kv):
+    """``max_new=1`` ends on the prefill token, exactly one token; a prompt
+    of ``max_len - 1`` retires on its prefill token at the cache ceiling; a
+    prompt as long as ``max_len`` fails at admission; the queue bound holds."""
+    ok, short, long_, edge = _prompts((40, 12, MAX_LEN, MAX_LEN - 1), seed=1)
+    script = [("submit", 0, ok, 1, {}), ("submit", 1, long_, 4, {}),
+              ("submit", 2, short, 5, {}), ("submit", 3, edge, 3, {}),
+              ("submit", 4, short, 2, {}), ("run",)]
+    got, _ = _assert_same(models, kv, script, queue_cap=4, prefill="legacy")
+    assert len(got[0][0]) == 1 and got[0][1] == "OK"
+    assert got[1][1:3] == ("FAILED", "bad_prompt") and got[1][0] == []
+    assert got[3][1] == "CACHE_EXHAUSTED" and len(got[3][0]) == 1
+    assert got[4][1:3] == ("FAILED", "queue_full")
+
+
+@KV
+def test_legacy_priority_preemption_equal_jax(models, kv):
+    """A preempted request resumes through the same per-request prefill of
+    its prompt and emitted tokens, with the budget left."""
+    got, eng = _assert_same(models, kv, _preemption_script(), prefill="legacy")
+    assert got[1][3] == 1 and got[0][3] == 0
+    assert all(s == "OK" and len(t) == n for (t, s, *_), n in zip(got.values(), (12, 12, 4)))
+    assert eng.stats()["preemptions"] == 1
+
+
+def test_legacy_requires_contiguous_and_auto_is_chunked(models):
+    _, tcfg, _, tp = models
+    with pytest.raises(ValueError, match="chunked"):
+        TE.ServingEngine(tp, dataclasses.replace(tcfg, kv_layout="paged"), slots=1,
+                         max_len=64, prefill="legacy", device="cpu")
+    with pytest.raises(ValueError, match="prefill"):
+        TE.ServingEngine(tp, tcfg, slots=1, max_len=64, prefill="eager", device="cpu")
+    eng = TE.ServingEngine(tp, tcfg, slots=1, max_len=64, device="cpu")
+    assert eng.prefill == "chunked" and eng.cache_len == 128 and eng.trash_base == 64
