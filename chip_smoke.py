@@ -1,16 +1,18 @@
 """On-card check of the PyTorch/CUDA port: builds the CUDA kernels, holds
-each against its plain PyTorch version at tellme-0.7b's real shapes, times
-them, then drives greedy ``generate``, the one-shot prefill, and the
-continuous-batching ``ServingEngine`` for tellme-0.7b at full width, on the
-contiguous and on the paged KV layout, with the packed matmul engine and
-with the table-lookup one, with chunked and with per-request prefill.
+each against its plain PyTorch version at the real shapes of the path that
+runs it, times them, then drives greedy ``generate``, the one-shot prefill,
+and the continuous-batching ``ServingEngine`` for tellme-0.7b at full
+width, on the contiguous and on the paged KV layout, with the packed matmul
+engine and with the table-lookup one, with chunked and with per-request
+prefill; then RWKV-6 3B (rwkv6-3b, the ssm family) at full width and depth
+through ``generate``, the one-shot prefill and the per-request engine.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
-  build     nvcc builds the seven kernel sources (timed).
-  kernels   the seventeen kernel entry points vs their plain versions: the
+  build     nvcc builds the eight kernel sources (timed).
+  kernels   the eighteen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
             512 rows) shapes; int8 decode attention at the engine's decode
             shape (8 slots, cache 1280 rows); prefill-append, bf16 and int8
@@ -35,6 +37,16 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             and with GQA in f32 at a ragged S (q[1,8,200,64], k/v 2 heads):
             kernel, plain, bound and SDPA times, and at 4096 the dense
             schedule (causal_skip=False, bit-equal) beside the causal skip.
+            WKV (rwkv6-3b's prefill recurrence) at generate's exact-length
+            prefill [4,40,100,64], at 1000 and 4000 tokens with bf16
+            r/k/v, at 4000 all f32, and at the smoke config's n = 16 with
+            S = 77; log-decays across the clip range [-10, -1e-4], half the
+            channels slow; y and the final state within 1e-4 of each head's
+            scale; kernel, plain and bound times (no library call computes
+            WKV). The GEMV and the tiled matmul also at rwkv6-3b's
+            projections (d -> d, d -> d_ff, d_ff -> d at M = 4, 400 and
+            4000), bit for bit, their launches from the rwkv generate run
+            (printed as the rwkv_projections line).
   smoke     the smoke config in f32 on the card (kernels) against the same
             weights on the CPU (plain versions): equal greedy streams.
   engine_smoke  the same for the ServingEngine, both cache dtypes: equal
@@ -95,6 +107,38 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             no prefill-append launch (counters reset just before, read just
             after); agreement with the chunked engine's streams, and where
             one parts, the logit gap of the two tokens.
+  rwkv_smoke  the rwkv smoke config in f32 on the card (kernels) against
+            the same weights on the CPU (plain versions), through generate
+            and the engine (prefill="auto", which is legacy): equal streams
+            and statuses.
+  rwkv_generate  full-width rwkv6-3b (32 layers, random weights from seed
+            0), B = 4, a 100-token prompt, 64 greedy steps, kernels and
+            plain versions: 32 wkv launches per prefill and no attention or
+            norm-quant launch (counters reset just before, read just
+            after); the prefill held block by block, each block and the
+            last-token logits from the same input within the logits bar
+            (the random-weight model amplifies an ulp over 32 blocks, so
+            the end-to-end logits and streams are reported, not held; the
+            plain versions against themselves with the embedding nudged by
+            one ulp are reported beside them as the witness);
+            eight decode steps from shared state within the bar; ms per
+            decode step against its weight-stream bound; torch.profiler's
+            busy share.
+  rwkv_prefill  prefill_bucketed (exact length) at 1 x 1000 and 1 x 4000,
+            kernels and plain versions: ms, added peak memory, 32 wkv
+            launches a prefill, the blocks and logits held as above.
+  rwkv_engine  ServingEngine(prefill="auto") on the engine phase's ragged
+            workload: every request OK, one host transfer per tick, 32 wkv
+            launches per admitted request; tokens/s, tick times, time to
+            first token, state bytes. The workload again with every step
+            held bit for bit on the same inputs: each admitted slot's state
+            equal to prefill_bucketed of its prompt alone, the other slots
+            untouched; each tick's logits and all eight slots' new state
+            equal to decode_step from a copy taken just before. Each stream
+            beside generate of that prompt alone, a parting reported with
+            the gap of its two tokens in the engine's own logits; the first
+            two requests through a one-slot engine, streams equal to
+            generate's; one decode step batched against one by one.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -103,6 +147,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -122,6 +167,7 @@ ATTN_TOL_F32 = 1e-5  # atol = rtol, the same inputs in f32
 FLASH_TOL_BF16 = 2e-2  # of |want| + the RMS of want's row (flash_attention_rows)
 LOGIT_REL_TOL = 5e-2  # full-width prefill and decode-step logits, relative to max |logit|
 SMOKE_LOGIT_TOL = 1e-3  # f32 smoke prefill logits, card vs CPU
+WKV_TOL = 1e-4  # wkv's y and state, f32, of each head's max |plain| (wkv_rows)
 
 STEPS = 64  # greedy steps of the full-width run
 DECODE_CHECK_STEPS = 8  # decode steps held against the plain versions from shared caches
@@ -144,6 +190,8 @@ PAGE_SIZE = 64  # kv_page_size of the paged layout (the config's default)
 PREFIX_LEN, PREFIX_TAILS = 576, (16, 128)
 PAGED_POOL_BYTES = {"bf16": 1_519_386_624, "int8": 791_347_200}  # 161 pages of 64 rows
 PREFILL_SHAPES = ((4, 100), (1, 1000), (1, 4000))  # (batch, prompt): buckets 128, 1024, 4096
+RWKV_PREFILL_SHAPES = ((1, 1000), (1, 4000))  # (batch, prompt), exact length
+ONE_SLOT_REQUESTS = 2  # the rwkv engine's requests also served through one slot
 
 
 def emit(obj) -> None:
@@ -346,6 +394,7 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     rows.append(gemv_rows[0])
     rows.append(mm_rows[0])
     report["projection_shapes"] = gemv_rows + mm_rows
+    report["rwkv_projection_shapes"] = rwkv_projection_rows(projection_row)
 
     # --- SwiGLU ------------------------------------------------------------
     wg, wu = packed(d, ff), packed(d, ff)
@@ -427,8 +476,40 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     fa_rows = flash_attention_rows(torch, cfg, randn, checks)
     rows += [r for r in fa_rows if r["shape_tag"] == "generate"]
     report["flash_attention_shapes"] = fa_rows
+    wkv = wkv_rows(torch, checks)
+    rows += [r for r in wkv if r["shape_tag"] == "generate"]
+    report["wkv_shapes"] = wkv
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
+    return rows
+
+
+def rwkv_projection_rows(projection_row) -> list[dict]:
+    """The GEMV and the tiled matmul at rwkv6-3b's projections, which
+    tellme-0.7b never gives them: d -> d (time mix r/k/v/g/o, channel mix
+    r), d -> d_ff (channel mix k) and d_ff -> d (channel mix v), no
+    residual (the RWKV block adds it after the projection); the GEMV at
+    generate's decode rows (M = 4), the matmul at generate's prefill
+    (4 x 100 = 400 rows) and at the 4000-token prefill. Each bit for bit
+    against its plain version (``projection_row`` fails otherwise), timed
+    like the tellme rows; their launches come from the rwkv generate run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.ternary_matmul import ref as tm_ref
+
+    rc = get_config("rwkv6-3b")
+    d, ff = rc.d_model, rc.d_ff
+    rows = []
+    for name, line, ms in (("ternary_gemv", 109, (4,)), ("ternary_matmul", 147, (400, 4000))):
+        fn, ref_fn = getattr(tm_ops, name), getattr(tm_ref, name)
+        for m in ms:
+            for n_in, n_out, tag in ((d, d, "time r/k/v/g/o, channel r"), (d, ff, "channel k"),
+                                     (ff, d, "channel v")):
+                row = projection_row(name, fn, ref_fn, m, n_in, n_out, False,
+                                     f"src/repro/kernels/ternary_matmul/kernel.py:{line}",
+                                     f"rwkv6-3b {tag} M={m}")
+                row["shape_tag"] = f"rwkv6-3b {tag}"
+                rows.append(row)
     return rows
 
 
@@ -696,6 +777,90 @@ def flash_attention_rows(torch, cfg, randn, checks) -> list[dict]:
                 *a, causal_skip=False), sets, iters=iters)
             row["dense_over_skip"] = row["dense_ms"] / row["ms"]
         rows.append(row)
+    return rows
+
+
+def wkv_inputs(torch, gen, b, h, s, n, dtype):
+    """r, k, v [b, h, s, n] normal in ``dtype``; the log-decay f32, slow on
+    the even channels ([-1e-3, -1e-4], so the state carries across
+    thousands of tokens and every chunk boundary) and log-uniform across
+    the model's whole clip range [-10, -1e-4] on the odd ones; u [h, n]."""
+    dev = torch.device("cuda")
+    r, k, v = (torch.randn((b, h, s, n), generator=gen, device=dev).to(dtype) for _ in range(3))
+    fast = -(10.0 ** (torch.rand((b, h, s, n), generator=gen, device=dev) * 5.0 - 4.0))
+    slow = -(10.0 ** (torch.rand((b, h, s, n), generator=gen, device=dev) - 4.0))
+    logw = torch.where(torch.arange(n, device=dev) % 2 == 0, slow, fast)
+    u = torch.randn((h, n), generator=gen, device=dev) * 0.5
+    return r, k, v, logw, u
+
+
+def wkv_rel_err(got, want) -> float:
+    """max |got - want| over each head, relative to that head's max |want|."""
+    diff = (got - want).abs().flatten(2).amax(-1)
+    return (diff / want.abs().flatten(2).amax(-1).clamp_min(1e-30)).max().item()
+
+
+def wkv_ops_count(bh: int, s: int, n: int, chunk: int = 64) -> int:
+    """f32 operations of the chunked WKV for these inputs, an exp counted
+    as one: per chunk of m rows, each of the m(m-1)/2 causal pairs takes a
+    subtract, an exp, two multiplies and an add a channel for A and a
+    multiply-add a value column for A.v; r.S and the state update take
+    2 m n^2 each."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        m = min(chunk, s - c0)
+        pairs = m * (m - 1) // 2
+        total += 5 * pairs * n + 2 * pairs * n + 4 * m * n * n
+    return bh * total
+
+
+def wkv_rows(torch, checks) -> list[dict]:
+    """The WKV kernel (B15) against its plain version on the card: at
+    generate's exact-length prefill [4, 40, 100, 64], at 1000 and 4000
+    tokens with bf16 r/k/v, at 4000 all f32, and at the smoke config's
+    n = 16 with an odd S. y and the final state are held within WKV_TOL of
+    each head's scale: both run in f32 from the same inputs and differ in
+    the order of their sums and in the chunk (the kernel's 64 with a
+    masked tail, the plain version's JAX rule), which moves a decay ratio
+    by a few ulps of the cumulative log-decay (up to 640: 6e-5); the
+    per-head error stays near 1e-6. No single PyTorch call computes WKV,
+    so no library time."""
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    from repro_torch.kernels.wkv import ref as wkv_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = (("generate", (4, 40, 100, 64), bf16), ("1000", (1, 40, 1000, 64), bf16),
+              ("4000", (1, 40, 4000, 64), bf16), ("4000_f32", (1, 40, 4000, 64), f32),
+              ("smoke", (3, 4, 77, 16), f32))
+    rows = []
+    for tag, (b, h, s, n), dtype in shapes:
+        args = wkv_inputs(torch, gen, b, h, s, n, dtype)
+        y, s_n = wkv_ops.wkv(*args)
+        torch.cuda.synchronize()
+        want_y, want_s = wkv_ref.wkv(*args)
+        err_y, err_s = wkv_rel_err(y, want_y), wkv_rel_err(s_n, want_s)
+        check = {"kernel": "wkv", "shape": tag, "y_err_of_head_scale": err_y,
+                 "state_err_of_head_scale": err_s, "tol": WKV_TOL,
+                 "max_abs_y": want_y.abs().max().item(),
+                 "max_abs_state": want_s.abs().max().item()}
+        checks.append(check)
+        if not (err_y <= WKV_TOL and err_s <= WKV_TOL):  # NaN fails too
+            fail(f"wkv[{tag}]: {check}")
+        nb = _nbytes(*args) + _nbytes(y, s_n)
+        bms, bby = bound_ms(nb, wkv_ops_count(b * h, s, n), "f32")
+        sets = [tuple(t.clone() for t in args) for _ in range(copies_for(nb))]
+        iters = 100 if s <= 128 else 10
+        rows.append({"name": "wkv", "route": "cuda", "shape_tag": tag,
+                     "source": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
+                     "replaces": "src/repro/kernels/wkv/kernel.py:75",
+                     "shape": f"r/k/v/logw[{b},{h},{s},{n}] {str(dtype)[6:]}",
+                     "max_abs_err": max((y - want_y).abs().max().item(),
+                                        (s_n - want_s).abs().max().item()),
+                     "ms": time_ms(torch, wkv_ops.wkv, sets, iters=iters),
+                     "eager_ms": eager_ms(torch, wkv_ops.wkv, sets, iters=2 * iters),
+                     "plain_ms": time_ms(torch, wkv_ref.wkv, sets[:1], iters=min(iters, 3)),
+                     "bound_ms": bms, "bound_by": bby, "library_ms": None})
     return rows
 
 
@@ -1473,7 +1638,7 @@ def _engine_prompts(cfg):
 
 
 def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
-               prefill: str = "auto") -> tuple[dict, list]:
+               prefill: str = "auto", slots: int = ENGINE_SLOTS) -> tuple[dict, list]:
     """Serve ``prompts`` to the end; returns (measurements, requests). With
     ``first_alone`` the first request is served to its end before the others
     are submitted. The launch counters are reset just before the first tick
@@ -1481,7 +1646,7 @@ def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
     from repro_torch import kernels as K
     from repro_torch.serving import engine as E
 
-    eng = E.ServingEngine(params, cfg, slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+    eng = E.ServingEngine(params, cfg, slots=slots, max_len=ENGINE_MAX_LEN,
                           kernels=kset, eos_id=-1, prefill=prefill)
     reqs = [E.Request(rid=i, prompt=p, max_new=ENGINE_NEW) for i, p in enumerate(prompts)]
     first = {}
@@ -1974,6 +2139,485 @@ def legacy_engine_phase(torch, cfg, params, chunked_streams, report: dict) -> No
 
 
 # ---------------------------------------------------------------------------
+# phases: RWKV-6 3B (the ssm family, the WKV kernel B15)
+# ---------------------------------------------------------------------------
+
+
+def rwkv_smoke_phase(torch, report: dict) -> None:
+    """The rwkv smoke config in f32 on the card (kernels) against the same
+    weights on the CPU (plain versions): generate (B = 3, 13-token prompts,
+    12 steps) and the legacy engine (``prefill="auto"``): equal streams and
+    statuses, prefill logits within SMOKE_LOGIT_TOL, wkv launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b", smoke=True), dtype=torch.float32)
+    specs = Tr.param_specs(cfg)
+    cpu_params = Tr.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=cfg.dtype)
+    cuda_params = _to_cuda(cpu_params)
+    gen = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 13), generator=gen)
+    K.reset_launch_counts()
+    on_card = E.generate(cuda_params, cfg, prompts, steps=12, kernels=K.KERNELS)
+    wkv_launches = K.launch_counts()["wkv"]
+    on_cpu = E.generate(cpu_params, cfg, prompts, steps=12, kernels=K.PLAIN, device="cpu")
+    err = (on_card.prefill_logits.cpu() - on_cpu.prefill_logits).abs().max().item()
+    out = {"phase": "rwkv_smoke", "generate_streams_equal":
+           bool(torch.equal(on_card.tokens, on_cpu.tokens)),
+           "prefill_logit_max_abs_err": err, "generate_wkv_launches": wkv_launches}
+    rng = np.random.default_rng(7)
+    eng_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+    runs = []
+    for params, kset, device in ((cuda_params, K.KERNELS, None), (cpu_params, K.PLAIN, "cpu")):
+        eng = E.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kset, device=device)
+        reqs = [E.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(eng_prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        runs.append(([(r.generated, r.status.name) for r in reqs], eng.stats(), eng.prefill))
+    (got, st, mode), (want, _, _) = runs
+    out.update({"engine_prefill": mode, "engine_streams_equal": got == want,
+                "engine_statuses": [x[1] for x in got], "engine_ticks": st["ticks"],
+                "engine_host_transfers": st["host_transfers"]})
+    report["rwkv_smoke"] = out
+    emit(out)
+    if not (out["generate_streams_equal"] and err <= SMOKE_LOGIT_TOL and got == want
+            and mode == "legacy" and st["host_transfers"] == st["ticks"]
+            and wkv_launches == cfg.n_layers):
+        fail(f"rwkv_smoke: {out}")
+
+
+def rwkv_weight_bytes(params) -> int:
+    """Bytes a decode step must stream: every packed weight and scale and
+    every other leaf of the blocks, the final norm and the LM head (the
+    embedding contributes one row a token, left out)."""
+    def leaves(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from leaves(v)
+        else:
+            yield node
+
+    return sum(t.numel() * t.element_size()
+               for part in ("blocks", "final_norm", "lm_head") for t in leaves(params[part]))
+
+
+RWKV_PATH = ("wkv", "ternary_gemv", "ternary_matmul")  # the rwkv runs launch these only
+
+
+def _rwkv_count_problems(counts, wkv_want: int, path=RWKV_PATH) -> list[str]:
+    problems = []
+    if counts["wkv"] != wkv_want:
+        problems.append(f"wkv launched {counts['wkv']} times, want {wkv_want}")
+    missing = [n for n in path if counts[n] <= 0]
+    if missing:
+        problems.append(f"kernels never launched on the rwkv path: {missing}")
+    extra = {n: c for n, c in counts.items() if c and n not in path}
+    if extra:
+        problems.append(f"kernels the rwkv path must not launch: {extra}")
+    return problems
+
+
+def rwkv_drift(torch, cfg, params, tokens, witness: bool = False) -> dict:
+    """The prefill of ``tokens`` block by block along the plain versions'
+    trajectory: each block through the kernels and through the plain
+    versions from the same input (max difference relative to the block
+    output's max |x|), how far the two runs' own trajectories lie apart,
+    and the last-token logits of the final norm and LM head on the last
+    block's two same-input outputs. Random-weight RWKV-6 at full depth
+    amplifies an ulp: the same-input differences are the bar, the
+    trajectories are reported. With ``witness``, two more plain
+    trajectories show that amplification without any kernel: the
+    embedding nudged by one ulp in one element (channel 0 of each
+    sequence's first token) and in every element, each against the plain
+    trajectory, relative to the same scale."""
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as Tr
+
+    def head(x):
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], eps=cfg.norm_eps)
+        return L.lm_head(params["lm_head"], x)[:, 0].float()
+
+    def nudged(x, every: bool):
+        x = x.clone()
+        bits = _bits(torch, x)
+        if every:
+            bits += 1  # one ulp away from zero in every element
+        else:
+            bits[:, 0, 0] += 1
+        return x
+
+    x_k = x_p = L.embed(params["embed"], tokens, dtype=cfg.dtype)
+    others = {"nudge_one_rel": nudged(x_p, False), "nudge_all_rel": nudged(x_p, True)} \
+        if witness else {}
+    layers = []
+    with torch.inference_mode():
+        for li in range(cfg.n_layers):
+            bp = Tr.layer_slice(params["blocks"]["b0"], li)
+            same, _ = Tr.apply_rwkv_block(bp, x_p, cfg, kernels=KERNELS)
+            x_k, _ = Tr.apply_rwkv_block(bp, x_k, cfg, kernels=KERNELS)
+            x_p, _ = Tr.apply_rwkv_block(bp, x_p, cfg, kernels=PLAIN)
+            others = {k: Tr.apply_rwkv_block(bp, x, cfg, kernels=PLAIN)[0]
+                      for k, x in others.items()}
+            scale = x_p.float().abs().max().item()
+            layer = {"layer": li,
+                     "same_input_rel": (same.float() - x_p.float()).abs().max().item() / scale,
+                     "trajectory_rel": (x_k.float() - x_p.float()).abs().max().item() / scale}
+            layer.update({k: (x.float() - x_p.float()).abs().max().item() / scale
+                          for k, x in others.items()})
+            layers.append(layer)
+        lk, lp = head(same), head(x_p)
+    out = {"layers": layers, "max_same_input_rel": max(x["same_input_rel"] for x in layers),
+           "last_trajectory_rel": layers[-1]["trajectory_rel"],
+           "same_input_logit_max_abs_err": (lk - lp).abs().max().item(),
+           "logit_max_abs": lp.abs().max().item()}
+    out.update({f"last_{k}": layers[-1][k] for k in others})
+    return out
+
+
+def _drift_problems(drift) -> list[str]:
+    problems = []
+    if not drift["max_same_input_rel"] <= LOGIT_REL_TOL:
+        problems.append(f"a block differs from its plain version on the same input by "
+                        f"{drift['max_same_input_rel']} of max |x|")
+    if not drift["same_input_logit_max_abs_err"] <= LOGIT_REL_TOL * drift["logit_max_abs"]:
+        problems.append(f"same-input logits differ by {drift['same_input_logit_max_abs_err']} "
+                        f"(max |logit| {drift['logit_max_abs']})")
+    return problems
+
+
+def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
+    """Full-width rwkv6-3b generate, B = 4, a 100-token prompt (the exact
+    length, no bucket), 64 greedy steps, through the kernels (counters
+    reset just before, read just after) and through the plain versions:
+    32 wkv launches (one prefill), no attention and no norm-quant launch.
+    The prefill is held block by block (``rwkv_drift``): each block's
+    kernels against its plain version on the same input, and the
+    last-token logits from the same input, within LOGIT_REL_TOL. The two
+    end-to-end runs are reported (logits, first tokens, streams) but not
+    held: with random weights the 32 blocks amplify a one-ulp difference
+    until the trajectories decorrelate, which the plain versions show
+    alone (``rwkv_drift``'s witness: the embedding nudged by one ulp, plain
+    against plain, reported beside the kernels' trajectory). Then eight decode
+    steps from the plain prefill's state both ways (the decode runs no
+    wkv: its state update is plain torch, and the projections are exact,
+    so the logits are held to the same bar), ms per decode step beside its
+    weight-stream bound, and torch.profiler over three decode steps (busy
+    share). Returns the kernels' launch counts."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    dev = torch.device("cuda")
+    prompts = generate_prompts(torch, cfg)
+    b, s = prompts.shape
+    res_k, counts, times_k = generate_run(torch, cfg, params, prompts, STEPS, K.KERNELS)
+    res_p, _, times_p = generate_run(torch, cfg, params, prompts, STEPS, K.PLAIN)
+    toks_k, toks_p = res_k.tokens, res_p.tokens
+    lk, lp = res_k.prefill_logits.float(), res_p.prefill_logits.float()
+    scale = lp.abs().max().item()
+    first_gap = (lp.max(-1).values - lp.gather(1, lk.argmax(-1, keepdim=True))[:, 0]).max()
+    with torch.inference_mode():
+        _, caches = E.prefill_bucketed(params, cfg, prompts, kernels=K.PLAIN)
+        tok = toks_p[:, :1].to(dev).long()
+        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+        step_checks = []
+        for _ in range(DECODE_CHECK_STEPS):
+            copy = {"blocks": {n: {k: v.clone() for k, v in c.items()}
+                               for n, c in caches["blocks"].items()}}
+            dk, _ = Tr.decode_step(params, tok, copy, pos, cfg, kernels=K.KERNELS)
+            dp, _ = Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.PLAIN)
+            step_checks.append({"logit_max_abs_err": (dk - dp).abs().max().item(),
+                                "logit_max_abs": dp.abs().max().item(),
+                                "argmax_equal": bool(torch.equal(dk.argmax(-1), dp.argmax(-1)))})
+            tok = dp.argmax(-1, keepdim=True)
+            pos = pos + 1
+    weight_bytes = rwkv_weight_bytes(params)
+    decode_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    out = {"phase": "rwkv_generate", "model": cfg.name, "batch": b, "prompt": s,
+           "steps": STEPS, "kernels": times_k, "plain": times_p,
+           "launch_counts": {n: c for n, c in counts.items() if c},
+           "first_tokens_equal": bool(torch.equal(toks_k[:, 0], toks_p[:, 0])),
+           "first_token_plain_gap_rel": first_gap.item() / scale,
+           "stream_agreement": (toks_k == toks_p).float().mean().item(),
+           "streams_equal": int((toks_k == toks_p).all(dim=1).sum().item()),
+           "prefill_logit_max_abs_err": (lk - lp).abs().max().item(),
+           "prefill_logit_max_abs": scale, "decode_step_checks": step_checks,
+           "weight_bytes": weight_bytes, "decode_bound_ms": decode_bound_ms,
+           "decode_ms_over_bound": times_k["decode_ms_per_step"] / decode_bound_ms}
+    out["prefill_drift"] = rwkv_drift(torch, cfg, params, prompts, witness=True)
+    out["decode_profile"] = profile_decode(torch, params, cfg, caches, tok, pos)
+    report["rwkv_generate"] = out
+    emit(out)
+    problems = _rwkv_count_problems(counts, cfg.n_layers) + _drift_problems(out["prefill_drift"])
+    if tuple(toks_k.shape) != (b, STEPS) or not torch.isfinite(lk).all():
+        problems.append("wrong token shape or non-finite logits")
+    for i, c in enumerate(step_checks):
+        if c["logit_max_abs_err"] > LOGIT_REL_TOL * c["logit_max_abs"]:
+            problems.append(f"decode step {i} logits differ by {c['logit_max_abs_err']}")
+    if problems:
+        fail("rwkv_generate: " + "; ".join(problems))
+    return counts
+
+
+def rwkv_prefill_phase(torch, cfg, params, report: dict) -> None:
+    """prefill_bucketed (the exact length) at 1 x 1000 and 1 x 4000 tokens
+    through the kernels and the plain versions: ms per prefill, the peak
+    memory it adds, 32 wkv launches a prefill (counters reset just before
+    the timed prefill, read just after); the blocks and the last-token
+    logits held from the same inputs (``rwkv_drift``), the end-to-end
+    logits reported."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {"phase": "rwkv_prefill", "model": cfg.name, "runs": []}
+    problems = []
+    with torch.inference_mode():
+        for b, s in RWKV_PREFILL_SHAPES:
+            prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+            run = {"batch": b, "prompt": s}
+            logits = {}
+            for name, kset in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+                E.prefill_bucketed(params, cfg, prompts, kernels=kset)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                K.reset_launch_counts()
+                t = time.perf_counter()
+                last, _ = E.prefill_bucketed(params, cfg, prompts, kernels=kset)
+                torch.cuda.synchronize()
+                run[f"{name}_ms"] = (time.perf_counter() - t) * 1e3
+                run[f"{name}_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - resident
+                if kset is K.KERNELS:
+                    counts = K.launch_counts()
+                logits[name] = last.float()
+            lk, lp = logits["kernels"], logits["plain"]
+            run.update({"end_to_end_logit_max_abs_err": (lk - lp).abs().max().item(),
+                        "logit_max_abs": lp.abs().max().item(),
+                        "launch_counts": {n: c for n, c in counts.items() if c},
+                        "drift": rwkv_drift(torch, cfg, params, prompts)})
+            out["runs"].append(run)
+            tag = f"{b}x{s}"
+            if not torch.isfinite(lk).all():
+                problems.append(f"{tag}: non-finite logits")
+            problems += [f"{tag}: {p}" for p in _drift_problems(run["drift"])]
+            problems += [f"{tag}: {p}" for p in _rwkv_count_problems(
+                counts, cfg.n_layers, path=("wkv", "ternary_matmul"))]  # no GEMV rows
+    report["rwkv_prefill"] = out
+    emit(out)
+    if problems:
+        fail("rwkv_prefill: " + "; ".join(problems))
+
+
+def rwkv_engine_phase(torch, cfg, params, report: dict) -> None:
+    """ServingEngine(prefill="auto") for rwkv6-3b on the engine phase's
+    ragged workload (8 slots, max_len 1024, 16 prompts of 30-875 tokens,
+    32 new tokens each), through the kernels: every request OK, one host
+    transfer per tick, no fused tick, 32 wkv launches per admitted request
+    (counters reset just before the first tick, read just after the last);
+    tokens/s, tick times, time to first token and the state's bytes. Then
+    the same workload again, every step held against the model's own calls
+    on the same inputs (``rwkv_engine_checked``): each admission's slot
+    state bit-equal to ``prefill_bucketed`` of that prompt alone and the
+    other slots untouched, each tick's logits and the new state of all
+    eight slots bit-equal to ``decode_step`` from a copy of the states
+    taken just before it. Each stream is set beside the port's own
+    generate of that prompt alone (B = 1), a parting reported with the gap
+    of its two tokens in the engine's own logits of that step: the engine
+    decodes 8 slots a step where generate decodes one, and the plain torch
+    ops of the RWKV step (the norms' reductions, the decay LoRA and r.S
+    matmuls, the LM head) may round otherwise at another batch, which the
+    random-weight model amplifies. Two runs measure that batch effect: the
+    first ONE_SLOT_REQUESTS requests through a one-slot engine, whose
+    streams must equal generate's (the same batch), and one decode step
+    from eight prefilled states, batched and one by one (``batch_effect``:
+    how far its logits lie apart)."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    prompts = _engine_prompts(cfg)
+    out = {"phase": "rwkv_engine", "model": cfg.name, "slots": ENGINE_SLOTS,
+           "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS, "max_new": ENGINE_NEW,
+           "prompt_lengths": [len(p) for p in prompts]}
+    with torch.inference_mode():
+        got, reqs = engine_run(torch, cfg, params, K.KERNELS, prompts, prefill="auto")
+        checked, streams, step_logits = rwkv_engine_checked(torch, cfg, params, prompts)
+        checked["streams_equal_to_timed_run"] = sum(
+            r.generated == x for r, x in zip(reqs, streams))
+        alone = [E.generate(params, cfg, torch.as_tensor(p, device="cuda")[None],
+                            steps=ENGINE_NEW).tokens[0].tolist() for p in prompts]
+        parted = [i for i, (a, w) in enumerate(zip(streams, alone)) if a != w]
+        got["checked"] = checked
+        got["streams_equal_to_generate"] = ENGINE_REQUESTS - len(parted)
+        got["partings"] = [_engine_parting(step_logits, i, streams[i], alone[i])
+                           for i in parted]
+        one, one_reqs = engine_run(torch, cfg, params, K.KERNELS,
+                                   prompts[:ONE_SLOT_REQUESTS], slots=1)
+        got["one_slot"] = {k: one[k] for k in ("ticks", "host_transfers", "statuses",
+                                                "tokens_per_s")}
+        got["one_slot"]["streams_equal_to_generate"] = sum(
+            r.generated == a for r, a in zip(one_reqs, alone))
+        got["batch_effect"] = rwkv_batch_effect(torch, cfg, params, prompts[:ENGINE_SLOTS])
+    out.update(got)
+    report["rwkv_engine"] = out
+    emit(out)
+    counts = got["launch_counts"]
+    problems = list(checked["problems"])
+    bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+    if bad:
+        problems.append(f"requests not OK with {ENGINE_NEW} tokens: {bad}")
+    if got["host_transfers"] != got["ticks"] or got["fused_ticks"]:
+        problems.append(f"{got['host_transfers']} transfers for {got['ticks']} ticks, "
+                        f"{got['fused_ticks']} fused ticks")
+    problems += _rwkv_count_problems(counts, cfg.n_layers * ENGINE_REQUESTS)
+    if checked["admissions_checked"] != ENGINE_REQUESTS or checked["ticks_checked"] == 0:
+        problems.append(f"checked {checked['admissions_checked']} admissions and "
+                        f"{checked['ticks_checked']} ticks")
+    if got["one_slot"]["streams_equal_to_generate"] != ONE_SLOT_REQUESTS:
+        problems.append(f"one-slot engine: {got['one_slot']['streams_equal_to_generate']} of "
+                        f"{ONE_SLOT_REQUESTS} streams equal generate's")
+    if problems:
+        fail("rwkv_engine: " + "; ".join(problems))
+
+
+def rwkv_engine_checked(torch, cfg, params, prompts) -> tuple[dict, list, dict]:
+    """Serve ``prompts`` as ``rwkv_engine_phase`` does, holding every
+    admission and every tick bit for bit against the model's own calls on
+    the same inputs: after each admission the slot's ``wkv``/``x_time``/
+    ``x_chan`` equal ``prefill_bucketed`` of the prompt alone, its first
+    token that prefill's argmax, and the other seven slots' state is
+    unchanged; each tick's logits, and the state of all eight slots after
+    it (the idle ones too), equal ``decode_step`` run from a copy of the
+    states, tokens and positions taken just before the tick. Returns the
+    measurements (with the problems found), the streams and each
+    request's logits row of every decode step, keyed (request, step)."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    dev = torch.device("cuda")
+    eng = E.ServingEngine(params, cfg, slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                          kernels=K.KERNELS, eos_id=-1, prefill="auto")
+    reqs = [E.Request(rid=i, prompt=p, max_new=ENGINE_NEW) for i, p in enumerate(prompts)]
+    problems, seen, step_logits = [], [], {}
+    tally = {"admissions_checked": 0, "ticks_checked": 0}
+
+    def state():
+        return eng.caches["blocks"]["b0"]
+
+    def copy():
+        return {n: t.clone() for n, t in state().items()}
+
+    prefill_slot, decode_tick, advance = eng._prefill_slot, eng._decode_tick, E._advance
+
+    def checked_prefill(slot, req, prompt, remaining):
+        before = copy()
+        prefill_slot(slot, req, prompt, remaining)
+        logits, alone = E.prefill_bucketed(
+            params, cfg, torch.as_tensor(prompt, device=dev)[None].long())
+        alone = alone["blocks"]["b0"]
+        rest = [i for i in range(ENGINE_SLOTS) if i != slot]
+        if not all(torch.equal(state()[n][:, slot], alone[n][:, 0]) for n in alone):
+            problems.append(f"request {req.rid}: slot {slot}'s state after admission is not "
+                            f"prefill_bucketed's of its prompt alone")
+        if not all(torch.equal(state()[n][:, rest], before[n][:, rest]) for n in alone):
+            problems.append(f"request {req.rid}: admission into slot {slot} changed another "
+                            f"slot's state")
+        if int(eng.cur_tok[slot]) != int(logits[0].argmax()):
+            problems.append(f"request {req.rid}: first token is not the prefill's argmax")
+        step_logits[(req.rid, 0)] = logits[0].float()
+        tally["admissions_checked"] += 1
+
+    def capture(logits, *a, **kw):
+        seen.append(logits)
+        return advance(logits, *a, **kw)
+
+    def checked_tick():
+        active = torch.tensor([r is not None for r in eng.live], device=dev)
+        steps = {s: (r.rid, len(r.generated) + (s in eng._pending_first))
+                 for s, r in enumerate(eng.live) if r is not None}
+        dpos = torch.where(active, eng.pos, torch.full_like(eng.pos, eng.cache_len - 1))
+        snap = {"blocks": {"b0": copy()}}
+        want, _ = Tr.decode_step(params, eng.cur_tok[:, None].to(torch.int64), snap, dpos,
+                                 cfg, kernels=K.KERNELS)
+        ok = decode_tick()
+        got = seen.pop()
+        tick = eng.tick_count
+        if not torch.equal(got, want):
+            problems.append(f"tick {tick}: logits differ from decode_step on the same states "
+                            f"by {(got.float() - want.float()).abs().max().item()}")
+        if not all(torch.equal(state()[n], snap["blocks"]["b0"][n]) for n in state()):
+            problems.append(f"tick {tick}: the slots' state differs from decode_step's")
+        for s, key in steps.items():
+            step_logits[key] = got[s].float()
+        tally["ticks_checked"] += 1
+        return ok
+
+    eng._prefill_slot, eng._decode_tick, E._advance = checked_prefill, checked_tick, capture
+    try:
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+    finally:
+        E._advance = advance
+    statuses = [r.status.name for r in reqs]
+    if any(x != "OK" for x in statuses):
+        problems.append(f"checked run statuses {statuses}")
+    return dict(tally, problems=problems[:20], n_problems=len(problems)), \
+        [r.generated for r in reqs], step_logits
+
+
+def _engine_parting(step_logits, rid, got, want) -> dict:
+    """Where an engine stream parts from generate's: the step, both tokens,
+    and their gap in the engine's own logits of that step, relative to its
+    max |logit| (the engine's token is that row's argmax)."""
+    step = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+    row = step_logits[(rid, step)]
+    return {"request": rid, "step": step, "tokens": [int(got[step]), int(want[step])],
+            "engine_logit_gap_rel": (row[got[step]] - row[want[step]]).item()
+            / row.abs().max().item()}
+
+
+def rwkv_batch_effect(torch, cfg, params, prompts) -> dict:
+    """One decode step from the same prefilled states (each prompt alone),
+    run as one batch, as the engine's decode tick runs it, and one prompt
+    at a time, as generate alone runs it: the largest logit difference,
+    relative to max |logit|, and the rows whose argmax differs."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    dev = torch.device("cuda")
+    states, toks = [], []
+    for p in prompts:
+        logits, caches = E.prefill_bucketed(params, cfg, torch.as_tensor(p, device=dev)[None])
+        states.append(caches["blocks"]["b0"])
+        toks.append(logits.argmax(-1))
+    tok = torch.stack(toks).long()  # [B, 1]
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    batched = {"blocks": {"b0": {n: torch.cat([st[n] for st in states], dim=1)
+                                 for n in states[0]}}}
+    lb, _ = Tr.decode_step(params, tok, batched, pos, cfg, kernels=KERNELS)
+    la = torch.cat([Tr.decode_step(params, tok[i:i + 1], {"blocks": {"b0": states[i]}},
+                                   pos[i:i + 1], cfg, kernels=KERNELS)[0]
+                    for i in range(len(prompts))])
+    return {"batch": len(prompts), "logit_max_abs_err": (lb - la).abs().max().item(),
+            "logit_max_abs": la.abs().max().item(),
+            "rows_differing": int((lb != la).any(dim=-1).sum().item()),
+            "argmax_differing": int((lb.argmax(-1) != la.argmax(-1)).sum().item())}
+
+
+# ---------------------------------------------------------------------------
 # phase: tl (the table-lookup engine at full width)
 # ---------------------------------------------------------------------------
 
@@ -2040,7 +2684,6 @@ def tl_phase(torch, cfg, params, packed_tokens, engine_streams, shared_streams,
     Then the smoke config with an int8 cache, TL against packed. Returns the
     launch counts of the TL generate run."""
     import dataclasses
-    import gc
 
     from repro_torch import kernels as K
     from repro_torch.serving import engine as E
@@ -2154,10 +2797,28 @@ def main(argv=None) -> int:
                          shared_streams["bf16"], report)
     prefill_phase(torch, cfg, params, report)
     legacy_engine_phase(torch, cfg, params, eng_streams, report)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rwkv_smoke_phase(torch, report)
+    rwkv_cfg = get_config("rwkv6-3b")
+    rwkv_params = full_params(torch, rwkv_cfg)
+    rwkv_counts = rwkv_generate_phase(torch, rwkv_cfg, rwkv_params, report)
+    rwkv_prefill_phase(torch, rwkv_cfg, rwkv_params, report)
+    rwkv_engine_phase(torch, rwkv_cfg, rwkv_params, report)
+    proj_keys = ("name", "shape", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+    for row in report["rwkv_projection_shapes"]:  # launches of the rwkv generate run
+        row["launches"] = rwkv_counts[row["name"]]
+    emit({"phase": "rwkv_projections",
+          "rows": [{k: r[k] for k in proj_keys} for r in report["rwkv_projection_shapes"]]})
     for row in rows:  # launches on the main path that runs each kernel
         name = row["name"]
         counts = paged_counts if "_paged" in name else eng_counts
-        if name in TL_PATH or name == "tl_gemv":  # the TL generate run
+        if name == "wkv":  # the rwkv6-3b generate run
+            row["launches"] = rwkv_counts[name]
+        elif name in TL_PATH or name == "tl_gemv":  # the TL generate run
             row["launches"] = tl_counts[name]
         elif name.endswith("_quant") and name != "norm_quant":  # the int8 cache's variants
             row["launches"] = counts["int8"][name]

@@ -3,9 +3,11 @@
 Counterpart of ``repro/configs/base.py``, holding only the fields the
 port's ``generate`` and ``ServingEngine`` paths read (the JAX module imports
 JAX, so the port keeps its own copy). Field names and defaults match the JAX config, so a
-test can hold each shared field against it. The options of other
-architectures (softcaps, sliding windows, local/global layers, families
-other than dense) come with the slice that ports a config using them.
+test can hold each shared field against it. Two families are ported: the
+dense transformer and ``ssm`` (RWKV-6). The options of other architectures
+(softcaps, sliding windows, local/global layers, MoE, MLA, hybrids) come
+with the slice that ports a config using them. ``sub_quadratic`` is left
+out: only the JAX package's dry-run reads it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
+    family: str = "dense"  # dense | ssm (RWKV-6)
+    rwkv_head_dim: int = 64  # ssm: the WKV head size n (d_model // n heads)
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
     prefill_chunk_budget: int = 512  # chunk tokens appended per engine tick
     kv_cache_dtype: str = "bf16"  # bf16 (the activation dtype) | int8 + f32 row scales
@@ -63,7 +67,7 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
-    from . import tellme_0p7b  # noqa: F401  (registers itself)
+    from . import rwkv6_3b, tellme_0p7b  # noqa: F401  (each registers itself)
 
     table = _SMOKE if smoke else _REGISTRY
     if name not in table:

@@ -26,6 +26,8 @@ from .ternary_matmul import ops as _tm_ops
 from .ternary_matmul import ref as _tm_ref
 from .tl_gemv import ops as _tl_ops
 from .tl_gemv import ref as _tl_ref
+from .wkv import ops as _wkv_ops
+from .wkv import ref as _wkv_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,20 +43,23 @@ class KernelSet:
     tl_matmul: Callable  # the projections at every M,
     tl_swiglu: Callable  # and gate + up
     flash_attention: Callable  # the one-shot prefill's causal attention
+    wkv: Callable  # the RWKV-6 prefill's time-mix recurrence
 
 
 KERNELS = KernelSet(_nq_ops.norm_quant, _tm_ops.ternary_gemv,
                     _tm_ops.ternary_swiglu, _da_ops.decode_attention,
                     _pa_ops.prefill_append, _da_ops.decode_attention_paged,
                     _pa_ops.prefill_append_paged, _nq_ops.norm_quant_tables,
-                    _tl_ops.tl_matmul, _tl_ops.tl_swiglu, _fa_ops.flash_attention)
+                    _tl_ops.tl_matmul, _tl_ops.tl_swiglu, _fa_ops.flash_attention,
+                    _wkv_ops.wkv)
 PLAIN = KernelSet(_nq_ref.norm_quant, _tm_ref.ternary_gemv,
                   _tm_ref.ternary_swiglu, _da_ref.decode_attention,
                   _pa_ref.prefill_append, _da_ref.decode_attention_paged,
                   _pa_ref.prefill_append_paged, _nq_ref.norm_quant_tables,
-                  _tl_ref.tl_matmul, _tl_ref.tl_swiglu, _fa_ref.flash_attention)
+                  _tl_ref.tl_matmul, _tl_ref.tl_swiglu, _fa_ref.flash_attention,
+                  _wkv_ref.wkv)
 
-# The seventeen launching wrappers, by the TPU entry point each replaces.
+# The eighteen launching wrappers, by the TPU entry point each replaces.
 WRAPPERS = {
     "norm_quant": _nq_ops.norm_quant,
     "norm_quant_tables": _nq_ops.norm_quant_tables,
@@ -73,6 +78,7 @@ WRAPPERS = {
     "tl_matmul": _tl_ops.tl_matmul,
     "tl_swiglu": _tl_ops.tl_swiglu,
     "flash_attention": _fa_ops.flash_attention,
+    "wkv": _wkv_ops.wkv,
 }
 
 

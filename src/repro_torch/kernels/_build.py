@@ -7,9 +7,9 @@ use each is compiled by its own ``nvcc`` process (all started together) for
 ``build/repro_torch/<hash>/`` at the repo root, where ``<hash>`` covers the
 sources, headers and flags, so an edit never loads a stale library. The
 library has a plain ``extern "C"`` interface: every pointer and the stream
-cross as ``ctypes.c_void_p`` and every launcher returns the
-``cudaGetLastError()`` after its launch, which :func:`check` turns into an
-exception. Nothing here runs at import.
+cross as ``ctypes.c_void_p``, element strides as ``ctypes.c_longlong``, and
+every launcher returns the ``cudaGetLastError()`` after its launch, which
+:func:`check` turns into an exception. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ SOURCES = (
     _PKG / "prefill_append" / "csrc" / "prefill_append.cu",
     _PKG / "tl_gemv" / "csrc" / "tl_gemv.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    _PKG / "wkv" / "csrc" / "wkv.cu",
 )
 HEADERS = (
     _PKG / "csrc" / "common.cuh",
@@ -42,7 +43,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
          "-I", str(_PKG / "csrc"))
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     # x, gamma, q, qs, m, n, eps, dtype, stream
     "tm_norm_quant": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
@@ -80,6 +81,8 @@ SIGNATURES = {
                                 _I, _I, _F, _F, _I, _I, _I, _P),
     # q, k, v, out, b, h, hk, s, d, window, softcap, scale, causal_skip, dtype, stream
     "tm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # r, k, v, logw, u, y, s_out, bh, h, s, n, stride_b, stride_h, stride_s, dtype, stream
+    "tm_wkv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -170,14 +173,15 @@ def dtype_code(dtype) -> int:
     return code
 
 
-def require_cuda(name: str, **tensors) -> None:
-    """Every tensor on one CUDA device and contiguous."""
+def require_cuda(name: str, *, contiguous: bool = True, **tensors) -> None:
+    """Every tensor on one CUDA device and (unless ``contiguous=False``, for
+    a kernel that takes strides) contiguous."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors must share one CUDA device, got "
                          f"{ {k: str(t.device) for k, t in tensors.items()} }")
     for k, t in tensors.items():
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
 
 

@@ -1,15 +1,16 @@
-"""Decoder-only dense transformer on the packed serving path
-(``repro/models/transformer.py``, dense family, fused attn+dense branch).
+"""The decoder stack on the packed serving path (``repro/models/transformer.py``)
+for two families: the dense transformer (fused attn+dense branch) and
+``ssm``, RWKV-6 (``transformer.py:393-414``).
 
 Parameters keep the JAX tree and layouts: the layer stack lives in
 ``params["blocks"]["b0"]`` with a leading ``[L]`` axis on every leaf (the
-JAX tree's one-layer period: every layer of this family is the same), and
-the KV caches are ``[L, B, HK, M, D]`` (int8 cache: with f32 row scales
+JAX tree's one-layer period: every layer of either family is the same),
+and the KV caches are ``[L, B, HK, M, D]`` (int8 cache: with f32 row scales
 ``[L, B, HK, M]``), or, for the engine's paged layout, page pools
 ``[L, P, HK, ps, D]`` (``[L, P, HK, ps]``) that ``decode_step`` and
 ``prefill_chunk_step`` address through a ``page_table [B, NB]`` shared by
 every layer. The JAX package scans over the
-stacked layers; here a Python loop walks them. Every block runs the
+stacked layers; here a Python loop walks them. Every dense block runs the
 int8-resident pipeline of ``transformer.py:422-447``: norm-quant prologue,
 q/k/v projections on the int8 row, RoPE, attention, the o projection with
 the residual in its epilogue, norm-quant, fused SwiGLU, and the down
@@ -18,6 +19,16 @@ matmul engine of its projections once (``cfg.matmul_engine``); where q
 (gate) resolves to the table-lookup engine, the first (second) prologue
 also emits the TL tables, which q, k and v (gate and up) consume; o and
 down quantize their own input.
+
+An RWKV block norms with plain ``rmsnorm``, its projections quantize their
+own lerped inputs, and its residual adds follow the projections, rounded
+to the activation dtype, as in JAX. Its "cache" is a recurrent state of
+O(1) per slot: ``wkv [L, B, H, n, n]`` f32 and the token-shift carries
+``x_time``, ``x_chan [L, B, 1, d]``, with no sequence axis. ``forward``
+prefills from a zero state (the WKV through ``kernels.wkv``), ``decode_step``
+advances the state in place; a multi-token step against an existing state
+(``prefill_chunk_step``) raises, as the WKV kernel, like the TPU kernel,
+starts from zero, and the paged layout pages attention K/V only.
 """
 
 from __future__ import annotations
@@ -31,6 +42,9 @@ from ..core.params import ParamSpec
 from ..core.ternary import dequantize_kv, kv_page_rows, quantize_kv, update_kv_pages
 from . import attention as attn_ops
 from . import layers as L
+from . import rwkv as rwkv_mod
+
+FAMILIES = ("dense", "ssm")
 
 
 def _attn_spec(cfg) -> dict:
@@ -44,6 +58,12 @@ def _attn_spec(cfg) -> dict:
 
 
 def _layer_spec(cfg) -> dict:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, got {cfg.family!r}")
+    if cfg.family == "ssm":
+        spec = rwkv_mod.rwkv_spec(cfg)
+        return {"ln1": L.rmsnorm_spec(cfg.d_model), "ln2": L.rmsnorm_spec(cfg.d_model),
+                "time": spec["time"], "channel": spec["channel"]}
     return {
         "ln1": L.rmsnorm_spec(cfg.d_model),
         "ln2": L.rmsnorm_spec(cfg.d_model),
@@ -208,6 +228,38 @@ def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None, prefix_limit
     return x, kv
 
 
+def apply_rwkv_block(bp, x, cfg, *, kernels, state=None):
+    """The RWKV block (``transformer.py:393-414``). With ``state`` None, a
+    prefill of ``x [B, S, d]`` from a zero state, returning (x, its final
+    state ``{"wkv", "x_time", "x_chan"}``); with this layer's state leaves
+    (views), one decode token, which updates them in place, returning
+    (x, None)."""
+    h = L.rmsnorm(bp["ln1"], x, eps=cfg.norm_eps)
+    if state is None:
+        zeros = torch.zeros((x.shape[0], 1, cfg.d_model), dtype=x.dtype, device=x.device)
+        y, x_time, wkv = rwkv_mod.time_mix(bp["time"], h, zeros, cfg, kernels=kernels)
+        x_chan_prev = zeros
+    else:
+        if x.shape[1] != 1:
+            raise NotImplementedError(
+                "a multi-token step against an existing RWKV state is not ported: the "
+                "WKV kernel, like the TPU kernel, starts from a zero state")
+        y, new = rwkv_mod.time_mix_decode(bp["time"], h, state, cfg, kernels=kernels)
+        x_time, wkv = new["x_time"], new["wkv"]
+        x_chan_prev = state["x_chan"]
+    x = x + y
+    h2 = L.rmsnorm(bp["ln2"], x, eps=cfg.norm_eps)
+    y2, x_chan = rwkv_mod.channel_mix(bp["channel"], h2, x_chan_prev.to(h2.dtype),
+                                      kernels=kernels)
+    x = x + y2
+    new = {"wkv": wkv, "x_time": x_time, "x_chan": x_chan}
+    if state is None:
+        return x, new
+    for name, t in new.items():
+        state[name].copy_(t)
+    return x, None
+
+
 def rope_for(cfg, positions):
     """The step's RoPE tables, shared by every layer."""
     return {"attn": L.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)}
@@ -229,12 +281,18 @@ def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool =
     :func:`cache_specs` layout at length S."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    rope = rope_for(cfg, positions)["attn"]
     caches = cache_zeros(cfg, b, s, x.device) if collect_cache else None
+    if cfg.family == "ssm":
+        def block(bp, x):
+            return apply_rwkv_block(bp, x, cfg, kernels=kernels)
+    else:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+        rope = rope_for(cfg, positions)["attn"]
+
+        def block(bp, x):
+            return apply_block(bp, x, cfg, rope, kernels=kernels)
     for li in range(cfg.n_layers):
-        bp = layer_slice(params["blocks"]["b0"], li)
-        x, new = apply_block(bp, x, cfg, rope, kernels=kernels)
+        x, new = block(layer_slice(params["blocks"]["b0"], li), x)
         if collect_cache:
             for n, rows in new.items():
                 caches["blocks"]["b0"][n][li] = rows
@@ -246,8 +304,17 @@ def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *,
     """One autoregressive step: ``tokens [B, 1]`` at per-slot positions
     ``pos [B]`` int32. Writes each layer's new K/V into ``caches`` in place
     and returns (logits [B, V], caches). ``page_table [B, NB]`` int32 makes
-    ``caches`` page pools (:func:`cache_specs` with ``kv_pages``)."""
+    ``caches`` page pools (:func:`cache_specs` with ``kv_pages``). The ssm
+    family advances its state leaves in place and reads no position."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
+    if cfg.family == "ssm":
+        if page_table is not None:
+            raise NotImplementedError("the paged layout pages attention K/V; the ssm family "
+                                      "has none")
+        for li in range(cfg.n_layers):
+            x, _ = apply_rwkv_block(layer_slice(params["blocks"]["b0"], li), x, cfg,
+                                    kernels=kernels, state=_layer_cache(caches, li))
+        return _head(params, x, cfg)[:, 0], caches
     rope = rope_for(cfg, pos[:, None])["attn"]
     page_rows = None
     if page_table is not None:  # the frontier rows' pool addresses, shared by all layers
@@ -268,7 +335,12 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
     at or past ``prefix_limit > 0`` are write-only. Returns (logits, caches):
     logits [B, C, V], or with ``last_row [B]`` only each slot's row, gathered
     before the final norm and the LM head, [B, V]. ``page_table`` as in
-    :func:`decode_step`."""
+    :func:`decode_step`. The dense family only: an RWKV chunk against an
+    existing state raises ``NotImplementedError``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"prefill_chunk_step is the attention mixer's; the {cfg.family!r} family's "
+            "recurrent state is prefilled whole, from zero (ServingEngine prefill='legacy')")
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, c = tokens.shape
     positions = offset.to(torch.int32)[:, None] + torch.arange(
@@ -293,7 +365,22 @@ def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> di
     layout (``transformer.py:711-741``): one pool shared by every slot, k/v
     [L, kv_pages, HK, cfg.kv_page_size, D] (and scales [L, kv_pages, HK,
     cfg.kv_page_size]); ``batch`` and ``seq`` then go unused. It is an
-    explicit opt-in: only the engine pages."""
+    explicit opt-in: only the engine pages. The ssm family's leaves are its
+    recurrent state, with no sequence axis (``transformer.py:779-789``):
+    ``wkv [L, batch, H, n, n]`` f32 and ``x_time``, ``x_chan [L, batch, 1,
+    d]`` in ``cfg.dtype``; ``seq`` goes unused, and it has no paged layout."""
+    if cfg.kv_cache_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got "
+                         f"{cfg.kv_cache_dtype!r}")
+    if cfg.family == "ssm":
+        if kv_pages is not None:
+            raise NotImplementedError("the paged layout pages attention K/V; the ssm family "
+                                      "has none")
+        n, d = cfg.rwkv_head_dim, cfg.d_model
+        carry = ((cfg.n_layers, batch, 1, d), cfg.dtype)
+        return {"blocks": {"b0": {
+            "wkv": ((cfg.n_layers, batch, d // n, n, n), torch.float32),
+            "x_time": carry, "x_chan": carry}}}
     if kv_pages is not None:
         shape = (cfg.n_layers, kv_pages, cfg.n_kv_heads, cfg.kv_page_size, cfg.head_dim)
     else:
@@ -302,12 +389,18 @@ def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> di
         scales = (shape[:-1], torch.float32)
         leaves = {"k": (shape, torch.int8), "k_scale": scales,
                   "v": (shape, torch.int8), "v_scale": scales}
-    elif cfg.kv_cache_dtype == "bf16":
-        leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
     else:
-        raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got "
-                         f"{cfg.kv_cache_dtype!r}")
+        leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
     return {"blocks": {"b0": leaves}}
+
+
+def seq_leaves(cfg) -> frozenset:
+    """The cache leaves with a sequence axis (axis 3, the one the engine
+    grows and crops): every leaf of the dense family, none of the ssm
+    family's state (JAX: the leaves whose axes hold ``act_kv_seq``)."""
+    if cfg.family == "ssm":
+        return frozenset()
+    return frozenset(cache_specs(cfg, 1, 1)["blocks"]["b0"])
 
 
 def cache_zeros(cfg, batch: int, seq: int, device, *, kv_pages: int | None = None) -> dict:

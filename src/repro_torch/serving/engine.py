@@ -20,9 +20,11 @@ prompt prefixes and copy-on-write (``serving/paging.py``). With
 ``prefill="legacy"`` (contiguous layout only) a request is instead
 prefilled whole at admission, by the one-shot ``prefill_bucketed`` of
 ``generate``, and its caches are written into the slot's rows; its first
-token is recorded on the next decode-only tick. Not ported yet: other model
-families, speculative ticks, fault injection, the straggler monitor and
-request export. A tick that raises
+token is recorded on the next decode-only tick. The RWKV-6 family (``ssm``)
+is served this way only, its per-slot recurrent state written into the
+slot in place of cache rows. Not ported yet: the other model families,
+speculative ticks, fault injection, the straggler monitor and request
+export. A tick that raises
 propagates out of :meth:`ServingEngine.step`: there is no fallback to the
 plain versions or to the CPU; a page pool that runs dry fails the request
 that needed the page (``FAILED``, ``page_pool_exhausted``).
@@ -90,13 +92,18 @@ def cache_nbytes(caches) -> int:
 
 
 def _resize_caches(caches, cfg, max_len: int, *, crop: bool) -> dict:
-    """Pad (and, with ``crop``, slice) every leaf's sequence axis to
-    ``max_len``. It is axis 3 of every leaf of the one layout: k/v
-    [L, B, HK, M, D] and the int8 scales [L, B, HK, M]. A cache whose leaves
-    disagree with ``cfg.kv_cache_dtype`` is rejected."""
+    """Pad (and, with ``crop``, slice) the sequence axis of every leaf that
+    has one (``transformer.seq_leaves``) to ``max_len``: axis 3 of k/v
+    [L, B, HK, M, D] and of the int8 scales [L, B, HK, M]. Leaves without
+    one, the ssm family's recurrent state, pass through unchanged
+    (``engine.py:158-197``). A cache whose leaves disagree with
+    ``cfg.kv_cache_dtype`` is rejected."""
     want = set(Tr.cache_specs(cfg, 1, 1)["blocks"]["b0"])
+    seq = Tr.seq_leaves(cfg)
 
-    def fit(c):
+    def fit(name, c):
+        if name not in seq:
+            return c
         n = c.shape[3]
         if n > max_len and crop:
             return c[:, :, :, :max_len].contiguous()
@@ -107,18 +114,20 @@ def _resize_caches(caches, cfg, max_len: int, *, crop: bool) -> dict:
         if set(leaves) != want:
             raise ValueError(f"cache layout mismatch: cache has keys {sorted(leaves)} but "
                              f"kv_cache_dtype={cfg.kv_cache_dtype!r} expects {sorted(want)}")
-        out[b] = {k: fit(v) for k, v in leaves.items()}
+        out[b] = {k: fit(k, v) for k, v in leaves.items()}
     return {"blocks": out}
 
 
 def grow_caches(caches, cfg, max_len: int) -> dict:
-    """Zero-pad caches out to ``max_len`` positions; longer ones pass through."""
+    """Zero-pad caches out to ``max_len`` positions; longer ones, and leaves
+    without positions, pass through."""
     return _resize_caches(caches, cfg, max_len, crop=False)
 
 
 def fit_caches(caches, cfg, max_len: int) -> dict:
-    """Grow (zero-pad) or crop every cache to ``max_len`` positions.
-    Cropped rows lie past every live frontier, so no attended state goes."""
+    """Grow (zero-pad) or crop every cache to ``max_len`` positions; leaves
+    without positions pass through. Cropped rows lie past every live
+    frontier, so no attended state goes."""
     return _resize_caches(caches, cfg, max_len, crop=True)
 
 
@@ -136,9 +145,12 @@ def prefill_bucketed(params, cfg, prompts: torch.Tensor, *, kernels=KERNELS):
     """Prefill ``prompts [B, S]`` padded (with token 0) to the chunk-size
     bucket; pad tokens sit past every row's causal frontier. Returns
     (logits at the last prompt token [B, V], caches of the bucket's
-    length)."""
+    length). Only the dense family is padded (``engine.py:275-279``): a
+    recurrent state would integrate the pad tokens, so every other family
+    prefills the exact length."""
     s = prompts.shape[1]
-    padded = C.pad_to(prompts, 1, bucket_length(s, cfg.prefill_chunk_sizes))
+    bucket = bucket_length(s, cfg.prefill_chunk_sizes) if cfg.family == "dense" else s
+    padded = C.pad_to(prompts, 1, bucket)
     logits, caches = Tr.forward(params, padded, cfg, kernels=kernels, collect_cache=True)
     return logits[:, s - 1], caches
 
@@ -352,7 +364,14 @@ class ServingEngine:
     whole at admission (:meth:`_prefill_slot`): the cache then holds
     ``cache_len = max_len`` rows per slot with no trash tail, every tick is
     a decode-only tick, and the paged layout is refused. ``"auto"`` is
-    ``"chunked"``, as for the JAX package's dense family.
+    ``"chunked"`` for the dense family and ``"legacy"`` for every other,
+    as in JAX. The ssm family (RWKV-6) runs legacy only: its state has no
+    rows to append a chunk to, and ``"chunked"`` or the paged layout raise
+    (JAX serves chunked ssm through its XLA WKV from a warm state; the
+    port's WKV kernel starts from zero, as the TPU kernel does). Admission
+    overwrites every state leaf of the slot, and in a decode-only tick idle
+    slots step their state too, as in JAX; the scale guard finds no int8
+    scales there, so only the logits guard acts.
 
     Every request ends in exactly one terminal ``resilience.Status``:
     ``submit`` applies queue backpressure (``queue_cap`` /
@@ -373,10 +392,16 @@ class ServingEngine:
         self.dev = C.resolve_device(device)
         self.params, self.cfg, self.kernels = engine_params(params, cfg), cfg, kernels
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
-        if prefill == "auto":  # the dense family, the only one ported
-            prefill = "chunked"
+        if prefill == "auto":  # engine.py:539-545
+            prefill = "chunked" if cfg.family == "dense" else "legacy"
         if prefill not in ("chunked", "legacy"):
             raise ValueError(f"prefill must be 'auto', 'chunked' or 'legacy', got {prefill!r}")
+        if cfg.family != "dense" and (prefill == "chunked" or cfg.kv_layout == "paged"):
+            raise ValueError(
+                f"the {cfg.family!r} family runs prefill='legacy' on the contiguous layout "
+                f"only (got prefill={prefill!r}, kv_layout={cfg.kv_layout!r}): its recurrent "
+                "state has no rows to append a chunk to or to page, and the WKV kernel "
+                "starts from a zero state")
         self.prefill = prefill
         sizes = tuple(sorted(cfg.prefill_chunk_sizes)) or (64, 128, 256)
         # chunk sizes no admissible prompt (len < max_len) can fill are dropped

@@ -45,6 +45,18 @@ the plain version's row maximum, which moves an output by a small share of
 its row's scale, and the output's own rounding can differ by one bf16 ulp
 (2^-7 of |want| at most). The dense schedule gives the causal-skip
 schedule's output bit for bit.
+
+The WKV kernel (RWKV-6's prefill recurrence) gives y and the final state
+within 1e-4 of each head's max |plain| at odd and even S, n = 16, 32 and
+64, f32 and bf16 r/k/v, with the log-decay slow on half the channels and
+across the clip range [-10, -1e-4] on the others: both run in f32 and
+differ in the order of their sums and in the chunk (the kernel's 64 with a
+masked tail, the plain version's JAX rule), which moves a decay ratio by a
+few ulps of the cumulative log-decay; the per-head error stays near 1e-6.
+Strided inputs (the [B, S, H, n] views ``time_mix`` passes) give the
+contiguous inputs' outputs bit for bit. The rwkv smoke config in f32
+through the kernels gives the plain versions' streams on the CPU, through
+``generate`` and the legacy engine.
 """
 
 import dataclasses
@@ -714,3 +726,107 @@ def test_smoke_legacy_engine_kernels_vs_plain(cuda, kv):
     assert counts["flash_attention"] == cfg.n_layers * len(prompts)
     assert counts["decode_attention" + sfx] == cfg.n_layers * st["ticks"]
     assert counts["prefill_append" + sfx] == 0
+
+
+WKV_TOL = 1e-4  # of each head's max |plain|
+
+
+def _wkv_inputs(rng, b, h, s, n, dtype, dev):
+    r, k, v = (_t(rng.standard_normal((b, h, s, n)).astype(np.float32), dev, dtype)
+               for _ in range(3))
+    fast = -(10.0 ** rng.uniform(-4.0, 1.0, (b, h, s, n)))
+    slow = -(10.0 ** rng.uniform(-4.0, -3.0, (b, h, s, n)))
+    logw = _t(np.where(np.arange(n) % 2 == 0, slow, fast).astype(np.float32), dev)
+    u = _t((rng.standard_normal((h, n)) * 0.5).astype(np.float32), dev)
+    return r, k, v, logw, u
+
+
+def _head_rel_err(got, want):
+    diff = (got - want).abs().flatten(2).amax(-1)
+    return (diff / want.abs().flatten(2).amax(-1)).max().item()
+
+
+@pytest.mark.parametrize("b,h,s,n,dtype", [
+    (3, 4, 77, 16, "float32"), (2, 3, 1, 32, "float32"), (2, 3, 130, 32, "bfloat16"),
+    (1, 2, 64, 64, "float32"), (4, 40, 100, 64, "bfloat16"), (1, 4, 200, 64, "float32"),
+    (1, 8, 1000, 64, "bfloat16")])
+def test_wkv(cuda, b, h, s, n, dtype):
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    from repro_torch.kernels.wkv import ref as wkv_ref
+
+    args = _wkv_inputs(np.random.default_rng(s + n), b, h, s, n, TORCH_DT[dtype], cuda)
+    y, s_n = wkv_ops.wkv(*args)
+    want_y, want_s = wkv_ref.wkv(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == s_n.dtype == torch.float32
+    assert y.shape == (b, h, s, n) and s_n.shape == (b, h, n, n)
+    assert _head_rel_err(y, want_y) <= WKV_TOL
+    assert _head_rel_err(s_n, want_s) <= WKV_TOL
+    # the layout time_mix hands over: [B, S, H, n] tensors seen as [B, H, S, n]
+    strided = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in args[:4]]
+    y2, s2 = wkv_ops.wkv(*strided, args[4])
+    assert torch.equal(y2, y) and torch.equal(s2, s_n)
+
+
+def test_wkv_counts_and_checks(cuda):
+    """A CUDA tensor launches the kernel (counted, through the kernel set
+    too) and never takes the plain version; bad inputs raise."""
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    r, k, v, logw, u = _wkv_inputs(np.random.default_rng(0), 1, 2, 70, 16, torch.float32,
+                                   cuda)
+    reset_launch_counts()
+    wkv_ops.wkv(r, k, v, logw, u)
+    KERNELS.wkv(r, k, v, logw, u)
+    assert launch_counts()["wkv"] == 2
+    with pytest.raises(ValueError, match="head size"):
+        wkv_ops.wkv(*(t[..., :8].contiguous() for t in (r, k, v, logw)), u[:, :8].contiguous())
+    with pytest.raises(TypeError):
+        wkv_ops.wkv(r, k.to(torch.bfloat16), v, logw, u)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv(r, k, v, logw.to(torch.bfloat16), u)
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r, k, v, logw, u[:1].contiguous())
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r, k[:, :, :64].contiguous(), v, logw, u)
+    with pytest.raises(ValueError, match="strides"):  # one input in another layout
+        wkv_ops.wkv(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, logw, u)
+    with pytest.raises(ValueError, match="strides"):  # no unit last stride
+        wkv_ops.wkv(*(t.transpose(-1, -2).contiguous().transpose(-1, -2)
+                      for t in (r, k, v, logw)), u)
+    assert launch_counts()["wkv"] == 2
+
+
+def test_smoke_rwkv_kernels_vs_plain(cuda):
+    """The f32 rwkv smoke config through the kernels on the card gives the
+    plain versions' greedy streams on the CPU, through generate (one wkv
+    launch per layer) and the legacy engine (statuses too)."""
+    cfg = dataclasses.replace(get_config("rwkv6-3b", smoke=True), dtype=torch.float32)
+    specs = TT.param_specs(cfg)
+    cpu_params = TT.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=cfg.dtype)
+    cuda_params = _to(cpu_params, cuda)
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 13))
+    reset_launch_counts()
+    got = TE.generate(cuda_params, cfg, prompts, steps=10, kernels=KERNELS)
+    assert launch_counts()["wkv"] == cfg.n_layers
+    want = TE.generate(cpu_params, cfg, prompts, steps=10, kernels=PLAIN, device="cpu")
+    assert torch.equal(got.tokens, want.tokens)
+
+    rng = np.random.default_rng(9)
+    eng_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 30, 70, 130)]
+
+    def serve(params, kernels, device):
+        eng = TE.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kernels,
+                               device=device)
+        reqs = [TE.Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(eng_prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [(r.generated, r.status) for r in reqs], eng
+
+    reset_launch_counts()
+    served, eng = serve(cuda_params, KERNELS, None)
+    assert launch_counts()["wkv"] == cfg.n_layers * len(eng_prompts)
+    assert served == serve(cpu_params, PLAIN, "cpu")[0]
+    assert eng.prefill == "legacy" and eng.stats()["host_transfers"] == eng.stats()["ticks"]

@@ -219,6 +219,7 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
                                     "prefill_append_quant", "decode_attention_paged",
                                     "decode_attention_paged_quant", "prefill_append_paged",
                                     "prefill_append_paged_quant", "norm_quant_tables",
-                                    "tl_gemv", "tl_matmul", "tl_swiglu", "flash_attention"}
+                                    "tl_gemv", "tl_matmul", "tl_swiglu", "flash_attention",
+                                    "wkv"}
     assert sum(launch_counts().values()) == 0
     assert PLAIN.ternary_gemv is tm_ref.ternary_gemv
