@@ -11,7 +11,9 @@ through ``generate``, the one-shot prefill and the per-request engine.
     python3 chip_smoke.py --out report.json   # also the full report as JSON
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
-  build     nvcc builds the eight kernel sources (timed).
+  build     nvcc builds the eight kernel sources (timed); the line carries
+            ptxas's registers, static shared memory and spills of the two
+            tensor-core kernels (flash attention in bf16, the packed matmul).
   kernels   the eighteen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
             512 rows) shapes; int8 decode attention at the engine's decode
@@ -35,8 +37,11 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             Flash attention (the one-shot prefill) at generate's bucket
             q[4,16,128,96], at 1024 and 4096 tokens in bf16, at 4096 in f32
             and with GQA in f32 at a ragged S (q[1,8,200,64], k/v 2 heads):
-            kernel, plain, bound and SDPA times, and at 4096 the dense
-            schedule (causal_skip=False, bit-equal) beside the causal skip.
+            kernel, plain, bound and SDPA times (and the kernel's over
+            SDPA's, over_library), and at 4096 the dense schedule
+            (causal_skip=False, bit-equal) beside the causal skip. The tiled
+            matmul also at the chunk step's 2048 rows (8 slots x 256), each
+            projection row with its time over torch.matmul's.
             WKV (rwkv6-3b's prefill recurrence) at generate's exact-length
             prefill [4,40,100,64], at 1000 and 4000 tokens with bf16
             r/k/v, at 4000 all f32, and at the smoke config's n = 16 with
@@ -151,6 +156,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -183,6 +189,7 @@ TL_REPLACED = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu")
 # The full-width engine run (and the kernel shapes taken from its ticks)
 ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_REQUESTS, ENGINE_NEW = 8, 1024, 16, 32
 ENGINE_PROMPT_RANGE = (16, 900)  # prompt lengths, uniform, numpy default_rng(0)
+CHUNK_ROWS = 256  # the engine's largest prefill chunk: its chunk step has 8 x 256 rows
 PAGE_SIZE = 64  # kv_page_size of the paged layout (the config's default)
 # The shared-prefix workload: a 576-token system prompt (9 pages) and
 # distinct tails; followers prefill from 512 (the match floored to the
@@ -259,6 +266,45 @@ def eager_ms(torch, fn, arg_sets, iters=200) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The tensor-core kernels in ptxas's log, by the mangled name's template
+# arguments: flash attention in bf16 (D), the packed matmul (tile, dtype)
+_TC_KERNELS = (("flash_attention_tc", re.compile(r"flash_attention_tc_kernelILi(\d+)E")),
+               ("ternary_mma", re.compile(r"mma_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)E"
+                                          r"NS_10DequantEpiI(f|13__nv_bfloat16)E")))
+_MANGLED_DTYPE = {"f": "f32", "13__nv_bfloat16": "bf16"}
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Registers, static shared memory and spills that ``nvcc -Xptxas -v``
+    reports for each instantiation of the two tensor-core kernels. Their
+    dynamic shared memory is the launcher's (``tc_smem_bytes``,
+    ``MmaTile::kSmem``) and does not show here."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = None
+            for name, pat in _TC_KERNELS:
+                hit = pat.search(m.group(1))
+                if hit:
+                    cur = {"kernel": name, "template": [
+                        int(a) if a.isdigit() else _MANGLED_DTYPE[a] for a in hit.groups()]}
+                    rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+            cur = None
+    return rows
 
 
 def copies_for(nbytes: int, limit: int = 64) -> int:
@@ -364,16 +410,18 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
         lib_sets = [(xb, wbf.clone()) for _ in range(lib_n)]
         nb = _nbytes(x, xs, wp, ws, res) + m * k * 2
         bms, bby = bound_ms(nb, 2 * m * n * k, "int8")
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu",
-                "replaces": replaces,
-                "shape": f"x[{m},{n}] x wp[{n // 4},{k}]" + (" +res" if residual else ""),
-                "max_abs_err": err,
-                "ms": time_ms(torch, lambda *a: fn(*a, **kw), sets),
-                "eager_ms": eager_ms(torch, lambda *a: fn(*a, **kw), sets),
-                "plain_ms": time_ms(torch, lambda *a: ref_fn(*a, **kw), sets),
-                "bound_ms": bms, "bound_by": bby,
-                "library_ms": time_ms(torch, torch.matmul, lib_sets)}
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu",
+               "replaces": replaces,
+               "shape": f"x[{m},{n}] x wp[{n // 4},{k}]" + (" +res" if residual else ""),
+               "max_abs_err": err,
+               "ms": time_ms(torch, lambda *a: fn(*a, **kw), sets),
+               "eager_ms": eager_ms(torch, lambda *a: fn(*a, **kw), sets),
+               "plain_ms": time_ms(torch, lambda *a: ref_fn(*a, **kw), sets),
+               "bound_ms": bms, "bound_by": bby,
+               "library_ms": time_ms(torch, torch.matmul, lib_sets)}
+        row["over_library"] = row["ms"] / row["library_ms"]
+        return row
 
     gemv_rows = [
         projection_row("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv,
@@ -390,6 +438,9 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
         projection_row("ternary_matmul", tm_ops.ternary_matmul, tm_ref.ternary_matmul,
                        prefill_m, ff, d, True, "src/repro/kernels/ternary_matmul/kernel.py:147",
                        "prefill down+res"),
+        projection_row("ternary_matmul", tm_ops.ternary_matmul, tm_ref.ternary_matmul,
+                       ENGINE_SLOTS * CHUNK_ROWS, d, d, False,
+                       "src/repro/kernels/ternary_matmul/kernel.py:147", "chunk step q/k/v"),
     ]
     rows.append(gemv_rows[0])
     rows.append(mm_rows[0])
@@ -765,6 +816,7 @@ def flash_attention_rows(torch, cfg, randn, checks) -> list[dict]:
                                    iters=min(iters, 5)),
                "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
                "library_note": lib_note, "live_pairs": pairs}
+        row["over_library"] = row["ms"] / lib_ms
         if tag == "4096":  # the dense schedule: every kv tile visited and masked
             dense = fa_ops.flash_attention(q, k, v, causal_skip=False)
             same = bool(torch.equal(dense, got))
@@ -2779,8 +2831,11 @@ def main(argv=None) -> int:
     lib_path = _build.build()
     _build.library()
     build = {"phase": "build", "seconds": time.perf_counter() - t0, "library": str(lib_path)}
-    report["build"] = build
     report["build_log"] = (lib_path.parent / "build.log").read_text()
+    build["tensor_core_kernels"] = ptxas_usage(report["build_log"])
+    if not build["tensor_core_kernels"]:
+        fail("the build log names no tensor-core kernel")
+    report["build"] = build
     emit(build)
 
     cfg = get_config("tellme-0.7b")
@@ -2808,7 +2863,7 @@ def main(argv=None) -> int:
     rwkv_prefill_phase(torch, rwkv_cfg, rwkv_params, report)
     rwkv_engine_phase(torch, rwkv_cfg, rwkv_params, report)
     proj_keys = ("name", "shape", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")
+                 "bound_by", "library_ms", "over_library")
     for row in report["rwkv_projection_shapes"]:  # launches of the rwkv generate run
         row["launches"] = rwkv_counts[row["name"]]
     emit({"phase": "rwkv_projections",

@@ -38,6 +38,7 @@ SOURCES = (
 HEADERS = (
     _PKG / "csrc" / "common.cuh",
     _PKG / "ternary_matmul" / "csrc" / "ternary_tiles.cuh",
+    _PKG / "ternary_matmul" / "csrc" / "ternary_mma.cuh",
 )
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",

@@ -115,20 +115,26 @@ __device__ __forceinline__ int x_word(const int8_t* xr, int i, int n4) {
                ((unsigned)(uint8_t)xr[i + 3 * n4] << 24));
 }
 
+// A 4x4 byte transpose: out[t] = (byte t of a, of b, of c, of d).
+template <typename W>
+__device__ __forceinline__ void transpose_bytes4(unsigned a, unsigned b, unsigned c, unsigned d,
+                                                 W* out) {
+  const unsigned ab_lo = __byte_perm(a, b, 0x5140), ab_hi = __byte_perm(a, b, 0x7362);
+  const unsigned cd_lo = __byte_perm(c, d, 0x5140), cd_hi = __byte_perm(c, d, 0x7362);
+  out[0] = (W)__byte_perm(ab_lo, cd_lo, 0x5410);
+  out[1] = (W)__byte_perm(ab_lo, cd_lo, 0x7632);
+  out[2] = (W)__byte_perm(ab_hi, cd_hi, 0x5410);
+  out[3] = (W)__byte_perm(ab_hi, cd_hi, 0x7632);
+}
+
 // Words for rows i..i+3 from one 4-byte load per plane (n4 % 4 == 0 and
 // xr 4-byte aligned): out[t] = x_word(xr, i + t, n4), bytes transposed
 // with __byte_perm instead of sixteen single-byte loads.
 __device__ __forceinline__ void x_words4(const int8_t* xr, int i, int n4, int* out) {
-  const unsigned a = *reinterpret_cast<const unsigned*>(xr + i);
-  const unsigned b = *reinterpret_cast<const unsigned*>(xr + i + n4);
-  const unsigned c = *reinterpret_cast<const unsigned*>(xr + i + 2 * n4);
-  const unsigned d = *reinterpret_cast<const unsigned*>(xr + i + 3 * n4);
-  const unsigned ab_lo = __byte_perm(a, b, 0x5140), ab_hi = __byte_perm(a, b, 0x7362);
-  const unsigned cd_lo = __byte_perm(c, d, 0x5140), cd_hi = __byte_perm(c, d, 0x7362);
-  out[0] = (int)__byte_perm(ab_lo, cd_lo, 0x5410);
-  out[1] = (int)__byte_perm(ab_lo, cd_lo, 0x7632);
-  out[2] = (int)__byte_perm(ab_hi, cd_hi, 0x5410);
-  out[3] = (int)__byte_perm(ab_hi, cd_hi, 0x7632);
+  transpose_bytes4(*reinterpret_cast<const unsigned*>(xr + i),
+                   *reinterpret_cast<const unsigned*>(xr + i + n4),
+                   *reinterpret_cast<const unsigned*>(xr + i + 2 * n4),
+                   *reinterpret_cast<const unsigned*>(xr + i + 3 * n4), out);
 }
 
 // Where logical row r of (slot b = bh / hk, kv head h = bh % hk) lives, as
@@ -168,6 +174,70 @@ __device__ __forceinline__ void tl_group(const int8_t* xr, int n, int t, int* a)
     const int j = kTlGroup * t + i;
     a[i] = j < n ? (int)xr[j] : 0;
   }
+}
+
+// Tensor-core and asynchronous-copy primitives (PTX of sm_80, run on
+// sm_90a). cp.async copies global -> shared without a register round trip;
+// with `valid` false it reads nothing and writes zeros (src-size 0), which
+// masks a ragged edge.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i; `trans` loads each transposed.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+// d += a . b on the tensor cores, one warp: a 16x16 bf16 (row), b 16x8
+// bf16 (col), d 16x8 f32. Fragments as in the PTX ISA's m16n8k16 layout.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b on the tensor cores, one warp: a 16x32 s8 (row), b 32x8 s8
+// (col), d 16x8 s32, exact. Fragments as in the PTX ISA's m16n8k32 layout.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Dynamic shared memory above 48 KB must be asked for per kernel.

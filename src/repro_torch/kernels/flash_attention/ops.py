@@ -1,5 +1,6 @@
 """Dispatch for causal prefill attention: the plain version for CPU
-tensors, the CUDA kernel (``csrc/flash_attention.cu``) for CUDA tensors."""
+tensors, the CUDA kernel (``csrc/flash_attention.cu``) for CUDA tensors:
+bf16 on the tensor cores, f32 on the CUDA cores."""
 
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ def flash_attention(q, k, v, *, causal_skip: bool = True):
                          f"v {tuple(v.shape)} do not fit")
     if d not in (16, 32, 64, 96, 128):
         raise ValueError(f"{name}: head_dim {d} is not one of 16, 32, 64, 96, 128")
-    for what, t in (("k", k), ("v", v)):  # read as 16-byte vectors
+    for what, t in (("q", q), ("k", k), ("v", v)):  # read as 16-byte vectors
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} is not 16-byte aligned")
     out = q.new_empty(q.shape)

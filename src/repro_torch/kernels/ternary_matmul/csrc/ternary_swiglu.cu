@@ -15,7 +15,7 @@
 //
 // Design: TWO PASSES. The row's absmax needs all K (4096) hidden values,
 // and one block per row would leave most of the 132 SMs idle at decode
-// (M = 4 rows). Pass 1 runs the shared GEMV/matmul main loops with NW = 2
+// (M = 4 rows). Pass 1 runs the shared GEMV/__dp4a matmul main loops with NW = 2
 // (both weights against one x tile, so x is staged once) and writes h in
 // T to a scratch [M, K] buffer; pass 2 is one block per row that takes the
 // absmax and writes the codes. The scratch round trip is M*K*sizeof(T)
@@ -32,9 +32,10 @@ int launch(const void* x, const void* xs, const void* wg, const void* wgs, const
   if (m == 0) return 0;
   rtk::SwigluEpi<T> epi{static_cast<const float*>(xs), static_cast<const float*>(wgs),
                         static_cast<const float*>(wus), static_cast<T*>(h), k};
-  cudaError_t err = rtk::launch_ternary<2>(
-      static_cast<const int8_t*>(x), m, n / 4, k, static_cast<const uint8_t*>(wg),
-      static_cast<const uint8_t*>(wu), epi, m <= 16, stream);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  const uint8_t *g = static_cast<const uint8_t*>(wg), *u = static_cast<const uint8_t*>(wu);
+  cudaError_t err = m <= 16 ? rtk::launch_gemv<2>(xi, m, n / 4, k, g, u, epi, stream)
+                            : rtk::launch_matmul<2>(xi, m, n / 4, k, g, u, epi, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)rtk::launch_requant<T>(static_cast<const T*>(h), static_cast<int8_t*>(q),
                                      static_cast<float*>(qs), m, k, stream);

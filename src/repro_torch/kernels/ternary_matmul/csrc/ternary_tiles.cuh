@@ -1,6 +1,8 @@
-// Integer main loops shared by the packed ternary GEMV/matmul and SwiGLU
-// kernels: int8 activations x [M, N] against NW planar pack2 weight
-// matrices wp [N/4, K] (NW = 1 for a projection, 2 for gate+up).
+// Integer main loops on the CUDA cores shared by the packed ternary GEMV
+// (projection and SwiGLU at decode rows) and the SwiGLU's tiled matmul:
+// int8 activations x [M, N] against NW planar pack2 weight matrices
+// wp [N/4, K] (NW = 1 for a projection, 2 for gate+up). The projection's
+// tiled matmul runs on the tensor cores (ternary_mma.cuh).
 //
 // Planar pack2 (repro/core/packing.py:43): byte (i, k) holds the trits of
 // weight rows i, i+N/4, i+2N/4, i+3N/4 in bit-planes 0..3. `rtk::trits4`
@@ -133,9 +135,11 @@ constexpr size_t gemv_smem(int m, int n4) {
 
 constexpr int kMmBM = 64, kMmBK = 64, kMmTI = 32, kMmThreads = 256;
 
-// Tiled path for prefill rows: a block owns a 64x64 output tile and walks
-// the packed rows 32 at a time through shared memory; each thread holds a
-// 4x4 micro-tile (rows ty + 16a, columns tx + 16c).
+// Tiled path for prefill rows on the CUDA cores (the SwiGLU's, NW = 2; the
+// projection's runs on the tensor cores, ternary_mma.cuh): a block owns a
+// 64x64 output tile and walks the packed rows 32 at a time through shared
+// memory; each thread holds a 4x4 micro-tile (rows ty + 16a, columns
+// tx + 16c).
 template <int NW, class Epi>
 __global__ void __launch_bounds__(kMmThreads)
     matmul_kernel(const int8_t* __restrict__ x, int m, int n4, int k,
@@ -213,32 +217,37 @@ __global__ void __launch_bounds__(kMmThreads)
     }
 }
 
-// Launch the small-M kernel for m <= 16 (MB = 4, 8 or 16) or the tiled one.
+// The small-M kernel for m <= 16 (MB = 4, 8 or 16).
 template <int NW, class Epi>
-inline cudaError_t launch_ternary(const int8_t* x, int m, int n4, int k, const uint8_t* w0,
-                                  const uint8_t* w1, Epi epi, bool small_m,
-                                  cudaStream_t stream) {
+inline cudaError_t launch_gemv(const int8_t* x, int m, int n4, int k, const uint8_t* w0,
+                               const uint8_t* w1, Epi epi, cudaStream_t stream) {
   if (m == 0 || k == 0) return cudaSuccess;
   const int xvec = (n4 % 4 == 0) && ((uintptr_t)x % 4 == 0);
-  if (small_m) {
-    const bool vec = (k % 4 == 0) && ((uintptr_t)w0 % 4 == 0) &&
-                     (NW == 1 || (uintptr_t)w1 % 4 == 0);
-    const dim3 grid((k + kGemvCols - 1) / kGemvCols);
-#define TM_GEMV_CASE(MB)                                                            \
-  if (m <= MB) {                                                                    \
-    const size_t smem = gemv_smem<NW, MB>(m, n4);                                   \
-    cudaError_t err = allow_smem(gemv_kernel<NW, MB, Epi>, smem);                   \
-    if (err != cudaSuccess) return err;                                             \
-    gemv_kernel<NW, MB, Epi><<<grid, kGemvThreads, smem, stream>>>(x, m, n4, k, w0, \
-                                                                   w1, vec, xvec, epi);   \
-    return cudaGetLastError();                                                      \
+  const bool vec = (k % 4 == 0) && ((uintptr_t)w0 % 4 == 0) &&
+                   (NW == 1 || (uintptr_t)w1 % 4 == 0);
+  const dim3 grid((k + kGemvCols - 1) / kGemvCols);
+#define TM_GEMV_CASE(MB)                                                                 \
+  if (m <= MB) {                                                                         \
+    const size_t smem = gemv_smem<NW, MB>(m, n4);                                        \
+    cudaError_t err = allow_smem(gemv_kernel<NW, MB, Epi>, smem);                        \
+    if (err != cudaSuccess) return err;                                                  \
+    gemv_kernel<NW, MB, Epi><<<grid, kGemvThreads, smem, stream>>>(x, m, n4, k, w0, w1,  \
+                                                                   vec, xvec, epi);      \
+    return cudaGetLastError();                                                           \
   }
-    TM_GEMV_CASE(4)
-    TM_GEMV_CASE(8)
-    TM_GEMV_CASE(16)
+  TM_GEMV_CASE(4)
+  TM_GEMV_CASE(8)
+  TM_GEMV_CASE(16)
 #undef TM_GEMV_CASE
-    return cudaErrorInvalidValue;
-  }
+  return cudaErrorInvalidValue;
+}
+
+// The __dp4a tiled kernel for any m (the SwiGLU's prefill path).
+template <int NW, class Epi>
+inline cudaError_t launch_matmul(const int8_t* x, int m, int n4, int k, const uint8_t* w0,
+                                 const uint8_t* w1, Epi epi, cudaStream_t stream) {
+  if (m == 0 || k == 0) return cudaSuccess;
+  const int xvec = (n4 % 4 == 0) && ((uintptr_t)x % 4 == 0);
   const dim3 grid((k + kMmBK - 1) / kMmBK, (m + kMmBM - 1) / kMmBM);
   matmul_kernel<NW, Epi><<<grid, kMmThreads, 0, stream>>>(x, m, n4, k, w0, w1, xvec, epi);
   return cudaGetLastError();

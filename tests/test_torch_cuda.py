@@ -39,12 +39,15 @@ for bit, and its tables equal ``build_tables`` of those codes.
 The flash-attention kernel (the one-shot prefill) is within 1e-5 (f32,
 atol = rtol) of its plain version at the shapes of ``chip_smoke.py`` (the
 4096-token one in f32 too), the smoke config's D = 16, with GQA and a
-ragged S. In bf16 each element is within 2e-2 of (|want| + the RMS of its
+ragged S; in bf16 (the tensor-core kernel) also at every D it takes, with
+S = 1, 63, 65 and 129 around its 64-row tiles, and with GQA (H = 8, HK =
+2). In bf16 each element is within 2e-2 of (|want| + the RMS of its
 output row): P is rounded to bf16 against the kernel's running maximum and
 the plain version's row maximum, which moves an output by a small share of
 its row's scale, and the output's own rounding can differ by one bf16 ulp
 (2^-7 of |want| at most). The dense schedule gives the causal-skip
-schedule's output bit for bit.
+schedule's output bit for bit. The tiled matmul (the tensor-core kernel)
+is held bit for bit at M = 1 to 2048 and at rwkv6-3b's projections.
 
 The WKV kernel (RWKV-6's prefill recurrence) gives y and the final state
 within 1e-4 of each head's max |plain| at odd and even S, n = 16, 32 and
@@ -121,8 +124,17 @@ def test_norm_quant(cuda, dtype, m):
     _assert_quant_close(nq_ops.norm_quant(x, g), nq_ref.norm_quant(x, g), QUANT_RTOL[dtype])
 
 
-@pytest.mark.parametrize("m", [1, 4, 16, 40, 130])
-@pytest.mark.parametrize("n,k", [(1536, 1536), (4096, 1536), (72, 44)])
+# (M, N, K): tellme-0.7b's q/k/v and down and a ragged shape (N/4 = 18, K =
+# 44: the matmul's staging by plain loads) at decode rows, around the
+# tensor-core tiles (17, 64, 130 rows), at 512 (a prefill) and 2048 (the
+# chunk step's 8 x 256); then rwkv6-3b's d -> d, d -> d_ff and d_ff -> d
+# at generate's 400 prefill rows (N/4 = 640 and 2240)
+PROJECTION_CASES = [(m, n, k) for m in (1, 4, 16, 17, 40, 64, 130, 512, 2048)
+                    for n, k in ((1536, 1536), (4096, 1536), (72, 44))]
+PROJECTION_CASES += [(400, 2560, 2560), (400, 2560, 8960), (400, 8960, 2560)]
+
+
+@pytest.mark.parametrize("m,n,k", PROJECTION_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ternary_projection(cuda, m, n, k, dtype):
     rng = np.random.default_rng(m + n + k)
@@ -640,12 +652,19 @@ FLASH_TOL_BF16 = 2e-2  # of |want| + the RMS of want's row
 
 # (B, H, HK, S, D, dtype): chip_smoke.py's shapes (generate's bucket, 1024
 # and 4096 tokens in bf16, 4096 in f32, GQA at a ragged S), then the smoke
-# config's D = 16 and the JAX tests' D = 32, ragged
-@pytest.mark.parametrize("b,h,hk,s,d,dtype", [
+# config's D = 16 and the JAX tests' D = 32, ragged; then the tensor-core
+# kernel (bf16) at every D with S around its 64-row tiles, and with GQA
+FLASH_CASES = [
     (4, 16, 16, 128, 96, "bfloat16"), (1, 16, 16, 1024, 96, "bfloat16"),
     (1, 16, 16, 4096, 96, "bfloat16"), (1, 16, 16, 4096, 96, "float32"),
     (1, 8, 2, 200, 64, "float32"), (3, 4, 4, 64, 16, "float32"),
-    (2, 4, 2, 77, 32, "bfloat16"), (1, 4, 4, 200, 96, "float32")])
+    (2, 4, 2, 77, 32, "bfloat16"), (1, 4, 4, 200, 96, "float32")]
+FLASH_CASES += [(2, 4, 4, s, d, "bfloat16") for s in (1, 63, 65, 129)
+                for d in (16, 32, 64, 96, 128)]
+FLASH_CASES += [(1, 8, 2, 200, 64, "bfloat16"), (2, 8, 2, 129, 96, "bfloat16")]
+
+
+@pytest.mark.parametrize("b,h,hk,s,d,dtype", FLASH_CASES)
 def test_flash_attention(cuda, b, h, hk, s, d, dtype):
     rng = np.random.default_rng(s + d + h)
     td = TORCH_DT[dtype]
@@ -687,6 +706,9 @@ def test_flash_attention_counts_and_checks(cuda):
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, torch.randn((1, 3, 64, 32), device=cuda),
                                torch.randn((1, 3, 64, 32), device=cuda))
+    qb = torch.randn(q.numel() + 1, device=cuda).to(torch.bfloat16)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):  # the bf16 kernel copies q by 16 bytes
+        fa_ops.flash_attention(qb, k.to(torch.bfloat16), k.to(torch.bfloat16))
     assert launch_counts()["flash_attention"] == 3
 
 
