@@ -12,20 +12,24 @@ through ``generate``, the one-shot prefill and the per-request engine.
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
   build     nvcc builds the eight kernel sources (timed); the line carries
-            ptxas's registers, static shared memory and spills of the two
-            tensor-core kernels (flash attention in bf16, the packed matmul).
+            ptxas's registers, static shared memory and spills of the three
+            tensor-core kernels (flash attention and prefill-append in bf16,
+            the packed matmul).
   kernels   the eighteen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
-            512 rows) shapes; int8 decode attention at the engine's decode
-            shape (8 slots, cache 1280 rows); prefill-append, bf16 and int8
-            cache, at the engine's tick shape (8 slots, C = 256, live slots
+            512 rows) shapes; decode attention, bf16 and int8 cache, at
+            the engine's decode shape (8 slots, cache 1280 rows);
+            prefill-append, bf16 and int8 cache, at the engine's tick
+            shape (8 slots, C = 256, live slots
             at offsets 0 and 512, six write-only slots) and at one slot with
             C = 128 at offset 768; the four paged variants at the same
             shapes over a pool of 161 pages of 64 rows, on a permuted table
             with shared pages and NaN in the garbage and unmapped pages
             (output finite and bit-equal to the contiguous kernel on the
             gathered view; pools byte-equal to the plain version's). Kernel,
-            plain, contiguous-twin, library and bound times. The four
+            plain, contiguous-twin, library and bound times, and the kernel's
+            over the library's (over_library), every shape of these eight
+            entry points in one attention_rows line. The four
             table-lookup entry points at the shapes of the packed ones
             (decode q/k/v [4,1536]x[1536,1536] and down [4,4096]x[4096,1536],
             prefill [512,1536] from tables and from int8 and down+res, SwiGLU
@@ -269,16 +273,19 @@ def eager_ms(torch, fn, arg_sets, iters=200) -> float:
 
 
 # The tensor-core kernels in ptxas's log, by the mangled name's template
-# arguments: flash attention in bf16 (D), the packed matmul (tile, dtype)
+# arguments: flash attention in bf16 (D), the packed matmul (tile, dtype),
+# prefill-append in bf16 (cache dtype, D, int8 cache, paged)
 _TC_KERNELS = (("flash_attention_tc", re.compile(r"flash_attention_tc_kernelILi(\d+)E")),
                ("ternary_mma", re.compile(r"mma_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)E"
-                                          r"NS_10DequantEpiI(f|13__nv_bfloat16)E")))
-_MANGLED_DTYPE = {"f": "f32", "13__nv_bfloat16": "bf16"}
+                                          r"NS_10DequantEpiI(f|13__nv_bfloat16)E")),
+               ("prefill_append_tc", re.compile(r"prefill_append_tc_kernelI(a|13__nv_bfloat16)"
+                                                r"Li(\d+)ELb([01])ELb([01])E")))
+_MANGLED_DTYPE = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
 
 
 def ptxas_usage(log: str) -> list[dict]:
     """Registers, static shared memory and spills that ``nvcc -Xptxas -v``
-    reports for each instantiation of the two tensor-core kernels. Their
+    reports for each instantiation of the three tensor-core kernels. Their
     dynamic shared memory is the launcher's (``tc_smem_bytes``,
     ``MmaTile::kSmem``) and does not show here."""
     rows, cur = [], None
@@ -501,25 +508,36 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     mask = mask[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_sets = [(q[:, :, None], kk, vv, mask) for (_, kk, vv, _) in sets]
-    rows.append({"name": "decode_attention", "route": "cuda",
-                 "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-                 "replaces": "src/repro/kernels/decode_attention/kernel.py:305",
-                 "shape": f"q[{b},{h},{hd}] cache[{b},{hk},{cache_len},{hd}] bf16",
-                 "max_abs_err": err,
-                 "ms": time_ms(torch, da_ops.decode_attention, sets),
-                 "eager_ms": eager_ms(torch, da_ops.decode_attention, sets),
-                 "plain_ms": time_ms(torch, da_ref.decode_attention, sets),
-                 "bound_ms": bms, "bound_by": bby,
-                 "library_ms": time_ms(torch, lambda qq, kk, vv, mm: sdpa(qq, kk, vv, attn_mask=mm),
-                                       lib_sets)})
-    rows.append(decode_int8_row(torch, cfg, randn, int8, checks))
+    gen_row = {"name": "decode_attention", "route": "cuda", "shape_tag": "generate",
+               "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+               "replaces": "src/repro/kernels/decode_attention/kernel.py:305",
+               "shape": f"q[{b},{h},{hd}] cache[{b},{hk},{cache_len},{hd}] bf16",
+               "max_abs_err": err,
+               "ms": time_ms(torch, da_ops.decode_attention, sets),
+               "eager_ms": eager_ms(torch, da_ops.decode_attention, sets),
+               "plain_ms": time_ms(torch, da_ref.decode_attention, sets),
+               "bound_ms": bms, "bound_by": bby,
+               "library_ms": time_ms(torch, lambda qq, kk, vv, mm: sdpa(qq, kk, vv, attn_mask=mm),
+                                     lib_sets)}
+    gen_row["over_library"] = gen_row["ms"] / gen_row["library_ms"]
+    rows.append(gen_row)
+    engine_dense, engine_int8 = decode_engine_rows(torch, cfg, randn, int8, checks)
+    rows.append(engine_int8)
+    report["decode_attention_shapes"] = [gen_row, engine_dense]
     pa_rows = prefill_append_rows(torch, cfg, randn, int8, checks)
     rows += [r for r in pa_rows if r["shape_tag"] == "tick"]
     report["prefill_append_shapes"] = pa_rows
-    rows += paged_decode_rows(torch, cfg, randn, int8, checks)
+    paged_decode = paged_decode_rows(torch, cfg, randn, int8, checks)
+    rows += paged_decode
     paged_rows = paged_prefill_rows(torch, cfg, randn, int8, checks)
     rows += [r for r in paged_rows if r["shape_tag"] == "tick"]
     report["prefill_append_paged_shapes"] = paged_rows
+    attn_keys = ("name", "shape_tag", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "over_library", "contiguous_twin_ms")
+    emit({"phase": "attention_rows",
+          "rows": [{k: r[k] for k in attn_keys if k in r}
+                   for r in [gen_row, engine_dense, engine_int8, *pa_rows, *paged_decode,
+                             *paged_rows]]})
     tl_rows = tl_kernel_rows(torch, cfg, randn, int8, packed, unpacked_bf16, quant_close,
                              checks)
     rows += [r for r in tl_rows if r.get("main_row")]
@@ -568,10 +586,12 @@ def _sdpa_masked(torch, q, k, v, mask):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def decode_int8_row(torch, cfg, randn, int8, checks) -> dict:
-    """Decode attention over an int8 cache at the engine's decode shape: 8
-    slots against cache_len = 1024 + 256 rows, two of them diverted to the
-    last row as in a fused tick."""
+def decode_engine_rows(torch, cfg, randn, int8, checks) -> tuple[dict, dict]:
+    """Decode attention at the engine's decode shape: 8 slots against
+    cache_len = 1024 + 256 rows, two of them at the last row as in a fused
+    tick. The int8 cache, and the bf16 cache it dequantizes to; each held
+    against the plain version in bf16 and f32, timed beside SDPA over the
+    same bf16 rows. Returns (bf16 row, int8 row)."""
     from repro_torch.core.ternary import dequantize_kv
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
@@ -582,49 +602,57 @@ def decode_int8_row(torch, cfg, randn, int8, checks) -> dict:
     q = randn(b, h, hd, dtype=torch.bfloat16)
     k, v = int8(b, hk, m, hd), int8(b, hk, m, hd)
     ks, vs = (randn(b, hk, m).abs() * 4e-3 + 1e-3 for _ in range(2))
+    kd, vd = dequantize_kv(k, ks, torch.bfloat16), dequantize_kv(v, vs, torch.bfloat16)
     pos = torch.tensor([m - 1, 700, 512, 900, 300, m - 1, 1000, 100], dtype=torch.int32,
                        device=dev)
-    err = None
-    for dtype, tol in ((torch.bfloat16, ATTN_TOL_BF16), (torch.float32, ATTN_TOL_F32)):
-        args = (q.to(dtype), k, v, pos)
-        got = da_ops.decode_attention(*args, k_scale=ks, v_scale=vs).float()
-        want = da_ref.decode_attention(*args, k_scale=ks, v_scale=vs).float()
-        dt_err = (got - want).abs().max().item()
-        checks.append({"kernel": "decode_attention_quant", "shape": f"engine decode {dtype}",
-                       "max_abs_err": dt_err, "max_abs_out": want.abs().max().item(),
-                       "tol": tol})
-        if not torch.allclose(got, want, atol=tol, rtol=tol):
-            fail(f"decode_attention_quant[{dtype}]: max |kernel - plain| = {dt_err}, bar {tol}")
-        err = dt_err if err is None else err
-    n = copies_for(2 * _nbytes(k))
-    sets = [(q, k.clone(), v.clone(), ks.clone(), vs.clone(), pos) for _ in range(n)]
     live = int((pos.to(torch.int64) + 1).sum().item()) * hk  # rows read
-    nb = 2 * _nbytes(q) + _nbytes(pos) + live * (2 * hd + 2 * 4)
-    bms, bby = bound_ms(nb, 4 * live * (h // hk) * hd, "bf16")
     mask = (torch.arange(m, device=dev)[None, :] <= pos[:, None].to(torch.int64))[:, None, None]
-    kd, vd = dequantize_kv(k, ks, torch.bfloat16), dequantize_kv(v, vs, torch.bfloat16)
+    n = copies_for(2 * _nbytes(k))
     lib_sets = [(q[:, :, None], kd.clone(), vd.clone(), mask) for _ in range(n)]
+    library_ms = time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib_sets)
+    out = []
+    for name, quant in (("decode_attention", False), ("decode_attention_quant", True)):
+        cache = (k, v, ks, vs) if quant else (kd, vd)
+        err = None
+        for dtype, tol in ((torch.bfloat16, ATTN_TOL_BF16), (torch.float32, ATTN_TOL_F32)):
+            kk, vv = cache[:2] if quant else (kd.to(dtype), vd.to(dtype))
+            args = (q.to(dtype), kk, vv, pos)
+            got = da_ops.decode_attention(*args, **_scales(cache)).float()
+            want = da_ref.decode_attention(*args, **_scales(cache)).float()
+            dt_err = (got - want).abs().max().item()
+            checks.append({"kernel": name, "shape": f"engine decode {dtype}",
+                           "max_abs_err": dt_err, "max_abs_out": want.abs().max().item(),
+                           "tol": tol})
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                fail(f"{name}[{dtype}]: max |kernel - plain| = {dt_err}, bar {tol}")
+            err = dt_err if err is None else err
+        sets = [(q, *[t.clone() for t in cache], pos) for _ in range(n)]
+        kern = da_ops.decode_attention_quant if quant else da_ops.decode_attention
 
-    # the bf16 kernel at the same shape, for the cost of the dequant
-    dense_ms = time_ms(torch, da_ops.decode_attention,
-                       [(q, kd.clone(), vd.clone(), pos) for _ in range(n)])
+        def plain_call(qq, *rest):
+            *cs, pp = rest
+            return da_ref.decode_attention(qq, cs[0], cs[1], pp, **_scales(cs))
 
-    def plain_call(qq, kk, vv, kks, vvs, pp):
-        return da_ref.decode_attention(qq, kk, vv, pp, k_scale=kks, v_scale=vvs)
-
-    return {"name": "decode_attention_quant", "route": "cuda",
-            "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention/kernel.py:324",
-            "shape": f"q[{b},{h},{hd}] int8 cache[{b},{hk},{m},{hd}] + scales, "
-                     f"pos {pos.tolist()}",
-            "max_abs_err": err,
-            "ms": time_ms(torch, da_ops.decode_attention_quant, sets),
-            "eager_ms": eager_ms(torch, da_ops.decode_attention_quant, sets),
-            "plain_ms": time_ms(torch, plain_call, sets),
-            "bound_ms": bms, "bound_by": bby,
-            "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib_sets),
-            "library_note": "SDPA over the cache dequantized to bf16 (dequant not timed)",
-            "bf16_kernel_same_shape_ms": dense_ms}
+        row_b = 2 * hd * (1 if quant else 2) + (2 * 4 if quant else 0)
+        bms, bby = bound_ms(2 * _nbytes(q) + _nbytes(pos) + live * row_b,
+                            4 * live * (h // hk) * hd, "bf16")
+        row = {"name": name, "route": "cuda", "shape_tag": "engine",
+               "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+               "replaces": "src/repro/kernels/decode_attention/kernel.py:"
+                           + ("324" if quant else "305"),
+               "shape": f"q[{b},{h},{hd}] " + ("int8 cache" if quant else "bf16 cache")
+                        + f"[{b},{hk},{m},{hd}]" + (" + scales" if quant else "")
+                        + f", pos {pos.tolist()}",
+               "max_abs_err": err,
+               "ms": time_ms(torch, kern, sets),
+               "eager_ms": eager_ms(torch, kern, sets),
+               "plain_ms": time_ms(torch, plain_call, sets),
+               "bound_ms": bms, "bound_by": bby, "library_ms": library_ms,
+               "library_note": "SDPA over the bf16 rows" + (" dequantized (dequant not timed)"
+                                                           if quant else "")}
+        row["over_library"] = row["ms"] / library_ms
+        out.append(row)
+    return out[0], out[1]
 
 
 def prefill_append_rows(torch, cfg, randn, int8, checks) -> list[dict]:
@@ -740,6 +768,7 @@ def prefill_append_rows(torch, cfg, randn, int8, checks) -> list[dict]:
                                 "their bf16 cache rows up to the chunk's end"
                                 + (", dequantized" if is_quant else "")
                                 + "; the append and the dequant are not timed"})
+            out_rows[-1]["over_library"] = out_rows[-1]["ms"] / out_rows[-1]["library_ms"]
     return out_rows
 
 def flash_attention_rows(torch, cfg, randn, checks) -> list[dict]:
@@ -1060,6 +1089,7 @@ def paged_decode_rows(torch, cfg, randn, int8, checks) -> list[dict]:
             "library_note": "SDPA over the gathered view" + (" dequantized to bf16" if quant
                                                              else "")
                             + " (gather and dequant not timed)"})
+        out_rows[-1]["over_library"] = out_rows[-1]["ms"] / out_rows[-1]["library_ms"]
     return out_rows
 
 
@@ -1221,6 +1251,7 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
                                 "their gathered bf16 rows up to the chunk's end"
                                 + (", dequantized" if quant else "")
                                 + "; the gather, the append and the dequant are not timed"})
+            out_rows[-1]["over_library"] = out_rows[-1]["ms"] / out_rows[-1]["library_ms"]
     return out_rows
 
 

@@ -37,6 +37,7 @@ SOURCES = (
 )
 HEADERS = (
     _PKG / "csrc" / "common.cuh",
+    _PKG / "csrc" / "attn_mma.cuh",
     _PKG / "ternary_matmul" / "csrc" / "ternary_tiles.cuh",
     _PKG / "ternary_matmul" / "csrc" / "ternary_mma.cuh",
 )
@@ -61,26 +62,28 @@ SIGNATURES = {
     "tm_tl_matmul": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, tables, xs, wg, wgs, wu, wus, h, q, qs, m, n, groups, k, dtype, stream
     "tm_tl_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # q, k, v, pos, out, bhk, hk, g, m, d, window, softcap, scale, dtype, stream
-    "tm_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
-    # q, k, v, k_scale, v_scale, pos, out, bhk, hk, g, m, d, window, softcap,
-    # scale, dtype, stream
-    "tm_decode_attention_quant": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                  _I, _P),
+    # q, k, v, pos, out, part, tickets, bhk, hk, g, m, d, window, softcap, scale,
+    # split, dtype, stream
+    "tm_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                            _I, _P),
+    # q, k, v, k_scale, v_scale, pos, out, part, tickets, bhk, hk, g, m, d,
+    # window, softcap, scale, split, dtype, stream
+    "tm_decode_attention_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _F, _I, _I, _P),
     # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, offset, out, bhk,
     # hk, g, c, m, d, window, softcap, scale, prefix_limit, quant, dtype, stream
     "tm_prefill_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                           _F, _I, _I, _I, _P),
-    # q, k_pool, v_pool, k_scale, v_scale, page_table, pos, out, bhk, hk, g,
-    # nb, ps, d, window, softcap, scale, quant, dtype, stream
-    "tm_decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _F, _F, _I, _I, _P),
+    # q, k_pool, v_pool, k_scale, v_scale, page_table, pos, out, part, tickets,
+    # bhk, hk, g, nb, ps, d, window, softcap, scale, split, quant, dtype, stream
+    "tm_decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _F, _I, _I, _I, _P),
     # q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, page_table, offset,
     # out, bhk, hk, g, c, nb, ps, d, window, softcap, scale, prefix_limit,
     # quant, dtype, stream
     "tm_prefill_append_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _F, _I, _I, _I, _P),
-    # q, k, v, out, b, h, hk, s, d, window, softcap, scale, causal_skip, dtype, stream
+    # q, k, v, out, b, h, hk, s, d, scale, causal_skip, dtype, stream
     "tm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # r, k, v, logw, u, y, s_out, bh, h, s, n, stride_b, stride_h, stride_s, dtype, stream
     "tm_wkv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),

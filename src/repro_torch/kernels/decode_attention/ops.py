@@ -3,7 +3,18 @@ CUDA kernel (``csrc/decode_attention.cu``) for CUDA tensors. An int8 cache
 (``k_scale``/``v_scale`` given) goes to :func:`decode_attention_quant`, the
 kernel's int8 variant, with its own launch count. The paged layout (page
 pools read through a page table) goes to :func:`decode_attention_paged`
-and :func:`decode_attention_paged_quant`, the kernel's paged variants."""
+and :func:`decode_attention_paged_quant`, the kernel's paged variants.
+
+The kernel splits each slot's cache rows over blocks of ``SPLIT_ROWS``
+rows and merges the splits' partial softmax sums in the launch: scratch for
+the partials comes from ``torch.empty``, and the merge's arrival tickets
+from one zeroed int32 buffer per device, which the kernel leaves zeroed. The
+split is fixed, so a slot's live rows are cut at the same places whatever
+the cache length: ``generate``'s short cache and the engine's long one round
+alike. No wrapper reads ``pos`` on the host, so a call makes no
+device-to-host transfer and can be captured in a CUDA graph once the
+device's ticket buffer exists (made at the first call with more than one
+split)."""
 
 from __future__ import annotations
 
@@ -13,6 +24,33 @@ import torch
 
 from .. import _build as B
 from . import ref
+
+SPLIT_ROWS = 128  # cache rows per block of the kernel
+HEAD_DIMS = (16, 32, 64, 96, 128)
+
+_TICKETS: dict[int, torch.Tensor] = {}  # device index -> int32 zeros
+
+
+def _scratch(name, q, b, h, m, d):
+    """(partials, tickets) for a launch over an M-row cache; None with one
+    split."""
+    splits = -(-m // SPLIT_ROWS)
+    if splits == 1:
+        return None, None
+    part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32, device=q.device)
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    tickets = _TICKETS.get(index)
+    if tickets is None or tickets.numel() < b * h:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: the ticket buffer of cuda:{index} is made at the "
+                               "first call; make one call outside graph capture first")
+        tickets = torch.zeros(max(b * h, 4096), dtype=torch.int32, device=q.device)
+        _TICKETS[index] = tickets
+    return part, tickets
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check(name, q, k_cache, v_cache, pos, cache_dtype):
@@ -26,7 +64,16 @@ def _check(name, q, k_cache, v_cache, pos, cache_dtype):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, "
                          f"pos {tuple(pos.shape)} do not fit")
+    _check_rows(name, d, k_cache, v_cache)
     return b, h, hk, m, d
+
+
+def _check_rows(name, d, k_cache, v_cache):
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} is not one of 16, 32, 64, 96, 128")
+    for what, t in (("k", k_cache), ("v", v_cache)):  # read as 8- and 16-byte pieces
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} is not 16-byte aligned")
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, k_scale=None, v_scale=None,
@@ -44,10 +91,12 @@ def decode_attention(q, k_cache, v_cache, pos, *, k_scale=None, v_scale=None,
     B.require_cuda(name, q=q, k_cache=k_cache, v_cache=v_cache, pos=pos)
     b, h, hk, m, d = _check(name, q, k_cache, v_cache, pos, q.dtype)
     out = torch.empty_like(q)
+    part, tickets = _scratch(name, q, b, h, m, d)
     B.check(B.library().tm_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b * hk, hk, h // hk, m, d, int(window), float(softcap),
-        1.0 / math.sqrt(d), B.dtype_code(q.dtype), B.stream(q.device)), name)
+        out.data_ptr(), _ptr(part), _ptr(tickets), b * hk, hk, h // hk, m, d, int(window),
+        float(softcap), 1.0 / math.sqrt(d), SPLIT_ROWS, B.dtype_code(q.dtype),
+        B.stream(q.device)), name)
     decode_attention.launches += 1
     return out
 
@@ -67,11 +116,12 @@ def decode_attention_quant(q, k_cache, v_cache, k_scale, v_scale, pos, *,
         if t.shape != (b, hk, m):
             raise ValueError(f"{name}: {what} {tuple(t.shape)} != {(b, hk, m)}")
     out = torch.empty_like(q)
+    part, tickets = _scratch(name, q, b, h, m, d)
     B.check(B.library().tm_decode_attention_quant(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(), b * hk, hk, h // hk, m,
-        d, int(window), float(softcap), 1.0 / math.sqrt(d), B.dtype_code(q.dtype),
-        B.stream(q.device)), name)
+        v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(), _ptr(part), _ptr(tickets),
+        b * hk, hk, h // hk, m, d, int(window), float(softcap), 1.0 / math.sqrt(d),
+        SPLIT_ROWS, B.dtype_code(q.dtype), B.stream(q.device)), name)
     decode_attention_quant.launches += 1
     return out
 
@@ -130,18 +180,19 @@ def _launch_paged(name, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, wi
                          f"{tuple(page_table.shape)}, pos {tuple(pos.shape)} do not fit")
     if p * hk * ps >= 2 ** 31:
         raise ValueError(f"{name}: {p * hk * ps} pool rows overflow the kernel's int32 rows")
+    _check_rows(name, d, k_pool, v_pool)
     if quant:
         for what, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             B.require_dtype(name, t, torch.float32, what)
             if t.shape != (p, hk, ps):
                 raise ValueError(f"{name}: {what} {tuple(t.shape)} != {(p, hk, ps)}")
     out = torch.empty_like(q)
+    part, tickets = _scratch(name, q, b, h, nb * ps, d)
     B.check(B.library().tm_decode_attention_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b * hk, hk, h // hk, nb, ps,
-        d, int(window), float(softcap), 1.0 / math.sqrt(d), int(quant),
-        B.dtype_code(q.dtype), B.stream(q.device)), name)
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), _ptr(part), _ptr(tickets),
+        b * hk, hk, h // hk, nb, ps, d, int(window), float(softcap), 1.0 / math.sqrt(d),
+        SPLIT_ROWS, int(quant), B.dtype_code(q.dtype), B.stream(q.device)), name)
     return out
 
 

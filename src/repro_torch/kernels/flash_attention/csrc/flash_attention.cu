@@ -31,7 +31,9 @@
 // the accumulator fragments (a row's max and sum over the quad of lanes
 // that share it); P is rounded to bf16 in registers and is the A operand
 // of P.V as it lies, V read with ldmatrix.trans. Only the tiles that reach
-// past a warp's first row, or past S, are masked elementwise.
+// past a warp's first row, or past S, are masked elementwise. The warp-level
+// walk (fragments, mask, online softmax, P.V, finalize) is attn_mma.cuh's,
+// shared with the chunked prefill-append.
 //
 // f32 runs on the CUDA cores (flash_attention_f32_kernel), in f32
 // throughout: the tensor cores would take f32 as TF32, which keeps about
@@ -47,6 +49,7 @@
 
 #include <math.h>
 
+#include "attn_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -188,195 +191,86 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: tensor cores (the warp-level walk is attn_mma.cuh's)
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcRows = 16 * kTcWarps;  // query rows per block, 16 a warp
-constexpr int kTcKeys = 64;             // kv rows per tile
+namespace attn = rtk::attn;
 
-// Shared memory of one block: K and V, two stages each, rows of D + 8
-// elements (16 bytes of pad, so that the eight rows an ldmatrix reads fall
-// on distinct banks).
+// Shared memory of one block: K and V, two stages each, padded rows.
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  return (size_t)4 * kTcKeys * (D + 8) * sizeof(bf16);
-}
-
-// Rows [row0, row0 + 64) of a [S, D] matrix into a padded tile by
-// cp.async, zeros at rows >= s. Every thread of the block takes part.
-template <int D>
-__device__ __forceinline__ void tile_async(const bf16* __restrict__ src, int row0, int s,
-                                           bf16* dst) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  static_assert(kTcKeys * kChunks % kTcThreads == 0, "whole rounds of chunks");
-#pragma unroll
-  for (int it = 0; it < kTcKeys * kChunks / kTcThreads; ++it) {
-    const int c = threadIdx.x + it * kTcThreads;
-    const int r = c / kChunks, col = (c - r * kChunks) * 8;
-    const bool ok = row0 + r < s;
-    rtk::cp_async16(dst + r * (D + 8) + col, src + (size_t)(ok ? row0 + r : 0) * D + col, ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
+  return (size_t)4 * attn::Shape<D>::kTile * sizeof(bf16);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(attn::kThreads)
     flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, bf16* __restrict__ out, int h, int hk,
                               int s, float scale, int causal_skip) {
-  constexpr int kStride = D + 8;              // elements per shared row
-  constexpr int kTile = kTcKeys * kStride;    // elements per K or V tile
-  constexpr int kSteps = D / 16;              // k-steps of Q.K^T
-  constexpr int kDTiles = D / 8;              // n-tiles of P.V
-  constexpr int kKTiles = kTcKeys / 8;        // n-tiles of Q.K^T
+  constexpr int kTile = attn::Shape<D>::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);   // [2][kTcKeys][kStride]
-  bf16* vs = ks + 2 * kTile;                  // [2][kTcKeys][kStride]
+  bf16* ks = reinterpret_cast<bf16*>(smem);   // [2][kKeys][D + 8]
+  bf16* vs = ks + 2 * kTile;                  // [2][kKeys][D + 8]
 
   const int bh = blockIdx.x, b = bh / h;
   const int kvh = b * hk + (bh - b * h) / (h / hk);
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // last query tile first
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * attn::kRows;  // last query tile first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;  // the fragments' row group and its lane
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: the matrix and row this lane addresses
   const int wrow = 16 * warp;               // the warp's first row in the block
-  const int qrow = r0 + wrow + g;           // this lane's rows: qrow and qrow + 8
+  const int qrow = r0 + wrow + (lane >> 2);  // this lane's rows: qrow and qrow + 8
   const bf16* kb = k + (size_t)kvh * s * D;
   const bf16* vb = v + (size_t)kvh * s * D;
-  const int hi = causal_skip ? min(r0 + kTcRows, s) : s;
-  const int ntiles = (hi + kTcKeys - 1) / kTcKeys;
+  const int hi = causal_skip ? min(r0 + attn::kRows, s) : s;
+  const int ntiles = (hi + attn::kKeys - 1) / attn::kKeys;
+  // rows t0 .. t0 + 63 of a [S, D] matrix, zeros at rows >= s
+  auto rows_from = [s](int t0) {
+    return [s, t0](int r, bool& ok) -> size_t {
+      ok = t0 + r < s;
+      return ok ? t0 + r : 0;
+    };
+  };
 
   // Q goes through stage 1's K buffer, into registers as A fragments.
-  tile_async<D>(q + (size_t)bh * s * D, r0, s, ks + kTile);
-  tile_async<D>(kb, 0, s, ks);
-  tile_async<D>(vb, 0, s, vs);
+  attn::stage_rows<D>(ks + kTile, q + (size_t)bh * s * D, rows_from(r0));
+  attn::stage_kv_rows<D>(ks, vs, kb, vb, rows_from(0));
   rtk::cp_async_commit();
   rtk::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[kSteps][4];
-  {
-    const bf16* base = ks + kTile + (wrow + (mi & 1) * 8 + mr) * kStride + (mi >> 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) rtk::ldmatrix_x4<false>(qf[kk], base + kk * 16);
-  }
+  uint32_t qf[D / 16][4];
+  attn::load_q<D>(qf, ks + kTile, wrow);
   __syncthreads();  // stage 1 is free for tile 1
 
-  float o[kDTiles][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
+  for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+  float m_run[2] = {attn::kNegInf, attn::kNegInf}, l_run[2] = {0.0f, 0.0f};
 
   for (int it = 0; it < ntiles; ++it) {
-    const int t0 = it * kTcKeys;
+    const int t0 = it * attn::kKeys;
     if (it + 1 < ntiles) {
-      tile_async<D>(kb, t0 + kTcKeys, s, ks + ((it + 1) & 1) * kTile);
-      tile_async<D>(vb, t0 + kTcKeys, s, vs + ((it + 1) & 1) * kTile);
+      attn::stage_kv_rows<D>(ks + ((it + 1) & 1) * kTile, vs + ((it + 1) & 1) * kTile, kb, vb,
+                             rows_from(t0 + attn::kKeys));
     }
     rtk::cp_async_commit();
     rtk::cp_async_wait<1>();  // this tile has landed; the next may be in flight
     __syncthreads();
-    const bf16* kt = ks + (it & 1) * kTile;
-    const bf16* vt = vs + (it & 1) * kTile;
-
-    // S = Q.K^T: sc[j] holds keys t0 + 8j .. + 7; elements 0, 1 at row
-    // qrow, keys + 2 tig + {0, 1}; elements 2, 3 at row qrow + 8.
-    float sc[kKTiles][4];
-#pragma unroll
-    for (int j = 0; j < kKTiles; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
-    {
-      const bf16* base = kt + ((mi >> 1) * 8 + mr) * kStride + (mi & 1) * 8;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-#pragma unroll
-        for (int np = 0; np < kKTiles / 2; ++np) {
-          uint32_t kf[4];
-          rtk::ldmatrix_x4<false>(kf, base + np * 16 * kStride + kk * 16);
-          rtk::mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
-          rtk::mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
-        }
-    }
-    // Scale; mask the tiles that reach past the warp's first row or past S.
-    const bool masked = t0 + kTcKeys - 1 > r0 + wrow || t0 + kTcKeys > s;
-#pragma unroll
-    for (int j = 0; j < kKTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t0 + 8 * j + 2 * tig + (e & 1);
-        const float x = sc[j][e] * scale;
-        sc[j][e] = masked && (key > qrow + 8 * (e >> 1) || key >= s) ? kNegInf : x;
-      }
-    // Online softmax of rows qrow (rr = 0) and qrow + 8 (rr = 1); the four
-    // lanes of a quad hold a row's 64 keys between them. A fully masked
-    // tile gives alpha = expf(0) = 1 and p = 0 exactly, so the dense
-    // schedule adds nothing.
-    float alpha[2];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float tmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kKTiles; ++j) tmax = fmaxf(tmax, fmaxf(sc[j][2 * rr], sc[j][2 * rr + 1]));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float m_new = fmaxf(m_run[rr], tmax);
-      alpha[rr] = m_new == kNegInf ? 1.0f : expf(m_run[rr] - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kKTiles; ++j)
-#pragma unroll
-        for (int e = 2 * rr; e < 2 * rr + 2; ++e) {
-          const float p = sc[j][e] == kNegInf ? 0.0f : expf(sc[j][e] - m_new);
-          psum += p;
-          sc[j][e] = p;
-        }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      l_run[rr] = l_run[rr] * alpha[rr] + psum;
-      m_run[rr] = m_new;
-    }
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-    // O += P.V: P in bf16 is the A operand as the accumulators lie (keys
-    // 16 kk .. + 15 are n-tiles 2 kk and 2 kk + 1); V via ldmatrix.trans.
-    {
-      const bf16* base = vt + ((mi & 1) * 8 + mr) * kStride + (mi >> 1) * 8;
-#pragma unroll
-      for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                                pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                                pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                                pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < kDTiles / 2; ++dp) {
-          uint32_t vf[4];
-          rtk::ldmatrix_x4<true>(vf, base + kk * 16 * kStride + dp * 16);
-          rtk::mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
-          rtk::mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
-        }
-      }
-    }
+    float sc[attn::kKTiles][4];
+    attn::qk<D>(sc, qf, ks + (it & 1) * kTile);
+    // mask the tiles that reach past the warp's first row or past S
+    const bool masked = t0 + attn::kKeys - 1 > r0 + wrow || t0 + attn::kKeys > s;
+    attn::scale_mask(sc, scale, 0.0f, masked, [&](int col, int rr) {
+      const int key = t0 + col;
+      return !(key > qrow + 8 * rr || key >= s);
+    });
+    attn::online_softmax<D>(sc, m_run, l_run, o);
+    attn::pv<D>(o, sc, vs + (it & 1) * kTile);
     __syncthreads();  // the stage is consumed before the next load refills it
   }
 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = qrow + 8 * rr;
-    if (row >= s) continue;
-    const float l = fmaxf(l_run[rr], 1e-30f);
-    uint32_t* op = reinterpret_cast<uint32_t*>(out + ((size_t)bh * s + row) * D + 2 * tig);
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt)
-      op[4 * dt] = pack_bf16(o[dt][2 * rr] / l, o[dt][2 * rr + 1] / l);
+    if (row < s) attn::store_row<D>(out + ((size_t)bh * s + row) * D, o, rr, l_run[rr]);
   }
 }
 
@@ -393,8 +287,8 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b, int 
   const size_t smem = tc_smem_bytes<D>();
   const cudaError_t err = rtk::allow_smem(flash_attention_tc_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(b * h, (s + kTcRows - 1) / kTcRows);
-  flash_attention_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+  const dim3 grid(b * h, (s + attn::kRows - 1) / attn::kRows);
+  flash_attention_tc_kernel<D><<<grid, attn::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), h, hk, s, scale, causal_skip);
   return (int)cudaGetLastError();

@@ -25,7 +25,15 @@ replaced by zeros (the plain version multiplies masked probabilities, exact
 zeros, by V, so its unread rows must be finite, as the contract of
 ``serving/paging.py`` keeps them). The pools after the append equal the
 plain version's byte for byte, garbage page excepted, and every other row
-is left as it was.
+is left as it was. Decode attention, split over blocks of ``SPLIT_ROWS``
+cache rows, is also held at a 1280-row cache with frontiers at 0, on a
+split boundary and one either side of it, at m - 1, and with window feet
+inside a split; prefill-append (bf16 on the tensor cores, 64-row query
+tiles) with two query heads a kv head at C = 256 and at C = 96, where a
+tile holds the end of one head and the start of the next, paged at
+ps = 32 and 64. Each kernel on the clean gathered view gives the paged
+kernel's output on the poisoned pools bit for bit, so no unread row
+reaches it.
 
 The table-lookup (TL) kernels are bit-equal to their plain versions and to
 their packed twins (the same int32 sums through the same epilogues), at
@@ -440,6 +448,101 @@ def test_prefill_append_paged(cuda, dtype, quant, c, g, window, softcap):
         kept = ~written[:, None, :].expand(a.shape[:3]) & not_garbage[:, None, None]
         assert torch.equal(_bits(a[kept]), _bits(before[kept]))  # the rest untouched
         # the contiguous kernel's cache, scattered back, on the written rows
+        for s, o in enumerate(off_np[:3]):
+            for blk in range(o // ps, (o + c) // ps):
+                assert torch.equal(_bits(a[table[s, blk]]),
+                                   _bits(view[s, :, blk * ps:(blk + 1) * ps]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("g,window", [(1, 0), (2, 300)])
+def test_decode_attention_splits(cuda, dtype, quant, g, window):
+    """A 1280-row cache cut into ``SPLIT_ROWS`` splits: frontiers at 0, one
+    below a split boundary, on it and one past it, at m - 1 and at 700
+    (with the window, both feet inside a split). Contiguous on the clean
+    gathered view within the bars of the plain version; paged on NaN pools
+    finite and bit for bit the contiguous kernel on both views."""
+    rng = np.random.default_rng(70 + g + 2 * quant)
+    b, hk, d, ps, m = 6, 4, 96, 64, 1280
+    nb, split = m // ps, da_ops.SPLIT_ROWS
+    assert split < m
+    pos_np = np.array([0, split - 1, split, split + 1, m - 1, 700], np.int32)
+    pages = b * nb + 2
+    table = _paged_table(rng, b, nb, pages, [p // ps + 1 for p in pos_np], share=(5, 4, 3))
+    poisoned, clean = _paged_pools(rng, cuda, pages, hk, ps, d, TORCH_DT[dtype], quant, table)
+    q = _t(rng.standard_normal((b, hk * g, d)).astype(np.float32), cuda, TORCH_DT[dtype])
+    pos, pt = _t(pos_np, cuda), _t(table, cuda)
+
+    def scales(pools):
+        return dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+
+    dense = [gather_kv_pages(t, pt) for t in clean]
+    views = [gather_kv_pages(t, pt) for t in poisoned]
+    got = da_ops.decode_attention(q, dense[0], dense[1], pos, window=window, **scales(dense))
+    want = da_ref.decode_attention(q, dense[0], dense[1], pos, window=window, **scales(dense))
+    paged = da_ops.decode_attention_paged(q, poisoned[0], poisoned[1], pt, pos, window=window,
+                                          **scales(poisoned))
+    twin = da_ops.decode_attention(q, views[0], views[1], pos, window=window, **scales(views))
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.isfinite(paged).all()
+    assert torch.equal(_bits(paged), _bits(twin)) and torch.equal(_bits(paged), _bits(got))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("c,g,window,ps", [(256, 2, 0, 64), (256, 2, 0, 32), (96, 2, 100, 32)])
+def test_prefill_append_grouped_tiles(cuda, dtype, quant, c, g, window, ps):
+    """Two query heads a kv head, at C = 256 and at C = 96, where a 64-row
+    query tile holds the end of one head and the start of the next;
+    offsets 0, C and 4C and a write-only slot at 5C; paged at ps = 32 and
+    64. Contiguous on the clean gathered view within the bars of the plain
+    version, its cache equal to the plain version's bytes and unchanged
+    outside the append; paged on NaN pools finite, bit for bit the
+    contiguous kernel on both views, its written pages that kernel's cache
+    scattered back."""
+    rng = np.random.default_rng(80 + c + g + ps + quant)
+    b, hk, d = 4, 4, 96
+    m = 6 * c
+    nb = m // ps
+    off_np = np.array([0, c, 4 * c, 5 * c], np.int32)
+    pages = b * nb + 3
+    table = _paged_table(rng, b, nb, pages, [(o + c) // ps for o in off_np[:3]] + [0],
+                         share=(2, 1, c // ps))
+    poisoned, clean = _paged_pools(rng, cuda, pages, hk, ps, d, TORCH_DT[dtype], quant, table)
+    td = TORCH_DT[dtype]
+    q = _t(rng.standard_normal((b, hk * g, c, d)).astype(np.float32), cuda, td)
+    kn = _t(rng.standard_normal((b, hk, c, d)).astype(np.float32), cuda, td)
+    vn = _t(rng.standard_normal((b, hk, c, d)).astype(np.float32) * 0.25, cuda, td)
+    off, pt = _t(off_np, cuda), _t(table, cuda)
+    kw = dict(window=window, prefix_limit=5 * c)
+
+    def scales(pools):
+        return dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+
+    dense = [gather_kv_pages(t, pt) for t in clean]
+    mine, plain = [t.clone() for t in dense], [t.clone() for t in dense]
+    got = pa_ops.prefill_append(q, kn, vn, mine[0], mine[1], off, **scales(mine), **kw)
+    want = pa_ref.prefill_append(q, kn, vn, plain[0], plain[1], off, **scales(plain), **kw)
+    pools = [t.clone() for t in poisoned]
+    views = [gather_kv_pages(t, pt) for t in poisoned]
+    paged = pa_ops.prefill_append_paged(q, kn, vn, pools[0], pools[1], pt, off,
+                                        **scales(pools), **kw)
+    twin = pa_ops.prefill_append(q, kn, vn, views[0], views[1], off, **scales(views), **kw)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    written = torch.zeros(dense[0].shape[:3], dtype=torch.bool, device=cuda)
+    for s, o in enumerate(off_np.tolist()):
+        written[s, :, o:o + c] = True
+    for a, w, before in zip(mine, plain, dense):
+        assert torch.equal(_bits(a), _bits(w))
+        assert torch.equal(_bits(a[~written]), _bits(before[~written]))
+    assert torch.isfinite(paged).all()
+    assert torch.equal(_bits(paged), _bits(twin)) and torch.equal(_bits(paged), _bits(got))
+    for a, view in zip(pools, views):
         for s, o in enumerate(off_np[:3]):
             for blk in range(o // ps, (o + c) // ps):
                 assert torch.equal(_bits(a[table[s, blk]]),
