@@ -14,7 +14,7 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
   build     nvcc builds the eight kernel sources (timed); the line carries
             ptxas's registers, static shared memory and spills of the three
             tensor-core kernels (flash attention and prefill-append in bf16,
-            the packed matmul).
+            the packed matmul) and of the packed GEMV.
   kernels   the eighteen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
             512 rows) shapes; decode attention, bf16 and int8 cache, at
@@ -33,8 +33,8 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             table-lookup entry points at the shapes of the packed ones
             (decode q/k/v [4,1536]x[1536,1536] and down [4,4096]x[4096,1536],
             prefill [512,1536] from tables and from int8 and down+res, SwiGLU
-            [4,1536] and [512,1536] from tables, the prologue with tables at
-            4 and 512 rows): exact against the plain versions (SwiGLU and
+            [4,1536] and [512,1536] from tables, held also at 2048 rows, the
+            prologue with tables at 4 and 512 rows): exact against the plain versions (SwiGLU and
             the prologue's codes within the SwiGLU and norm-quant bars), bit
             for bit against their packed twins (the prologue: norm_quant's
             codes and scale, tables build_tables of them), timed beside them.
@@ -45,7 +45,11 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             SDPA's, over_library), and at 4096 the dense schedule
             (causal_skip=False, bit-equal) beside the causal skip. The tiled
             matmul also at the chunk step's 2048 rows (8 slots x 256), each
-            projection row with its time over torch.matmul's.
+            projection row with its time over torch.matmul's. The SwiGLU at
+            4, 512, 2048 (the chunk step) and 4096 rows (the long
+            prefill's bucket), within its bar, timed beside twin_ms, two
+            ternary_matmul calls of the same shapes; with the projections'
+            shapes and each shape's launches in the ternary_rows line.
             WKV (rwkv6-3b's prefill recurrence) at generate's exact-length
             prefill [4,40,100,64], at 1000 and 4000 tokens with bf16
             r/k/v, at 4000 all f32, and at the smoke config's n = 16 with
@@ -107,7 +111,8 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             (1024) and 1 x 4000 (4096); last-token logits to the bar, ms per
             prefill of each, the peak memory it adds to what was resident,
             24 flash-attention launches per prefill (counters reset just
-            before, read just after).
+            before, read just after); torch.profiler over the 1 x 4000
+            prefill (device time by kernel, busy share).
   legacy_engine  the engine phase's workload with prefill="legacy" (each
             request prefilled whole at admission), each cache dtype,
             through the kernels: every request OK, each stream equal to the
@@ -272,12 +277,15 @@ def eager_ms(torch, fn, arg_sets, iters=200) -> float:
     return start.elapsed_time(end) / iters
 
 
-# The tensor-core kernels in ptxas's log, by the mangled name's template
-# arguments: flash attention in bf16 (D), the packed matmul (tile, dtype),
-# prefill-append in bf16 (cache dtype, D, int8 cache, paged)
+# The tensor-core kernels and the packed GEMV in ptxas's log, by the
+# mangled name's template arguments: flash attention in bf16 (D), the
+# packed matmul (weights, tile, dtype), the GEMV (weights, row instance,
+# dtype), prefill-append in bf16 (cache dtype, D, int8 cache, paged)
+_EPI = r"NS_(?:10DequantEpi|9SwigluEpi)I(f|13__nv_bfloat16)E"
 _TC_KERNELS = (("flash_attention_tc", re.compile(r"flash_attention_tc_kernelILi(\d+)E")),
-               ("ternary_mma", re.compile(r"mma_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)E"
-                                          r"NS_10DequantEpiI(f|13__nv_bfloat16)E")),
+               ("ternary_mma", re.compile(r"17mma_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                                          r"ELi(\d+)E" + _EPI)),
+               ("ternary_gemv", re.compile(r"11gemv_kernelILi(\d+)ELi(\d+)E" + _EPI)),
                ("prefill_append_tc", re.compile(r"prefill_append_tc_kernelI(a|13__nv_bfloat16)"
                                                 r"Li(\d+)ELb([01])ELb([01])E")))
 _MANGLED_DTYPE = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
@@ -285,9 +293,10 @@ _MANGLED_DTYPE = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
 
 def ptxas_usage(log: str) -> list[dict]:
     """Registers, static shared memory and spills that ``nvcc -Xptxas -v``
-    reports for each instantiation of the three tensor-core kernels. Their
-    dynamic shared memory is the launcher's (``tc_smem_bytes``,
-    ``MmaTile::kSmem``) and does not show here."""
+    reports for each instantiation of the three tensor-core kernels and the
+    packed GEMV. Their dynamic shared memory is the launcher's
+    (``tc_smem_bytes``, ``MmaTile::kSmem``, ``launch_gemv_mb``) and does
+    not show here."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -417,7 +426,7 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
         lib_sets = [(xb, wbf.clone()) for _ in range(lib_n)]
         nb = _nbytes(x, xs, wp, ws, res) + m * k * 2
         bms, bby = bound_ms(nb, 2 * m * n * k, "int8")
-        row = {"name": name, "route": "cuda",
+        row = {"name": name, "route": "cuda", "shape_tag": shape_tag,
                "source": "src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu",
                "replaces": replaces,
                "shape": f"x[{m},{n}] x wp[{n // 4},{k}]" + (" +res" if residual else ""),
@@ -454,11 +463,20 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     report["projection_shapes"] = gemv_rows + mm_rows
     report["rwkv_projection_shapes"] = rwkv_projection_rows(projection_row)
 
-    # --- SwiGLU ------------------------------------------------------------
+    # --- SwiGLU: generate's decode, a 4 x 128 prefill, the chunk step's
+    # 8 x 256 rows and the 4096-token prefill's bucket; twin_ms is two
+    # ternary_matmul calls of the same shapes (pass 1's yardstick, no
+    # library call computes the SwiGLU) -----------------------------------
     wg, wu = packed(d, ff), packed(d, ff)
     sg, su = torch.tensor(0.03, device=dev), torch.tensor(0.025, device=dev)
     sw_rows = []
-    for tag, m in (("decode", decode_m), ("prefill", prefill_m)):
+
+    def swiglu_twin(x, xs, wg, sg, wu, su, act_dtype):
+        return (tm_ops.ternary_matmul(x, xs, wg, sg, out_dtype=act_dtype),
+                tm_ops.ternary_matmul(x, xs, wu, su, out_dtype=act_dtype))
+
+    for tag, m in (("decode", decode_m), ("prefill", prefill_m),
+                   ("chunk step", ENGINE_SLOTS * CHUNK_ROWS), ("prefill 4096", 4096)):
         x, xs = int8(m, d), randn(m, 1).abs() * 1e-3 + 1e-4
         got = tm_ops.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=bf16)
         want = tm_ref.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=bf16)
@@ -467,17 +485,23 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
         sets = [(x, xs, wg.clone(), sg, wu.clone(), su)
                 for _ in range(copies_for(2 * wg.numel()))]
         kw = {"act_dtype": bf16}
+        iters = 100 if m <= prefill_m else 20
         nb = _nbytes(x, xs, wg, wu, sg, su) + m * ff + m * 4
         bms, bby = bound_ms(nb, 4 * m * d * ff, "int8")
-        sw_rows.append({"name": "ternary_swiglu", "route": "cuda",
+        sw_rows.append({"name": "ternary_swiglu", "route": "cuda", "shape_tag": tag,
                         "source": "src/repro_torch/kernels/ternary_matmul/csrc/ternary_swiglu.cu",
                         "replaces": "src/repro/kernels/ternary_matmul/kernel.py:177",
                         "shape": f"x[{m},{d}] x 2 wp[{d // 4},{ff}]", "max_abs_err": err,
-                        "ms": time_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw), sets),
+                        "ms": time_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw), sets,
+                                      iters=iters),
                         "eager_ms": eager_ms(torch,
-                                             lambda *a: tm_ops.ternary_swiglu(*a, **kw), sets),
+                                             lambda *a: tm_ops.ternary_swiglu(*a, **kw), sets,
+                                             iters=10 * iters),
                         "plain_ms": time_ms(torch,
-                                            lambda *a: tm_ref.ternary_swiglu(*a, **kw), sets),
+                                            lambda *a: tm_ref.ternary_swiglu(*a, **kw), sets,
+                                            iters=iters if m <= prefill_m else 5),
+                        "twin_ms": time_ms(torch, lambda *a: swiglu_twin(*a, **kw), sets,
+                                           iters=iters),
                         "bound_ms": bms, "bound_by": bby, "library_ms": None})
     rows.append(sw_rows[0])
     report["swiglu_shapes"] = sw_rows
@@ -1387,7 +1411,8 @@ def tl_kernel_rows(torch, cfg, randn, int8, packed, unpacked_bf16, quant_close,
     wg, wu = packed(d, ff), packed(d, ff)
     ig, iu = TL.tl_indices(wg), TL.tl_indices(wu)
     sg, su = torch.tensor(0.03, device=dev), torch.tensor(0.025, device=dev)
-    for tag, m in (("decode", decode_m), ("prefill", prefill_m)):
+    for tag, m in (("decode", decode_m), ("prefill", prefill_m),
+                   ("chunk step", ENGINE_SLOTS * CHUNK_ROWS)):
         x, xs = int8(m, d), randn(m, 1).abs() * 1e-3 + 1e-4
         tab = TL.build_tables(x, t=ig.shape[0])
         kw = {"tables": tab, "act_dtype": bf16}
@@ -1400,6 +1425,8 @@ def tl_kernel_rows(torch, cfg, randn, int8, packed, unpacked_bf16, quant_close,
                        "bit_equal_packed_twin": same})
         if not same:
             fail(f"tl_swiglu[{tag}]: codes and scales differ from ternary_swiglu's")
+        if m > prefill_m:  # the chunk step's rows: the bit hold only
+            continue
         sets = [(x, xs, ig.clone(), sg, iu.clone(), su) for _ in range(copies_for(2 * ig.numel()))]
         twin_sets = [(x, xs, wg.clone(), sg, wu.clone(), su)
                      for _ in range(copies_for(2 * wg.numel()))]
@@ -1494,25 +1521,22 @@ def layer_drift(torch, params, cfg, tokens) -> list[dict]:
     return out
 
 
-def profile_decode(torch, params, cfg, caches, tok, pos) -> dict:
-    """torch.profiler over three decode steps: device time by kernel (kernel
-    events only; an op's own entry repeats its kernels' time), the device's
-    busy share of the wall time, and the host ops that take the most time."""
+def profile_device(torch, run, steps: int, warmup: int = 2) -> dict:
+    """torch.profiler over ``steps`` calls of ``run()``: device time by
+    kernel (kernel events only; an op's own entry repeats its kernels'
+    time), the device's busy share of the wall time, and the host ops that
+    take the most time, each per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import KERNELS
-    from repro_torch.models import transformer as Tr
-
-    steps = 3
     with torch.inference_mode():
-        for _ in range(2):
-            Tr.decode_step(params, tok, caches, pos, cfg, kernels=KERNELS)
+        for _ in range(warmup):
+            run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(steps):
-                Tr.decode_step(params, tok, caches, pos, cfg, kernels=KERNELS)
+                run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
@@ -1531,6 +1555,15 @@ def profile_decode(torch, params, cfg, caches, tok, pos) -> dict:
             "device_busy_share": device_ms / wall_ms,
             "kernel_launches_per_step": sum(k[2] for k in kernels) / steps,
             "top_device": table(kernels), "top_host": table(host)}
+
+
+def profile_decode(torch, params, cfg, caches, tok, pos) -> dict:
+    """``profile_device`` over three decode steps through the kernels."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import transformer as Tr
+
+    return profile_device(
+        torch, lambda: Tr.decode_step(params, tok, caches, pos, cfg, kernels=KERNELS), steps=3)
 
 
 def full_params(torch, cfg):
@@ -2153,6 +2186,10 @@ def prefill_phase(torch, cfg, params, report: dict) -> None:
                        if counts[n] <= 0]
             if missing:
                 problems.append(f"{tag}: kernels never launched: {missing}")
+            if (b, s) == PREFILL_SHAPES[-1]:  # where the long prefill's device time goes
+                run["profile"] = profile_device(
+                    torch, lambda: E.prefill_bucketed(params, cfg, prompts, kernels=K.KERNELS),
+                    steps=2, warmup=1)
     report["prefill"] = out
     emit(out)
     if problems:
@@ -2899,6 +2936,25 @@ def main(argv=None) -> int:
         row["launches"] = rwkv_counts[row["name"]]
     emit({"phase": "rwkv_projections",
           "rows": [{k: r[k] for k in proj_keys} for r in report["rwkv_projection_shapes"]]})
+    # The GEMV's and the SwiGLU's shapes, each with the launches of the run
+    # that gives it that shape: generate (decode rows and its 4 x 128
+    # prefill), the chunked engine (bf16 cache; its chunk step has 2048
+    # rows) and the 4096-token prefill
+    prefill_4096 = report["prefill"]["runs"][-1]["launch_counts"]
+    for row in report["projection_shapes"]:
+        row["launches"], row["launches_run"] = (
+            (eng_counts["bf16"][row["name"]], "engine, bf16 cache")
+            if row["shape_tag"].startswith("chunk step") else (gen_counts[row["name"]], "generate"))
+    for row in report["swiglu_shapes"]:
+        row["launches"], row["launches_run"] = {
+            "chunk step": (eng_counts["bf16"]["ternary_swiglu"], "engine, bf16 cache"),
+            "prefill 4096": (prefill_4096["ternary_swiglu"], "prefill 1 x 4000")}.get(
+                row["shape_tag"], (gen_counts["ternary_swiglu"], "generate"))
+    tm_keys = ("name", "shape", "launches", "launches_run", "max_abs_err", "ms", "eager_ms",
+               "plain_ms", "twin_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"phase": "ternary_rows",
+          "rows": [{k: r[k] for k in tm_keys if k in r}
+                   for r in report["projection_shapes"] + report["swiglu_shapes"]]})
     for row in rows:  # launches on the main path that runs each kernel
         name = row["name"]
         counts = paged_counts if "_paged" in name else eng_counts

@@ -99,22 +99,6 @@ __device__ __forceinline__ void quantize_row(F yval, int n, int8_t* q, float* qs
   if (threadIdx.x == 0) *qs = scale;
 }
 
-// Four biased 2-bit trits of one pack2 byte -> four signed int8 lanes
-// (lane j = plane j), ready for __dp4a.
-__device__ __forceinline__ int trits4(unsigned b) {
-  const unsigned s = (b & 0x3u) | ((b & 0xCu) << 6) | ((b & 0x30u) << 12) |
-                     ((b & 0xC0u) << 18);
-  return (int)__vsub4(s, 0x01010101u);
-}
-
-// The four activations that plane bytes of row i meet: x[i + j*n4], j=0..3,
-// packed into int8 lanes in plane order.
-__device__ __forceinline__ int x_word(const int8_t* xr, int i, int n4) {
-  return (int)((unsigned)(uint8_t)xr[i] | ((unsigned)(uint8_t)xr[i + n4] << 8) |
-               ((unsigned)(uint8_t)xr[i + 2 * n4] << 16) |
-               ((unsigned)(uint8_t)xr[i + 3 * n4] << 24));
-}
-
 // A 4x4 byte transpose: out[t] = (byte t of a, of b, of c, of d).
 template <typename W>
 __device__ __forceinline__ void transpose_bytes4(unsigned a, unsigned b, unsigned c, unsigned d,
@@ -125,16 +109,6 @@ __device__ __forceinline__ void transpose_bytes4(unsigned a, unsigned b, unsigne
   out[1] = (W)__byte_perm(ab_lo, cd_lo, 0x7632);
   out[2] = (W)__byte_perm(ab_hi, cd_hi, 0x5410);
   out[3] = (W)__byte_perm(ab_hi, cd_hi, 0x7632);
-}
-
-// Words for rows i..i+3 from one 4-byte load per plane (n4 % 4 == 0 and
-// xr 4-byte aligned): out[t] = x_word(xr, i + t, n4), bytes transposed
-// with __byte_perm instead of sixteen single-byte loads.
-__device__ __forceinline__ void x_words4(const int8_t* xr, int i, int n4, int* out) {
-  transpose_bytes4(*reinterpret_cast<const unsigned*>(xr + i),
-                   *reinterpret_cast<const unsigned*>(xr + i + n4),
-                   *reinterpret_cast<const unsigned*>(xr + i + 2 * n4),
-                   *reinterpret_cast<const unsigned*>(xr + i + 3 * n4), out);
 }
 
 // Where logical row r of (slot b = bh / hk, kv head h = bh % hk) lives, as

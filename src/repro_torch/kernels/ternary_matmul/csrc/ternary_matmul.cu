@@ -11,20 +11,23 @@
 // acc = sum_n x[m, n] * trit(n, k) in int32 (exact).
 //
 // Bound on the H100. The GEMV is bound by bytes: the 2-bit weight stream
-// (N/4 * K bytes) is nearly all its traffic, and it reads each packed byte
-// from device memory exactly once while x (M <= 16 rows) waits in shared
-// memory. The tiled matmul at prefill does 2*M*N*K integer operations on
-// N/4*K weight bytes and is bound by operations: at [512, 4096] x
-// [1024, 1536] + residual, 6.44 G int8 operations are 3.26 us at 1979
-// TOP/s, its 6.5 MB of operands 1.95 us at 3.35 TB/s.
+// (N/4 * K bytes) is nearly all its traffic (0.59 MB, 0.18 us at [384,
+// 1536]), so its time is the chain of dependent memory round trips. The
+// tiled matmul at prefill does 2*M*N*K integer operations on N/4*K weight
+// bytes and is bound by operations: at [512, 4096] x [1024, 1536] +
+// residual, 6.44 G int8 operations are 3.26 us at 1979 TOP/s, its 6.5 MB
+// of operands 1.95 us at 3.35 TB/s.
 //
-// Design. The GEMV (ternary_tiles.cuh) spreads K over blocks of 8 columns
-// and the contraction over 128 row lanes per block, __dp4a on the CUDA
-// cores, summed by warp shuffles and shared memory. The matmul
-// (ternary_mma.cuh) runs on the int8 tensor cores, mma.sync.m16n8k32:
-// output tiles of 64 x 64 to 128 x 128, stages of 32 packed rows by cp.async,
-// the 2-bit weights unpacked to signed int8 in registers, in a contraction
-// order that makes the planar packing cost a byte transpose and no more.
+// Design. The GEMV (ternary_tiles.cuh) keeps that chain to one round trip:
+// blocks of 64 columns split the contraction in thread-block clusters (so
+// [384, 1536] runs 144 blocks), request every weight byte by 16-byte
+// cp.async before they wait, with x and the epilogue's operands alongside,
+// and sum the split exactly in int32 through distributed shared memory.
+// The matmul (ternary_mma.cuh) runs on the int8 tensor cores,
+// mma.sync.m16n8k32: output tiles of 64 x 64 to 128 x 128, stages of 32
+// packed rows by cp.async, the 2-bit weights unpacked to signed int8 in
+// registers, in a contraction order that makes the planar packing cost a
+// byte transpose and no more.
 
 #include "ternary_mma.cuh"
 #include "ternary_tiles.cuh"
@@ -39,7 +42,7 @@ int launch(const void* x, const void* xs, const void* wp, const void* ws, const 
   const int8_t* xi = static_cast<const int8_t*>(x);
   const uint8_t* w = static_cast<const uint8_t*>(wp);
   return (int)(small_m ? rtk::launch_gemv<1>(xi, m, n / 4, k, w, nullptr, epi, stream)
-                       : rtk::launch_ternary_mma(xi, m, n / 4, k, w, epi, stream));
+                       : rtk::launch_ternary_mma<1>(xi, m, n / 4, k, w, nullptr, epi, stream));
 }
 
 int dispatch(const void* x, const void* xs, const void* wp, const void* ws, const void* res,

@@ -10,17 +10,23 @@
 //   h = T(T(g * T(sigmoid(g))) * u)            (silu in the act dtype T)
 //   (h_i8, h_scale) = quantize_act(h)          (ternary.py:77-86)
 //
-// Bound on the H100: as ternary_matmul.cu — bytes of the two weight
-// streams at decode (M <= 16), integer operations at prefill.
+// Bound on the H100: bytes at decode rows (M <= 16: the two 2-bit weight
+// streams, 3.1 MB at [384, 4096], 0.94 us), integer operations at prefill
+// rows (4 M N K: 6.5 us at 512 rows, 52 us at 4096).
 //
-// Design: TWO PASSES. The row's absmax needs all K (4096) hidden values,
-// and one block per row would leave most of the 132 SMs idle at decode
-// (M = 4 rows). Pass 1 runs the shared GEMV/__dp4a matmul main loops with NW = 2
-// (both weights against one x tile, so x is staged once) and writes h in
-// T to a scratch [M, K] buffer; pass 2 is one block per row that takes the
-// absmax and writes the codes. The scratch round trip is M*K*sizeof(T)
-// bytes (32 KB at decode), small beside the 2 * N/4 * K weight bytes.
+// Design: TWO PASSES. The row's absmax needs all K (4096) values of h,
+// which no one block computes. Pass 1 runs gate and up against one staged
+// x and writes h in T to a scratch [M, K]: at decode rows the GEMV
+// (ternary_tiles.cuh, NW = 2: cluster-split blocks, 16-byte cp.async of
+// every weight byte before any wait, mma.sync on one m16 tile), at prefill
+// rows the tensor-core matmul (ternary_mma.cuh, NW = 2: 64 x 128 tiles,
+// two accumulator sets in 128 registers). Pass 2 (requant_kernel) is one
+// block per row, the row read once into registers. Its round trip through
+// the scratch, 2 M K sizeof(T) bytes (67 MB at 4096 rows, about 20 us),
+// is small beside pass 1. A single launch at decode rows, whose last block
+// requantized all M x K values, ran slower (ternary_tiles.cuh).
 
+#include "ternary_mma.cuh"
 #include "ternary_tiles.cuh"
 
 namespace {
@@ -35,7 +41,7 @@ int launch(const void* x, const void* xs, const void* wg, const void* wgs, const
   const int8_t* xi = static_cast<const int8_t*>(x);
   const uint8_t *g = static_cast<const uint8_t*>(wg), *u = static_cast<const uint8_t*>(wu);
   cudaError_t err = m <= 16 ? rtk::launch_gemv<2>(xi, m, n / 4, k, g, u, epi, stream)
-                            : rtk::launch_matmul<2>(xi, m, n / 4, k, g, u, epi, stream);
+                            : rtk::launch_ternary_mma<2>(xi, m, n / 4, k, g, u, epi, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)rtk::launch_requant<T>(static_cast<const T*>(h), static_cast<int8_t*>(q),
                                      static_cast<float*>(qs), m, k, stream);

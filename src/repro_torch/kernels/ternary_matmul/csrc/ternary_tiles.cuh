@@ -1,256 +1,61 @@
-// Integer main loops on the CUDA cores shared by the packed ternary GEMV
-// (projection and SwiGLU at decode rows) and the SwiGLU's tiled matmul:
-// int8 activations x [M, N] against NW planar pack2 weight matrices
-// wp [N/4, K] (NW = 1 for a projection, 2 for gate+up). The projection's
-// tiled matmul runs on the tensor cores (ternary_mma.cuh).
+// The packed ternary GEMV at decode rows (M <= 16), shared by the projection
+// (NW = 1 weight) and the SwiGLU (NW = 2, gate and up): int8 activations
+// x [M, N] against NW planar pack2 weight matrices wp [N/4, K]. The tiled
+// matmul of prefill rows runs on the tensor cores (ternary_mma.cuh). The
+// epilogue functors and the SwiGLU's row requant live here too: the
+// table-lookup kernels (tl_gemv/csrc/tl_gemv.cu) end in the same code, so
+// both engines round their int32 sums identically.
 //
-// Planar pack2 (repro/core/packing.py:43): byte (i, k) holds the trits of
-// weight rows i, i+N/4, i+2N/4, i+3N/4 in bit-planes 0..3. `rtk::trits4`
-// spreads a byte into four signed int8 lanes in plane order and
-// `rtk::x_word` packs the four activations those planes meet in the same
-// order, so one __dp4a does the byte's four multiply-adds. Accumulation is
-// int32, hence exact and independent of order; the epilogue functor turns
-// the accumulators of output (m, k) into the result. The epilogues and the
-// SwiGLU requant pass live here too: the table-lookup kernels
-// (tl_gemv/csrc/tl_gemv.cu) end in the same code, so both engines round
-// their int32 sums identically.
+// What bounds the GEMV: bytes. The 2-bit weights (N/4 * K bytes, 0.59 MB
+// at [384, 1536]) are nearly all its traffic, 0.18 us at 3.35 TB/s, so the
+// call is as fast as its chain of dependent steps is short. The design
+// keeps one memory round trip on it:
+//   - a block owns 64 output columns and a contiguous share of the packed
+//     rows (128, or 64 where that fills the SMs: [384, 1536] runs 24 x 6 =
+//     144 blocks); the blocks of a column tile form a thread-block cluster
+//     (at most 8, the portable size) that splits the contraction;
+//   - every weight byte of the block is requested by 16-byte cp.async
+//     (four lanes cover a packed row's 64 bytes) before the block waits on
+//     anything, x's M rows x 4 planes of the block's packed rows alongside
+//     (16-byte cp.async), and the epilogue's scales and residual are
+//     prefetched into L1 by the block that will read them;
+//   - the contraction runs on the int8 tensor cores, ternary_mma.cuh's
+//     order on one m16 tile (rows past M are zero operands), so that M =
+//     16 costs what M = 4 does;
+//   - int32 sums: the four planes' warps in shared memory, then each
+//     block of the cluster stores its sums into the leader's shared memory
+//     (distributed shared memory) and leaves; the leader, after one cluster
+//     barrier, runs the epilogue. Int32 sums are exact in any order, so the
+//     result does not depend on the split.
+// The SwiGLU at decode rows then runs requant_kernel, one block a row. A
+// single launch whose last block (by a ticket) requantized all M x K
+// values was tried and ran slower on the H100: that block's codes are
+// compute-bound on one SM.
 #pragma once
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "ternary_mma.cuh"
 
 namespace rtk {
 
-constexpr int kGemvThreads = 256;                             // 8 warps
-constexpr int kGemvColThreads = 2;                            // 4 columns each
-constexpr int kGemvCols = 4 * kGemvColThreads;                // columns per block
-constexpr int kGemvRowLanes = kGemvThreads / kGemvColThreads;  // rows in flight
+constexpr int kGemvThreads = 256;  // 8 warps: 2 column halves x 4 bit-planes
+constexpr int kGemvCols = 64;      // output columns of a block
+constexpr int kGemvMaxSplit = 8;   // blocks of a cluster (the portable size)
+constexpr int kGemvMaxRows = 512;  // packed rows staged at once
 
-// Stage x [m, 4*n4] into shared memory as plane words, [m][n4]; with xvec
-// (n4 % 4 == 0, x 4-byte aligned) by 4-byte loads, four words at a time.
-__device__ __forceinline__ void stage_x_words(const int8_t* x, int m, int n4, int xvec,
-                                              int* xw) {
-  const int n = 4 * n4;
-  if (xvec) {
-    const int q4 = n4 / 4;
-    for (int idx = threadIdx.x; idx < m * q4; idx += blockDim.x) {
-      const int r = idx / q4, i = (idx - r * q4) * 4;
-      x_words4(x + (size_t)r * n, i, n4, xw + r * n4 + i);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < m * n4; idx += blockDim.x) {
-      const int r = idx / n4, i = idx - r * n4;
-      xw[idx] = x_word(x + (size_t)r * n, i, n4);
-    }
-  }
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Small-M path (M <= MB <= 16, decode rows). Each weight byte is read from
-// device memory once; all M rows of x sit in shared memory as packed words.
-// A block owns 8 columns, so that even K = 1536 spreads over 192 blocks;
-// thread t owns columns k0 + 4*(t&1) .. +3 and weight rows i = t>>1
-// (mod 128), unrolled so that several rows' loads are in flight.
-template <int NW, int MB, class Epi>
-__global__ void __launch_bounds__(kGemvThreads)
-    gemv_kernel(const int8_t* __restrict__ x, int m, int n4, int k,
-                const uint8_t* __restrict__ w0, const uint8_t* __restrict__ w1, int vec,
-                int xvec, Epi epi) {
-  extern __shared__ int smem[];
-  int* xw = smem;                  // [m][n4] activation words
-  int* red = smem + m * n4;        // [8 warps][NW][MB][kGemvCols]
-  stage_x_words(x, m, n4, xvec, xw);
-  __syncthreads();
-
-  const int cq = threadIdx.x % kGemvColThreads, lane_row = threadIdx.x / kGemvColThreads;
-  const int kb = blockIdx.x * kGemvCols;
-  const int k0 = kb + cq * 4;
-  const uint8_t* w[2] = {w0, w1};
-  int acc[NW][MB][4];
-#pragma unroll
-  for (int a = 0; a < NW; ++a)
-#pragma unroll
-    for (int r = 0; r < MB; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][r][c] = 0;
-
-#pragma unroll 4
-  for (int i = lane_row; i < n4; i += kGemvRowLanes) {
-#pragma unroll
-    for (int a = 0; a < NW; ++a) {
-      const uint8_t* row = w[a] + (size_t)i * k;
-      int t[4];
-      if (vec && k0 + 3 < k) {
-        const uchar4 b = *reinterpret_cast<const uchar4*>(row + k0);
-        t[0] = trits4(b.x); t[1] = trits4(b.y); t[2] = trits4(b.z); t[3] = trits4(b.w);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) t[c] = k0 + c < k ? trits4(row[k0 + c]) : 0;
-      }
-#pragma unroll
-      for (int r = 0; r < MB; ++r) {
-        if (r < m) {
-          const int xv = xw[r * n4 + i];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][r][c] = __dp4a(xv, t[c], acc[a][r][c]);
-        }
-      }
-    }
-  }
-
-  // Sum over the row lanes: inside a warp by shuffles across the lanes that
-  // share a column group, then the 8 warps through shared memory.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int a = 0; a < NW; ++a)
-#pragma unroll
-    for (int r = 0; r < MB; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        int v = acc[a][r][c];
-#pragma unroll
-        for (int off = kGemvColThreads; off < 32; off <<= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane < kGemvColThreads)
-          red[((warp * NW + a) * MB + r) * kGemvCols + cq * 4 + c] = v;
-      }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < MB * kGemvCols; idx += blockDim.x) {
-    const int r = idx / kGemvCols, col = idx - r * kGemvCols;
-    if (r >= m || kb + col >= k) continue;
-    int sum[NW];
-#pragma unroll
-    for (int a = 0; a < NW; ++a) {
-      int s = 0;
-      for (int wi = 0; wi < kGemvThreads / 32; ++wi)
-        s += red[((wi * NW + a) * MB + r) * kGemvCols + col];
-      sum[a] = s;
-    }
-    epi(r, kb + col, sum);
-  }
-}
-
-template <int NW, int MB>
-constexpr size_t gemv_smem(int m, int n4) {
-  return (size_t)m * n4 * 4 + (size_t)(kGemvThreads / 32) * NW * MB * kGemvCols * 4;
-}
-
-constexpr int kMmBM = 64, kMmBK = 64, kMmTI = 32, kMmThreads = 256;
-
-// Tiled path for prefill rows on the CUDA cores (the SwiGLU's, NW = 2; the
-// projection's runs on the tensor cores, ternary_mma.cuh): a block owns a
-// 64x64 output tile and walks the packed rows 32 at a time through shared
-// memory; each thread holds a 4x4 micro-tile (rows ty + 16a, columns
-// tx + 16c).
-template <int NW, class Epi>
-__global__ void __launch_bounds__(kMmThreads)
-    matmul_kernel(const int8_t* __restrict__ x, int m, int n4, int k,
-                  const uint8_t* __restrict__ w0, const uint8_t* __restrict__ w1, int xvec,
-                  Epi epi) {
-  __shared__ int xs[kMmTI][kMmBM + 1];
-  __shared__ int ws[NW][kMmTI][kMmBK];
-  const int n = 4 * n4;
-  const int m0 = blockIdx.y * kMmBM, k0 = blockIdx.x * kMmBK;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const uint8_t* w[2] = {w0, w1};
-  int acc[NW][4][4];
-#pragma unroll
-  for (int a = 0; a < NW; ++a)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][r][c] = 0;
-
-  for (int i0 = 0; i0 < n4; i0 += kMmTI) {
-    if (xvec) {  // n4 % 4 == 0: a group of four rows is all in range or all out
-      for (int idx = threadIdx.x; idx < kMmBM * kMmTI / 4; idx += blockDim.x) {
-        const int mm = idx / (kMmTI / 4), ii = (idx - mm * (kMmTI / 4)) * 4;
-        const int r = m0 + mm, i = i0 + ii;
-        int w4[4] = {0, 0, 0, 0};
-        if (r < m && i < n4) x_words4(x + (size_t)r * n, i, n4, w4);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) xs[ii + t][mm] = w4[t];
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < kMmBM * kMmTI; idx += blockDim.x) {
-        const int mm = idx / kMmTI, ii = idx - mm * kMmTI;
-        const int r = m0 + mm, i = i0 + ii;
-        xs[ii][mm] = (r < m && i < n4) ? x_word(x + (size_t)r * n, i, n4) : 0;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NW; ++a)
-      for (int idx = threadIdx.x; idx < kMmTI * kMmBK; idx += blockDim.x) {
-        const int ii = idx / kMmBK, kk = idx - ii * kMmBK;
-        const int i = i0 + ii, col = k0 + kk;
-        ws[a][ii][kk] = (i < n4 && col < k) ? trits4(w[a][(size_t)i * k + col]) : 0;
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int ii = 0; ii < kMmTI; ++ii) {
-      int xv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = xs[ii][ty + 16 * r];
-#pragma unroll
-      for (int a = 0; a < NW; ++a) {
-        int wv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) wv[c] = ws[a][ii][tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][r][c] = __dp4a(xv[r], wv[c], acc[a][r][c]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = m0 + ty + 16 * r, col = k0 + tx + 16 * c;
-      if (row < m && col < k) {
-        int sum[NW];
-#pragma unroll
-        for (int a = 0; a < NW; ++a) sum[a] = acc[a][r][c];
-        epi(row, col, sum);
-      }
-    }
-}
-
-// The small-M kernel for m <= 16 (MB = 4, 8 or 16).
-template <int NW, class Epi>
-inline cudaError_t launch_gemv(const int8_t* x, int m, int n4, int k, const uint8_t* w0,
-                               const uint8_t* w1, Epi epi, cudaStream_t stream) {
-  if (m == 0 || k == 0) return cudaSuccess;
-  const int xvec = (n4 % 4 == 0) && ((uintptr_t)x % 4 == 0);
-  const bool vec = (k % 4 == 0) && ((uintptr_t)w0 % 4 == 0) &&
-                   (NW == 1 || (uintptr_t)w1 % 4 == 0);
-  const dim3 grid((k + kGemvCols - 1) / kGemvCols);
-#define TM_GEMV_CASE(MB)                                                                 \
-  if (m <= MB) {                                                                         \
-    const size_t smem = gemv_smem<NW, MB>(m, n4);                                        \
-    cudaError_t err = allow_smem(gemv_kernel<NW, MB, Epi>, smem);                        \
-    if (err != cudaSuccess) return err;                                                  \
-    gemv_kernel<NW, MB, Epi><<<grid, kGemvThreads, smem, stream>>>(x, m, n4, k, w0, w1,  \
-                                                                   vec, xvec, epi);      \
-    return cudaGetLastError();                                                           \
-  }
-  TM_GEMV_CASE(4)
-  TM_GEMV_CASE(8)
-  TM_GEMV_CASE(16)
-#undef TM_GEMV_CASE
-  return cudaErrorInvalidValue;
-}
-
-// The __dp4a tiled kernel for any m (the SwiGLU's prefill path).
-template <int NW, class Epi>
-inline cudaError_t launch_matmul(const int8_t* x, int m, int n4, int k, const uint8_t* w0,
-                                 const uint8_t* w1, Epi epi, cudaStream_t stream) {
-  if (m == 0 || k == 0) return cudaSuccess;
-  const int xvec = (n4 % 4 == 0) && ((uintptr_t)x % 4 == 0);
-  const dim3 grid((k + kMmBK - 1) / kMmBK, (m + kMmBM - 1) / kMmBM);
-  matmul_kernel<NW, Epi><<<grid, kMmThreads, 0, stream>>>(x, m, n4, k, w0, w1, xvec, epi);
-  return cudaGetLastError();
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
 }
 
 // Projection epilogue: out[m, k] = T((float(acc) * xs[m]) * ws), then
@@ -265,6 +70,11 @@ struct DequantEpi {
   T* out;           // [M, K]
   int k;
   int ws_stride;
+  __device__ __forceinline__ void prefetch(int m, int col) const {
+    prefetch_l1(xs + m);
+    prefetch_l1(ws + col * ws_stride);
+    if (res != nullptr) prefetch_l1(res + (size_t)m * k + col);
+  }
   __device__ __forceinline__ void operator()(int m, int col, const int* acc) const {
     const float v = __fmul_rn(__fmul_rn((float)acc[0], xs[m]), ws[col * ws_stride]);
     T o = Num<T>::from_f(v);
@@ -274,10 +84,10 @@ struct DequantEpi {
   }
 };
 
-// SwiGLU epilogue (pass 1 of two): gate and up accumulators ->
+// SwiGLU epilogue: gate and up accumulators ->
 //   g = T((acc_g * xs) * wgs),  u = T((acc_u * xs) * wus)
 //   h = T(T(g * T(sigmoid(g))) * u)            (silu in the act dtype T)
-// written to the scratch row h [M, K]; requant_kernel is pass 2.
+// written to the scratch row h [M, K]; requant_kernel follows.
 template <typename T>
 struct SwigluEpi {
   const float* xs;
@@ -285,6 +95,11 @@ struct SwigluEpi {
   const float* wus;
   T* h;  // [M, K] scratch
   int k;
+  __device__ __forceinline__ void prefetch(int m, int) const {
+    prefetch_l1(xs + m);
+    prefetch_l1(wgs);
+    prefetch_l1(wus);
+  }
   __device__ __forceinline__ void operator()(int m, int col, const int* acc) const {
     const float xsm = xs[m];
     const float g = round_to<T>(__fmul_rn(__fmul_rn((float)acc[0], xsm), *wgs));
@@ -295,18 +110,296 @@ struct SwigluEpi {
   }
 };
 
+// 16 bytes of h: 16 / sizeof(T) values, as floats.
+__device__ __forceinline__ int h_floats(uint4 v, float* f, float) {
+  f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  return 4;
+}
+__device__ __forceinline__ int h_floats(uint4 v, float* f, __nv_bfloat16) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+  return 8;
+}
+
+// The decode GEMV: grid (split, ceil(K / 64)), clusters of `split` blocks
+// along x. Block (rank, tile) reduces packed rows [rank * rows, + rows) of
+// columns [64 tile, + 64), staging at most `stage_rows` of them at a time
+// (one stage at the models' shapes). Shared memory of a stage: the packed
+// weights row-major [NW][sr][64] and x's m rows [m][4 planes][sr]. `vec`:
+// K % 16 == 0 and 16-byte aligned weights; `xvec`: N/4 % 16 == 0 and
+// 16-byte aligned x. Otherwise the same stages are filled by masked byte
+// loads.
+//
+// Warp w takes bit-plane p = w / 2 of column half w % 2 over every 32-row
+// chunk of the stage: a lane gathers packed rows 8 tig .. + 7 of columns
+// 4 g .. + 3 by eight 4-byte loads, transposes them (__byte_perm), and
+// plane p of a column's four bytes is four signed trits (plane_trits),
+// B of mma.sync.m16n8k32; A is x's plane p at the same packed rows.
+template <int NW, int MB, class Epi>
+__global__ void __launch_bounds__(kGemvThreads)
+    gemv_kernel(const int8_t* __restrict__ x, int m, int n4, int k,
+                const uint8_t* __restrict__ w0, const uint8_t* __restrict__ w1, int rows,
+                int stage_rows, int vec, int xvec, Epi epi) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) uint8_t gemv_smem[];
+  const int sr = stage_rows;
+  uint8_t* wt = gemv_smem;                                           // [NW][sr][64]
+  int8_t* xt = reinterpret_cast<int8_t*>(wt + NW * sr * kGemvCols);  // [m][4][sr]
+  int* red = reinterpret_cast<int*>(xt + m * 4 * sr);  // [4 planes][NW][m][64]
+  const int part = NW * m * kGemvCols;                // one block's sums
+  int* slots = red + 4 * part;                        // the leader's: [split - 1][part]
+
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x, split = gridDim.x;
+  const int col0 = blockIdx.y * kGemvCols;
+  const size_t n = 4 * (size_t)n4;
+  cluster_arrive_relaxed();  // waited on before the first remote store
+  if (rank == 0)
+    for (int o = tid; o < m * kGemvCols; o += kGemvThreads)
+      if (col0 + (o & 63) < k) epi.prefetch(o >> 6, col0 + (o & 63));
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int half = warp & 1, plane = warp >> 1;
+  const int iend = min(n4, (rank + 1) * rows);  // past it: the next block's rows
+  int acc[NW][4][4];
+#pragma unroll
+  for (int a = 0; a < NW; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[a][j][0] = acc[a][j][1] = acc[a][j][2] = acc[a][j][3] = 0;
+
+  for (int s0 = 0; s0 < rows; s0 += sr) {
+    const int i0 = rank * rows + s0;
+    if (s0 > 0) __syncthreads();  // the previous stage is consumed
+    if (vec) {
+      for (int q = tid; q < NW * sr * 4; q += kGemvThreads) {
+        const int a = q / (sr * 4), rr = (q >> 2) - a * sr, j = q & 3;
+        const int i = i0 + rr, col = col0 + 16 * j;
+        const uint8_t* w = a ? w1 : w0;
+        const bool ok = i < iend && col < k;
+        cp_async16(wt + (a * sr + rr) * kGemvCols + 16 * j, ok ? w + (size_t)i * k + col : w,
+                   ok);
+      }
+    } else {
+      for (int q = tid; q < NW * sr * kGemvCols; q += kGemvThreads) {
+        const int a = q / (sr * kGemvCols), rr = (q >> 6) - a * sr;
+        const int i = i0 + rr, col = col0 + (q & 63);
+        wt[q] = i < iend && col < k ? (a ? w1 : w0)[(size_t)i * k + col] : 0;
+      }
+    }
+    if (xvec) {  // a 16-byte chunk of a plane is all in range or all out
+      const int c16 = sr / 16;
+      for (int q = tid; q < m * 4 * c16; q += kGemvThreads) {
+        const int rp = q / c16, i = i0 + 16 * (q - rp * c16);
+        const bool ok = i < iend;
+        cp_async16(xt + (size_t)q * 16, ok ? x + (rp >> 2) * n + (rp & 3) * n4 + i : x, ok);
+      }
+    } else {
+      for (int q = tid; q < m * 4 * sr; q += kGemvThreads) {
+        const int rp = q / sr, i = i0 + q - rp * sr;
+        xt[q] = i < iend ? x[(rp >> 2) * n + (rp & 3) * n4 + i] : 0;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    for (int c = 0; c < sr; c += 32) {
+      // A: x rows g and g + 8 (MB = 16 only), packed rows c + 8 tig .. + 7
+      uint32_t av[4] = {0, 0, 0, 0};
+      if (g < m) {
+        const uint2 r0 =
+            *reinterpret_cast<const uint2*>(xt + (g * 4 + plane) * sr + c + 8 * tig);
+        av[0] = r0.x;
+        av[2] = r0.y;
+      }
+      if (MB > 8 && g + 8 < m) {
+        const uint2 r8 =
+            *reinterpret_cast<const uint2*>(xt + ((g + 8) * 4 + plane) * sr + c + 8 * tig);
+        av[1] = r8.x;
+        av[3] = r8.y;
+      }
+#pragma unroll
+      for (int a = 0; a < NW; ++a) {
+        const uint8_t* wr = wt + (a * sr + c + 8 * tig) * kGemvCols + 32 * half + 4 * g;
+        uint32_t wl[8], lo[4], hi[4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) wl[j] = *reinterpret_cast<const uint32_t*>(wr + j * kGemvCols);
+        transpose_bytes4(wl[0], wl[1], wl[2], wl[3], lo);
+        transpose_bytes4(wl[4], wl[5], wl[6], wl[7], hi);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_s8(acc[a][j], av, plane_trits(lo[j], plane), plane_trits(hi[j], plane));
+      }
+    }
+  }
+
+  // acc[a][j]: elements 0, 1 at row g, columns 32 half + 8 tig + j and + 4;
+  // elements 2, 3 eight rows down. The four planes' warps are summed in
+  // shared memory, then the cluster's blocks in the leader.
+#pragma unroll
+  for (int a = 0; a < NW; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e >> 1);
+      if (r >= m) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        red[plane * part + (a * m + r) * kGemvCols + 32 * half + 8 * tig + 4 * (e & 1) + j] =
+            acc[a][j][e];
+    }
+  __syncthreads();
+  for (int o = tid; o < part; o += kGemvThreads)
+    red[o] += red[o + part] + red[o + 2 * part] + red[o + 3 * part];
+  cluster_wait();  // every block of the cluster has started
+  if (rank > 0) {
+    int* dst = cg::this_cluster().map_shared_rank(slots, 0) + (rank - 1) * part;
+    for (int o = tid; o < part; o += kGemvThreads) dst[o] = red[o];
+    cluster_arrive();  // release: the stores before the leader's wait
+    return;
+  }
+  __syncthreads();  // this block's sums
+  cluster_arrive();
+  cluster_wait();  // every block's sums are in `slots`
+  for (int o = tid; o < m * kGemvCols; o += kGemvThreads) {
+    const int col = col0 + (o & 63);
+    if (col >= k) continue;
+    int sum[NW];
+#pragma unroll
+    for (int a = 0; a < NW; ++a) sum[a] = red[a * m * kGemvCols + o];
+    for (int b = 1; b < split; ++b)
+#pragma unroll
+      for (int a = 0; a < NW; ++a) sum[a] += slots[(b - 1) * part + a * m * kGemvCols + o];
+    epi(o >> 6, col, sum);
+  }
+}
+
+// The split of the contraction: 128 packed rows a block, 64 where that
+// leaves fewer blocks than SMs, at most 8 blocks a cluster (more rows a
+// block past N/4 = 1024); rows a multiple of 32, the mma chunk.
+struct GemvSplit {
+  int split, rows, stage_rows;
+};
+
+inline GemvSplit gemv_split(int n4, int tiles, int sms) {
+  auto make = [n4](int rows) {
+    int split = (n4 + rows - 1) / rows;
+    if (split > kGemvMaxSplit) split = kGemvMaxSplit;
+    if (split < 1) split = 1;
+    rows = ((n4 + split - 1) / split + 31) / 32 * 32;
+    split = (n4 + rows - 1) / rows;
+    return GemvSplit{split < 1 ? 1 : split, rows, rows < kGemvMaxRows ? rows : kGemvMaxRows};
+  };
+  const GemvSplit big = make(128);
+  return (long)big.split * tiles < sms ? make(64) : big;
+}
+
+template <int NW, int MB, class Epi>
+inline cudaError_t launch_gemv_mb(const int8_t* x, int m, int n4, int k, const uint8_t* w0,
+                                  const uint8_t* w1, Epi epi, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = (k + kGemvCols - 1) / kGemvCols;
+  const GemvSplit s = gemv_split(n4, tiles, sms);
+  const int vec = (k % 16 == 0) && ((uintptr_t)w0 % 16 == 0) &&
+                  (NW == 1 || (uintptr_t)w1 % 16 == 0);
+  const int xvec = (n4 % 16 == 0) && ((uintptr_t)x % 16 == 0);
+  const size_t part = (size_t)NW * m * kGemvCols * 4;
+  const size_t smem = (size_t)NW * s.stage_rows * kGemvCols + (size_t)m * 4 * s.stage_rows +
+                      (4 + s.split - 1) * part;
+  auto kernel = gemv_kernel<NW, MB, Epi>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s.split, tiles);
+  cfg.blockDim = dim3(kGemvThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, m, n4, k, w0, w1, s.rows, s.stage_rows, vec, xvec,
+                           epi);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The GEMV for 1 <= m <= 16: rows 8..15 of the m16 tile are loaded only
+// by the MB = 16 instance.
+template <int NW, class Epi>
+inline cudaError_t launch_gemv(const int8_t* x, int m, int n4, int k, const uint8_t* w0,
+                               const uint8_t* w1, Epi epi, cudaStream_t stream) {
+  if (m == 0 || k == 0) return cudaSuccess;
+  if (m <= 8) return launch_gemv_mb<NW, 8>(x, m, n4, k, w0, w1, epi, stream);
+  if (m <= 16) return launch_gemv_mb<NW, 16>(x, m, n4, k, w0, w1, epi, stream);
+  return cudaErrorInvalidValue;
+}
+
 constexpr int kRequantThreads = 256;
 
-// SwiGLU pass 2: one block per row of h takes the absmax of all K values
-// and writes the int8 codes and the row scale (quantize_act).
+// The SwiGLU's row requant after pass 1: one block per row of h takes the
+// absmax of all K values and writes the int8 codes and the row scale
+// (quantize_act). A row of up to 4 x 16 bytes a thread (K <= 8192 in
+// bf16) is read once, by 16-byte loads all issued together, and kept in
+// registers for its codes; longer or unaligned rows take quantize_row's
+// loops.
 template <typename T>
-__global__ void requant_kernel(const T* __restrict__ h, int8_t* __restrict__ q,
-                               float* __restrict__ qs, int k) {
+__global__ void __launch_bounds__(kRequantThreads)
+    requant_kernel(const T* __restrict__ h, int8_t* __restrict__ q, float* __restrict__ qs,
+                   int k) {
+  constexpr int kPer = 16 / sizeof(T), kVecs = 4;
   __shared__ float red[32];
   const size_t row = blockIdx.x;
   const T* hr = h + row * k;
-  auto y = [&](int i) { return Num<T>::to_f(hr[i]); };
-  quantize_row<T>(y, k, q + row * k, qs + row, red);
+  int8_t* qr = q + row * k;
+  const int nv = k / kPer;
+  if (k % kPer != 0 || nv > kVecs * kRequantThreads || (uintptr_t)hr % 16 != 0 ||
+      (uintptr_t)qr % kPer != 0) {
+    auto y = [&](int i) { return Num<T>::to_f(hr[i]); };
+    quantize_row<T>(y, k, qr, qs + row, red);
+    return;
+  }
+  uint4 v[kVecs];
+#pragma unroll
+  for (int b = 0; b < kVecs; ++b) {
+    const int i = b * kRequantThreads + threadIdx.x;
+    if (i < nv) v[b] = reinterpret_cast<const uint4*>(hr)[i];
+  }
+  float amax = 0.0f;
+#pragma unroll
+  for (int b = 0; b < kVecs; ++b) {
+    if (b * kRequantThreads + threadIdx.x >= nv) continue;
+    float f[8];
+    const int cnt = h_floats(v[b], f, T());
+    for (int e = 0; e < cnt; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  }
+  const float scale = act_scale<T>(block_reduce<true>(amax, red));
+#pragma unroll
+  for (int b = 0; b < kVecs; ++b) {
+    const int i = b * kRequantThreads + threadIdx.x;
+    if (i >= nv) continue;
+    float f[8];
+    const int cnt = h_floats(v[b], f, T());
+    uint32_t c[2] = {0, 0};
+#pragma unroll
+    for (int e = 0; e < cnt; ++e)
+      c[e >> 2] |= (uint32_t)(uint8_t)act_code<T>(f[e], scale) << (8 * (e & 3));
+    if (cnt == 8)
+      reinterpret_cast<uint2*>(qr)[i] = make_uint2(c[0], c[1]);
+    else
+      reinterpret_cast<uint32_t*>(qr)[i] = c[0];
+  }
+  if (threadIdx.x == 0) qs[row] = scale;
 }
 
 template <typename T>

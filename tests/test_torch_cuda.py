@@ -54,8 +54,14 @@ output row): P is rounded to bf16 against the kernel's running maximum and
 the plain version's row maximum, which moves an output by a small share of
 its row's scale, and the output's own rounding can differ by one bf16 ulp
 (2^-7 of |want| at most). The dense schedule gives the causal-skip
-schedule's output bit for bit. The tiled matmul (the tensor-core kernel)
-is held bit for bit at M = 1 to 2048 and at rwkv6-3b's projections.
+schedule's output bit for bit. The GEMV (M <= 16, the cluster-split
+kernel) and the tiled matmul (the tensor-core kernel) are held bit for bit
+at M = 1 to 2048 and at rwkv6-3b's projections, and with x and the packed
+weights off their 16-byte alignment. The SwiGLU (the GEMV's pass 1 at
+M <= 16, the tensor-core pass above, then the row requant) is held at
+M = 1 to 2048, also at a ragged 72 x 44, within its bar and bit for bit
+against ``tl_swiglu``. A CUDA graph of the GEMV at two shapes and the
+decode SwiGLU, replayed three times, gives the eager outputs bit for bit.
 
 The WKV kernel (RWKV-6's prefill recurrence) gives y and the final state
 within 1e-4 of each head's max |plain| at odd and even S, n = 16, 32 and
@@ -133,11 +139,12 @@ def test_norm_quant(cuda, dtype, m):
 
 
 # (M, N, K): tellme-0.7b's q/k/v and down and a ragged shape (N/4 = 18, K =
-# 44: the matmul's staging by plain loads) at decode rows, around the
+# 44: the staging by plain loads) at decode rows (1, 4 and the engine's 8:
+# the GEMV's MB = 8 instance; 16: MB = 16), around the
 # tensor-core tiles (17, 64, 130 rows), at 512 (a prefill) and 2048 (the
 # chunk step's 8 x 256); then rwkv6-3b's d -> d, d -> d_ff and d_ff -> d
 # at generate's 400 prefill rows (N/4 = 640 and 2240)
-PROJECTION_CASES = [(m, n, k) for m in (1, 4, 16, 17, 40, 64, 130, 512, 2048)
+PROJECTION_CASES = [(m, n, k) for m in (1, 4, 8, 16, 17, 40, 64, 130, 512, 2048)
                     for n, k in ((1536, 1536), (4096, 1536), (72, 44))]
 PROJECTION_CASES += [(400, 2560, 2560), (400, 2560, 8960), (400, 8960, 2560)]
 
@@ -159,18 +166,100 @@ def test_ternary_projection(cuda, m, n, k, dtype):
             assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("m", [1, 4, 64])
+SWIGLU_ROWS = (1, 4, 8, 16, 17, 64, 130, 512, 2048)
+
+
+@pytest.mark.parametrize("m", SWIGLU_ROWS)
+@pytest.mark.parametrize("n,k", [(1536, 4096), (72, 44)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ternary_swiglu(cuda, m, dtype):
-    rng = np.random.default_rng(40 + m)
-    wg = PK.pack2(_t(rng.integers(-1, 2, (1536, 4096)).astype(np.int8), cuda))
-    wu = PK.pack2(_t(rng.integers(-1, 2, (1536, 4096)).astype(np.int8), cuda))
-    x = _t(rng.integers(-127, 128, (m, 1536)).astype(np.int8), cuda)
+def test_ternary_swiglu(cuda, m, n, k, dtype):
+    rng = np.random.default_rng(40 + m + n)
+    wg = PK.pack2(_t(rng.integers(-1, 2, (n, k)).astype(np.int8), cuda))
+    wu = PK.pack2(_t(rng.integers(-1, 2, (n, k)).astype(np.int8), cuda))
+    x = _t(rng.integers(-127, 128, (m, n)).astype(np.int8), cuda)
     xs = _t(rng.uniform(0.001, 0.01, (m, 1)).astype(np.float32), cuda)
     s = torch.tensor(0.05, device=cuda)
-    got = tm_ops.ternary_swiglu(x, xs, wg, s, wu, s, act_dtype=TORCH_DT[dtype])
-    want = tm_ref.ternary_swiglu(x, xs, wg, s, wu, s, act_dtype=TORCH_DT[dtype])
+    act = TORCH_DT[dtype]
+    got = tm_ops.ternary_swiglu(x, xs, wg, s, wu, s, act_dtype=act)
+    want = tm_ref.ternary_swiglu(x, xs, wg, s, wu, s, act_dtype=act)
     _assert_quant_close(got, want, QUANT_RTOL[dtype])
+    tl = tl_ops.tl_swiglu(x, xs, TL.tl_indices(wg), s, TL.tl_indices(wu), s, act_dtype=act)
+    assert torch.equal(got[0], tl[0]) and torch.equal(got[1], tl[1])
+
+
+def _unaligned(t, offset):
+    """``t``'s values in a contiguous tensor that starts ``offset`` bytes
+    past an aligned allocation."""
+    flat = torch.empty(t.numel() * t.element_size() + offset, dtype=torch.uint8,
+                       device=t.device)
+    view = flat[offset:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("m", [3, 8, 16, 40])
+@pytest.mark.parametrize("offset", [1, 4])
+def test_ternary_unaligned_operands(cuda, m, offset):
+    """x and the packed weights off their 16-byte alignment take the GEMV's
+    and the tiled matmul's masked loads: the same outputs bit for bit."""
+    rng = np.random.default_rng(60 + m + offset)
+    n, k = 1536, 1536
+    wp = PK.pack2(_t(rng.integers(-1, 2, (n, k)).astype(np.int8), cuda))
+    wu = PK.pack2(_t(rng.integers(-1, 2, (n, k)).astype(np.int8), cuda))
+    x = _t(rng.integers(-127, 128, (m, n)).astype(np.int8), cuda)
+    xs = _t(rng.uniform(1e-4, 1e-2, (m, 1)).astype(np.float32), cuda)
+    ws = torch.tensor(0.61, device=cuda)
+    xo, wpo, wuo = (_unaligned(t, offset) for t in (x, wp, wu))
+    for fn in (tm_ops.ternary_gemv, tm_ops.ternary_matmul):
+        want = fn(x, xs, wp, ws, out_dtype=torch.bfloat16)
+        assert torch.equal(fn(xo, xs, wpo, ws, out_dtype=torch.bfloat16), want)
+        assert torch.equal(fn(xo, xs, wp, ws, out_dtype=torch.bfloat16), want)
+    want = tm_ops.ternary_swiglu(x, xs, wp, ws, wu, ws)
+    for got in (tm_ops.ternary_swiglu(xo, xs, wpo, ws, wuo, ws),
+                tm_ops.ternary_swiglu(x, xs, wp, ws, wuo, ws)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ternary_graph_replay(cuda):
+    """The GEMV at two shapes (cluster launches) and the decode SwiGLU
+    captured in one CUDA graph: three replays each give the eager calls'
+    outputs bit for bit."""
+    rng = np.random.default_rng(77)
+    bf16 = torch.bfloat16
+
+    def operands(m, n, k):
+        wp = PK.pack2(_t(rng.integers(-1, 2, (n, k)).astype(np.int8), cuda))
+        x = _t(rng.integers(-127, 128, (m, n)).astype(np.int8), cuda)
+        xs = _t(rng.uniform(1e-4, 1e-2, (m, 1)).astype(np.float32), cuda)
+        return x, xs, wp, torch.tensor(0.02, device=cuda)
+
+    qkv, down = operands(4, 1536, 1536), operands(4, 4096, 1536)
+    res = _t(rng.standard_normal((4, 1536)).astype(np.float32), cuda, bf16)
+    x, xs, wg, sg = operands(4, 1536, 4096)
+    wu = PK.pack2(_t(rng.integers(-1, 2, (1536, 4096)).astype(np.int8), cuda))
+
+    def calls():
+        return (tm_ops.ternary_gemv(*qkv, out_dtype=bf16),
+                tm_ops.ternary_gemv(*down, out_dtype=bf16, residual=res),
+                *tm_ops.ternary_swiglu(x, xs, wg, sg, wu, sg, act_dtype=bf16))
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for _ in range(3):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(calls(), eager))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
