@@ -17,7 +17,9 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             the packed matmul) and of the packed GEMV.
   kernels   the eighteen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
-            512 rows) shapes; decode attention, bf16 and int8 cache, at
+            512 rows) shapes (norm_quant also at the 4096-token prefill's
+            rows and rwkv6-3b's d_model, the GEMV and its library call also
+            at the engine's 8 slots); decode attention, bf16 and int8 cache, at
             the engine's decode shape (8 slots, cache 1280 rows);
             prefill-append, bf16 and int8 cache, at the engine's tick
             shape (8 slots, C = 256, live slots
@@ -383,27 +385,30 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     rows = []
     checks = []
 
-    # --- norm_quant: decode and prefill rows -----------------------------
-    gamma = randn(d)
-    for tag, m in (("decode", decode_m), ("prefill", prefill_m)):
-        x = randn(m, d, dtype=bf16)
+    # --- norm_quant: decode, prefill and the 4096-token prefill's rows, and
+    # rwkv6-3b's d_model; each held and timed, the decode row on the line --
+    nq_rows = []
+    for tag, m, width in (("decode", decode_m, d), ("prefill", prefill_m, d),
+                          ("prefill 4096", 4096, d), ("d_model 2560", decode_m, 2560)):
+        gamma = randn(width)
+        x = randn(m, width, dtype=bf16)
         err = quant_close(f"norm_quant[{tag}]", nq_ops.norm_quant(x, gamma),
                           nq_ref.norm_quant(x, gamma))
         checks.append({"kernel": "norm_quant", "shape": tag, "max_abs_err": err})
-        if tag == "decode":
-            nq_args = [(x, gamma)]
-            nq_err = err
-    x, _ = nq_args[0]
-    nb = _nbytes(x, gamma) + x.numel() + x.shape[0] * 4
-    bms, bby = bound_ms(nb, 5 * x.numel(), "f32")
-    rows.append({"name": "norm_quant", "route": "cuda",
-                 "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
-                 "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:74",
-                 "shape": f"x[{decode_m},{d}] bf16", "max_abs_err": nq_err,
-                 "ms": time_ms(torch, nq_ops.norm_quant, nq_args),
-                 "eager_ms": eager_ms(torch, nq_ops.norm_quant, nq_args),
-                 "plain_ms": time_ms(torch, nq_ref.norm_quant, nq_args),
-                 "bound_ms": bms, "bound_by": bby, "library_ms": None})
+        nq_args = [(x, gamma)]
+        nb = _nbytes(x, gamma) + x.numel() + x.shape[0] * 4
+        bms, bby = bound_ms(nb, 5 * x.numel(), "f32")
+        nq_rows.append({"name": "norm_quant", "route": "cuda", "shape_tag": tag,
+                        "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
+                        "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:74",
+                        "shape": f"x[{m},{width}] bf16", "max_abs_err": err,
+                        "ms": time_ms(torch, nq_ops.norm_quant, nq_args),
+                        "eager_ms": eager_ms(torch, nq_ops.norm_quant, nq_args),
+                        "plain_ms": time_ms(torch, nq_ref.norm_quant, nq_args,
+                                            iters=100 if m <= prefill_m else 20),
+                        "bound_ms": bms, "bound_by": bby, "library_ms": None})
+    rows.append(nq_rows[0])
+    report["norm_quant_shapes"] = nq_rows
 
     # --- ternary projections: GEMV (decode) and tiled matmul (prefill) ----
     def projection_row(name, fn, ref_fn, m, n, k, residual: bool, replaces, shape_tag):
@@ -446,6 +451,12 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
         projection_row("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv,
                        decode_m, ff, d, True, "src/repro/kernels/ternary_matmul/kernel.py:109",
                        "decode down+res"),
+        projection_row("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv,
+                       ENGINE_SLOTS, d, d, False,
+                       "src/repro/kernels/ternary_matmul/kernel.py:109", "engine q/k/v"),
+        projection_row("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv,
+                       ENGINE_SLOTS, ff, d, True,
+                       "src/repro/kernels/ternary_matmul/kernel.py:109", "engine down+res"),
     ]
     mm_rows = [
         projection_row("ternary_matmul", tm_ops.ternary_matmul, tm_ref.ternary_matmul,
@@ -2944,7 +2955,13 @@ def main(argv=None) -> int:
     for row in report["projection_shapes"]:
         row["launches"], row["launches_run"] = (
             (eng_counts["bf16"][row["name"]], "engine, bf16 cache")
-            if row["shape_tag"].startswith("chunk step") else (gen_counts[row["name"]], "generate"))
+            if row["shape_tag"].startswith(("chunk step", "engine"))
+            else (gen_counts[row["name"]], "generate"))
+    for row in report["norm_quant_shapes"]:  # rwkv6-3b has no prologue: d_model 2560 is 0
+        row["launches"], row["launches_run"] = {
+            "prefill 4096": (prefill_4096["norm_quant"], "prefill 1 x 4000"),
+            "d_model 2560": (rwkv_counts.get("norm_quant", 0), "rwkv6-3b generate")}.get(
+                row["shape_tag"], (gen_counts["norm_quant"], "generate"))
     for row in report["swiglu_shapes"]:
         row["launches"], row["launches_run"] = {
             "chunk step": (eng_counts["bf16"]["ternary_swiglu"], "engine, bf16 cache"),
@@ -2954,7 +2971,8 @@ def main(argv=None) -> int:
                "plain_ms", "twin_ms", "bound_ms", "bound_by", "library_ms")
     emit({"phase": "ternary_rows",
           "rows": [{k: r[k] for k in tm_keys if k in r}
-                   for r in report["projection_shapes"] + report["swiglu_shapes"]]})
+                   for r in report["norm_quant_shapes"] + report["projection_shapes"]
+                   + report["swiglu_shapes"]]})
     for row in rows:  # launches on the main path that runs each kernel
         name = row["name"]
         counts = paged_counts if "_paged" in name else eng_counts

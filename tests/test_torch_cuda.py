@@ -138,6 +138,22 @@ def test_norm_quant(cuda, dtype, m):
     _assert_quant_close(nq_ops.norm_quant(x, g), nq_ref.norm_quant(x, g), QUANT_RTOL[dtype])
 
 
+# (M, N): rwkv6-3b's d_model (ten elements a thread), a ragged row (one
+# element a thread, byte stores), the 4096-token prefill's rows, the widest
+# register tile (4096) and a row past it (the loop form)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n", [(4, 2560), (7, 44), (4096, 1536), (3, 4096), (2, 5000)])
+def test_norm_quant_widths(cuda, dtype, m, n):
+    rng = np.random.default_rng(40 + m + n)
+    x = _t(rng.standard_normal((m, n)).astype(np.float32) * 3, cuda, TORCH_DT[dtype])
+    g = _t(rng.standard_normal(n).astype(np.float32), cuda)
+    _assert_quant_close(nq_ops.norm_quant(x, g), nq_ref.norm_quant(x, g), QUANT_RTOL[dtype])
+    q, s, tab = nq_ops.norm_quant_tables(x, g)
+    q0, s0 = nq_ops.norm_quant(x, g)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+    assert torch.equal(tab, TL.build_tables(q, t=-(-n // 3)))
+
+
 # (M, N, K): tellme-0.7b's q/k/v and down and a ragged shape (N/4 = 18, K =
 # 44: the staging by plain loads) at decode rows (1, 4 and the engine's 8:
 # the GEMV's MB = 8 instance; 16: MB = 16), around the
@@ -752,6 +768,47 @@ def test_tl_matmul(cuda, m, n, k, dtype):
             want = tl_ref.tl_matmul(x, xs, w_idx, ws, tables=tab, residual=residual,
                                     out_dtype=out)
             assert torch.equal(got, want) and torch.equal(got, twin)
+
+
+# Group counts that are no multiple of the chunk or of the cluster's share
+# (N = 1000: 334 groups, 996: 332), K past 4-byte index words (45: the
+# byte-by-byte staging), rows just past the decode configurations (17, 33)
+# and past a prefill tile, the prologue's tables as given, 4 bytes off a
+# 16-byte boundary (float by float) and not at all
+@pytest.mark.parametrize("m", [3, 5, 16, 17, 33, 70])
+@pytest.mark.parametrize("n,k", [(1000, 200), (996, 1536), (4096, 1536), (996, 45)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tl_matmul_edges(cuda, m, n, k, dtype):
+    rng = np.random.default_rng(170 + m + n + k)
+    wp, w_idx, x, xs = _tl_operands(rng, m, n, k, cuda)
+    ws = torch.tensor(0.37, device=cuda)
+    res = _t(rng.standard_normal((m, k)).astype(np.float32), cuda, TORCH_DT[dtype])
+    tables = TL.build_tables(x, t=w_idx.shape[0])
+    out = TORCH_DT[dtype]
+    for residual in (None, res):
+        twin = tm_ops.ternary_matmul(x, xs, wp, ws, out_dtype=out, residual=residual)
+        for tab in (None, tables, _unaligned(tables, 4)):
+            got = tl_ops.tl_matmul(x, xs, w_idx, ws, tables=tab, residual=residual,
+                                   out_dtype=out)
+            want = tl_ref.tl_matmul(x, xs, w_idx, ws, tables=tab, residual=residual,
+                                    out_dtype=out)
+            assert torch.equal(got, want) and torch.equal(got, twin)
+
+
+@pytest.mark.parametrize("m", [5, 17, 33])
+@pytest.mark.parametrize("n,k", [(1000, 200), (996, 4096)])
+def test_tl_swiglu_edges(cuda, m, n, k):
+    rng = np.random.default_rng(190 + m + n)
+    wg, wg_idx, x, xs = _tl_operands(rng, m, n, k, cuda)
+    wu = PK.pack2(_t(rng.integers(-1, 2, (n, k)).astype(np.int8), cuda))
+    wu_idx = TL.tl_indices(wu)
+    sg, su = torch.tensor(0.05, device=cuda), torch.tensor(0.04, device=cuda)
+    twin = tm_ops.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=torch.bfloat16)
+    tables = TL.build_tables(x, t=wg_idx.shape[0])
+    for tab in (None, tables, _unaligned(tables, 4)):
+        got = tl_ops.tl_swiglu(x, xs, wg_idx, sg, wu_idx, su, tables=tab,
+                               act_dtype=torch.bfloat16)
+        assert torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
 
 
 @pytest.mark.parametrize("m", [1, 4, 16, 40])
