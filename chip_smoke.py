@@ -14,7 +14,8 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
   build     nvcc builds the eight kernel sources (timed); the line carries
             ptxas's registers, static shared memory and spills of the three
             tensor-core kernels (flash attention and prefill-append in bf16,
-            the packed matmul) and of the packed GEMV.
+            the packed matmul), of the packed GEMV and of the three WKV
+            kernels (chunk states, state scan, outputs).
   kernels   the eighteen kernel entry points vs their plain versions: the
             generate path's at the decode (B = 4) and prefill (B*bucket =
             512 rows) shapes (norm_quant also at the 4096-token prefill's
@@ -53,12 +54,14 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             ternary_matmul calls of the same shapes; with the projections'
             shapes and each shape's launches in the ternary_rows line.
             WKV (rwkv6-3b's prefill recurrence) at generate's exact-length
-            prefill [4,40,100,64], at 1000 and 4000 tokens with bf16
-            r/k/v, at 4000 all f32, and at the smoke config's n = 16 with
-            S = 77; log-decays across the clip range [-10, -1e-4], half the
-            channels slow; y and the final state within 1e-4 of each head's
-            scale; kernel, plain and bound times (no library call computes
-            WKV). The GEMV and the tiled matmul also at rwkv6-3b's
+            prefill [4,40,100,64], at 1000, 875 (the rwkv engine's longest
+            admission) and 4000 tokens with bf16 r/k/v, at 4000 all f32,
+            and at the smoke config's n = 16 with S = 77; log-decays across
+            the clip range [-10, -1e-4], half the channels slow; y and the
+            final state within 1e-4 of each head's scale, a second call bit
+            for bit equal to the first, and each head of a B > 1 call bit
+            for bit equal to its inputs run alone; kernel, plain and bound
+            times (no library call computes WKV). The GEMV and the tiled matmul also at rwkv6-3b's
             projections (d -> d, d -> d_ff, d_ff -> d at M = 4, 400 and
             4000), bit for bit, their launches from the rwkv generate run
             (printed as the rwkv_projections line).
@@ -142,7 +145,8 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             busy share.
   rwkv_prefill  prefill_bucketed (exact length) at 1 x 1000 and 1 x 4000,
             kernels and plain versions: ms, added peak memory, 32 wkv
-            launches a prefill, the blocks and logits held as above.
+            launches a prefill, the blocks and logits held as above; each
+            prefill's device time by kernel and busy share (torch.profiler).
   rwkv_engine  ServingEngine(prefill="auto") on the engine phase's ragged
             workload: every request OK, one host transfer per tick, 32 wkv
             launches per admitted request; tokens/s, tick times, time to
@@ -291,20 +295,25 @@ _TC_KERNELS = (("flash_attention_tc", re.compile(r"flash_attention_tc_kernelILi(
                ("prefill_append_tc", re.compile(r"prefill_append_tc_kernelI(a|13__nv_bfloat16)"
                                                 r"Li(\d+)ELb([01])ELb([01])E")))
 _MANGLED_DTYPE = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+# The WKV kernels (B15), by dtype and head size (the scan by head size)
+_WKV_KERNELS = (("wkv_chunk_state", re.compile(r"wkv_chunk_state_kernelI(f|13__nv_bfloat16)"
+                                               r"Li(\d+)E")),
+                ("wkv_state_scan", re.compile(r"wkv_state_scan_kernelILi(\d+)E")),
+                ("wkv_output", re.compile(r"wkv_output_kernelI(f|13__nv_bfloat16)Li(\d+)E")))
 
 
-def ptxas_usage(log: str) -> list[dict]:
+def ptxas_usage(log: str, kernels=_TC_KERNELS) -> list[dict]:
     """Registers, static shared memory and spills that ``nvcc -Xptxas -v``
-    reports for each instantiation of the three tensor-core kernels and the
-    packed GEMV. Their dynamic shared memory is the launcher's
-    (``tc_smem_bytes``, ``MmaTile::kSmem``, ``launch_gemv_mb``) and does
-    not show here."""
+    reports for each instantiation of ``kernels`` (default: the three
+    tensor-core kernels and the packed GEMV). Their dynamic shared memory
+    is the launcher's (``tc_smem_bytes``, ``MmaTile::kSmem``,
+    ``launch_gemv_mb``, ``output_smem_bytes``) and does not show here."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             cur = None
-            for name, pat in _TC_KERNELS:
+            for name, pat in kernels:
                 hit = pat.search(m.group(1))
                 if hit:
                     cur = {"kernel": name, "template": [
@@ -916,67 +925,134 @@ def wkv_rel_err(got, want) -> float:
     return (diff / want.abs().flatten(2).amax(-1).clamp_min(1e-30)).max().item()
 
 
-def wkv_ops_count(bh: int, s: int, n: int, chunk: int = 64) -> int:
-    """f32 operations of the chunked WKV for these inputs, an exp counted
-    as one: per chunk of m rows, each of the m(m-1)/2 causal pairs takes a
-    subtract, an exp, two multiplies and an add a channel for A and a
-    multiply-add a value column for A.v; r.S and the state update take
-    2 m n^2 each."""
-    total = 0
-    for c0 in range(0, s, chunk):
-        m = min(chunk, s - c0)
-        pairs = m * (m - 1) // 2
-        total += 5 * pairs * n + 2 * pairs * n + 4 * m * n * n
-    return bh * total
+def _wkv_chunk_ops(m: int, n: int, sub: int, first: bool) -> int:
+    """f32 operations of one chunk of m rows of the chunked WKV, an exp
+    counted as one, with A's decay factored at ``sub``-row sub-chunk
+    boundaries (sub >= m: not factored). The cumulative log-decay (an add
+    a row and channel); d = sum r u k and d v (five a row and channel); the
+    state's factors k exp(last - lc) (three) and its increment k^T v (a
+    multiply-add a pair of channels a row); A's causal pairs inside a
+    sub-chunk at five a channel (a subtract, an exp, two multiplies, an
+    add), the other pairs at a multiply-add a channel and their factors at
+    three a channel for each key row with a later sub-chunk and each
+    (query row, earlier key sub-chunk); A.v at a multiply-add a pair and
+    value column. Past the first chunk (which enters with the zero state)
+    also r exp(e) (two), r.S (a multiply-add a pair of channels a row) and
+    S = g S + dS with g = exp(last)."""
+    pairs = m * (m - 1) // 2
+    sizes = [min(sub, m - j) for j in range(0, m, sub)]
+    diag = sum(q * (q - 1) // 2 for q in sizes)
+    factors = sum(sizes[:-1]) + sum(j * q for j, q in enumerate(sizes))
+    a = 5 * diag * n + 2 * (pairs - diag) * n + 3 * factors * n
+    ops = 9 * m * n + 2 * m * n * n + a + 2 * pairs * n + n
+    if not first:
+        ops += 2 * m * n + 2 * m * n * n + 2 * n * n
+    return ops
+
+
+def wkv_ops_count(bh: int, s: int, n: int) -> int:
+    """The least f32 operations (an exp counted as one) that compute WKV at
+    these inputs, over the forms that compute it: the sequential recurrence
+    (a row takes exp(w), d = sum r u k and d v, r.S at a multiply-add a
+    pair of channels, S = w S + k v^T at three a pair: 5 n^2 + 6 n; the
+    first row no r.S and S = k v^T), and the chunked form
+    (``_wkv_chunk_ops``) at every chunk size from 1 to 64 rows, with A's
+    decay factored at sub-chunks of 1, 2, 4, ..., 64 rows. At n = 64 the
+    least is chunks of 7-10 rows and sub-chunks of 4, about 19,400 a row
+    (the recurrence 20,860; the kernels' 64-row chunks with 16-row
+    sub-chunks about 27,000); at n = 16 and 77 rows the recurrence."""
+    forms = [s * (5 * n * n + 6 * n) - 3 * n * n]
+    for chunk in range(1, 65):
+        full, tail = divmod(s, chunk)
+        for sub in (1, 2, 4, 8, 16, 32, 64):
+            if sub > chunk:
+                break
+            ops = _wkv_chunk_ops(min(chunk, s), n, sub, True)
+            if full > 1:
+                ops += (full - 1) * _wkv_chunk_ops(chunk, n, sub, False)
+            if tail and full:
+                ops += _wkv_chunk_ops(tail, n, sub, False)
+            forms.append(ops)
+    return bh * min(forms)
+
+
+def wkv_shapes(torch) -> tuple:
+    """(tag, (B, H, S, n), r/k/v dtype) of the WKV rows: generate's
+    exact-length prefill, 1000 tokens, the rwkv engine's longest B = 1
+    admission (875), 4000 in bf16 and in f32, and the smoke config's
+    n = 16 with an odd S."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return (("generate", (4, 40, 100, 64), bf16), ("1000", (1, 40, 1000, 64), bf16),
+            ("engine_875", (1, 40, 875, 64), bf16), ("4000", (1, 40, 4000, 64), bf16),
+            ("4000_f32", (1, 40, 4000, 64), f32), ("smoke", (3, 4, 77, 16), f32))
+
+
+def wkv_shape_name(args) -> str:
+    b, h, s, n = args[0].shape
+    return f"r/k/v/logw[{b},{h},{s},{n}] {str(args[0].dtype)[6:]}"
+
+
+def wkv_timing(torch, wkv, args, outs) -> tuple[dict, list]:
+    """One WKV shape's times on the card (``wkv`` on ``args``, whose
+    outputs ``outs`` count in the bytes): ms (a CUDA graph's replay),
+    eager_ms, the bound; and the input copies timed, which exceed the L2."""
+    b, h, s, n = args[0].shape
+    nb = _nbytes(*args) + _nbytes(*outs)
+    bms, bby = bound_ms(nb, wkv_ops_count(b * h, s, n), "f32")
+    sets = [tuple(t.clone() for t in args) for _ in range(copies_for(nb))]
+    iters = 100 if s <= 128 else 10
+    return {"ms": time_ms(torch, wkv, sets, iters=iters),
+            "eager_ms": eager_ms(torch, wkv, sets, iters=2 * iters),
+            "bound_ms": bms, "bound_by": bby}, sets
 
 
 def wkv_rows(torch, checks) -> list[dict]:
-    """The WKV kernel (B15) against its plain version on the card: at
-    generate's exact-length prefill [4, 40, 100, 64], at 1000 and 4000
-    tokens with bf16 r/k/v, at 4000 all f32, and at the smoke config's
-    n = 16 with an odd S. y and the final state are held within WKV_TOL of
-    each head's scale: both run in f32 from the same inputs and differ in
-    the order of their sums and in the chunk (the kernel's 64 with a
-    masked tail, the plain version's JAX rule), which moves a decay ratio
-    by a few ulps of the cumulative log-decay (up to 640: 6e-5); the
-    per-head error stays near 1e-6. No single PyTorch call computes WKV,
-    so no library time."""
+    """The WKV kernels (B15) against their plain version on the card, at
+    ``wkv_shapes``. y and the final state are held within WKV_TOL of each
+    head's scale: both run in f32 from the same inputs and differ in the
+    order of their sums, in the chunk (the kernels' 64 with a masked tail,
+    the plain version's JAX rule) and in the kernels' decay factored at
+    16-row sub-chunk boundaries, which moves a decay ratio by a few ulps of
+    the cumulative log-decay (up to 640: 6e-5); the per-head error stays
+    near 1e-6. Each shape's second call is held bit for bit against its
+    first, and at B > 1 each head of the batch bit for bit against the same
+    inputs run alone at B = 1 (no atomics: a head's result depends on its
+    own inputs only). No single PyTorch call computes WKV, so no library
+    time."""
     from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.kernels.wkv import ref as wkv_ref
 
     gen = torch.Generator(device="cuda").manual_seed(19)
-    bf16, f32 = torch.bfloat16, torch.float32
-    shapes = (("generate", (4, 40, 100, 64), bf16), ("1000", (1, 40, 1000, 64), bf16),
-              ("4000", (1, 40, 4000, 64), bf16), ("4000_f32", (1, 40, 4000, 64), f32),
-              ("smoke", (3, 4, 77, 16), f32))
     rows = []
-    for tag, (b, h, s, n), dtype in shapes:
+    for tag, (b, h, s, n), dtype in wkv_shapes(torch):
         args = wkv_inputs(torch, gen, b, h, s, n, dtype)
         y, s_n = wkv_ops.wkv(*args)
+        y2, s_n2 = wkv_ops.wkv(*args)
+        alone = [wkv_ops.wkv(*(t[i:i + 1] for t in args[:4]), args[4]) for i in range(b)]
         torch.cuda.synchronize()
         want_y, want_s = wkv_ref.wkv(*args)
         err_y, err_s = wkv_rel_err(y, want_y), wkv_rel_err(s_n, want_s)
+        repeat_equal = torch.equal(y, y2) and torch.equal(s_n, s_n2)
+        batch_equal = all(torch.equal(y[i:i + 1], ya) and torch.equal(s_n[i:i + 1], sa)
+                          for i, (ya, sa) in enumerate(alone))
         check = {"kernel": "wkv", "shape": tag, "y_err_of_head_scale": err_y,
                  "state_err_of_head_scale": err_s, "tol": WKV_TOL,
                  "max_abs_y": want_y.abs().max().item(),
-                 "max_abs_state": want_s.abs().max().item()}
+                 "max_abs_state": want_s.abs().max().item(),
+                 "repeat_bit_equal": repeat_equal, "batch_invariant": batch_equal}
         checks.append(check)
-        if not (err_y <= WKV_TOL and err_s <= WKV_TOL):  # NaN fails too
-            fail(f"wkv[{tag}]: {check}")
-        nb = _nbytes(*args) + _nbytes(y, s_n)
-        bms, bby = bound_ms(nb, wkv_ops_count(b * h, s, n), "f32")
-        sets = [tuple(t.clone() for t in args) for _ in range(copies_for(nb))]
-        iters = 100 if s <= 128 else 10
+        if not (err_y <= WKV_TOL and err_s <= WKV_TOL and repeat_equal and batch_equal):
+            fail(f"wkv[{tag}]: {check}")  # NaN fails too
+        timing, sets = wkv_timing(torch, wkv_ops.wkv, args, (y, s_n))
         rows.append({"name": "wkv", "route": "cuda", "shape_tag": tag,
                      "source": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
                      "replaces": "src/repro/kernels/wkv/kernel.py:75",
-                     "shape": f"r/k/v/logw[{b},{h},{s},{n}] {str(dtype)[6:]}",
+                     "shape": wkv_shape_name(args),
                      "max_abs_err": max((y - want_y).abs().max().item(),
                                         (s_n - want_s).abs().max().item()),
-                     "ms": time_ms(torch, wkv_ops.wkv, sets, iters=iters),
-                     "eager_ms": eager_ms(torch, wkv_ops.wkv, sets, iters=2 * iters),
-                     "plain_ms": time_ms(torch, wkv_ref.wkv, sets[:1], iters=min(iters, 3)),
-                     "bound_ms": bms, "bound_by": bby, "library_ms": None})
+                     **timing,
+                     "plain_ms": time_ms(torch, wkv_ref.wkv, sets[:1], iters=3),
+                     "library_ms": None})
     return rows
 
 
@@ -2506,7 +2582,7 @@ def rwkv_prefill_phase(torch, cfg, params, report: dict) -> None:
     memory it adds, 32 wkv launches a prefill (counters reset just before
     the timed prefill, read just after); the blocks and the last-token
     logits held from the same inputs (``rwkv_drift``), the end-to-end
-    logits reported."""
+    logits reported; each prefill's device time by kernel and busy share."""
     from repro_torch import kernels as K
     from repro_torch.serving import engine as E
 
@@ -2537,6 +2613,9 @@ def rwkv_prefill_phase(torch, cfg, params, report: dict) -> None:
                         "logit_max_abs": lp.abs().max().item(),
                         "launch_counts": {n: c for n, c in counts.items() if c},
                         "drift": rwkv_drift(torch, cfg, params, prompts)})
+            run["profile"] = profile_device(  # where the prefill's device time goes
+                torch, lambda: E.prefill_bucketed(params, cfg, prompts, kernels=K.KERNELS),
+                steps=2, warmup=1)
             out["runs"].append(run)
             tag = f"{b}x{s}"
             if not torch.isfinite(lk).all():
@@ -2912,8 +2991,9 @@ def main(argv=None) -> int:
     build = {"phase": "build", "seconds": time.perf_counter() - t0, "library": str(lib_path)}
     report["build_log"] = (lib_path.parent / "build.log").read_text()
     build["tensor_core_kernels"] = ptxas_usage(report["build_log"])
-    if not build["tensor_core_kernels"]:
-        fail("the build log names no tensor-core kernel")
+    build["wkv_kernels"] = ptxas_usage(report["build_log"], _WKV_KERNELS)
+    if not build["tensor_core_kernels"] or not build["wkv_kernels"]:
+        fail("the build log names no tensor-core kernel or no wkv kernel")
     report["build"] = build
     emit(build)
 

@@ -155,6 +155,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.tm_error_string.argtypes = [ctypes.c_int]
         lib.tm_error_string.restype = ctypes.c_char_p
+        lib.tm_wkv_buffer_floats.argtypes = [ctypes.c_int] * 3  # bh, s, n
+        lib.tm_wkv_buffer_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

@@ -1,7 +1,7 @@
 """Dispatch for the WKV recurrence: the plain version for CPU tensors, the
-CUDA kernel (``csrc/wkv.cu``) for CUDA tensors. Like
-``repro/kernels/wkv/ops.py`` it starts from a zero state; a warm state is
-the decode step's, which stays plain torch."""
+CUDA kernels (``csrc/wkv.cu``: chunk states, a state scan, the outputs)
+for CUDA tensors. Like ``repro/kernels/wkv/ops.py`` it starts from a zero
+state; a warm state is the decode step's, which stays plain torch."""
 
 from __future__ import annotations
 
@@ -36,11 +36,16 @@ def wkv(r, k, v, logw, u):
                          f"stride, got {[t.stride() for t in ins]}, and u must be contiguous")
     if n not in (16, 32, 64):
         raise ValueError(f"{name}: head size {n} is not one of 16, 32, 64")
-    y = torch.empty((b, h, s, n), dtype=torch.float32, device=r.device)
+    # y, then (past one chunk) the kernels' scratch, whose size the library
+    # reports: one allocation a call
+    lib = B.library()
+    buf = torch.empty(lib.tm_wkv_buffer_floats(b * h, s, n), dtype=torch.float32,
+                      device=r.device)
+    y = buf[:b * h * s * n].view(b, h, s, n)
     s_n = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     sb, sh, ss, _ = r.stride()
-    rc = B.library().tm_wkv(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), y.data_ptr(),
+    rc = lib.tm_wkv(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), buf.data_ptr(),
         s_n.data_ptr(), b * h, h, s, n, sb, sh, ss, code, B.stream(r.device))
     B.check(rc, name)
     wkv.launches += 1

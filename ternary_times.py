@@ -1,11 +1,13 @@
 """Device times of the packed GEMV and SwiGLU wrappers (``ternary_gemv``,
-``ternary_swiglu``), the block prologue (``norm_quant``) and the
-table-lookup kernels (``tl_gemv``, ``tl_matmul``, ``tl_swiglu``) at the
-shapes the models give them, on one CUDA card.
+``ternary_swiglu``), the block prologue (``norm_quant``), the
+table-lookup kernels (``tl_gemv``, ``tl_matmul``, ``tl_swiglu``) and the
+RWKV-6 recurrence (``wkv``) at the shapes the models give them, on one
+CUDA card.
 
     python3 ternary_times.py --out times.json
     python3 ternary_times.py --src /path/to/other/checkout/src --out old.json
     python3 ternary_times.py --against old.json --out new.json
+    python3 ternary_times.py --only wkv rwkv_prefill --out wkv.json
 
 ``--src`` points at the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so two versions of the kernels can be timed in
@@ -24,16 +26,26 @@ whether they are bit-equal to that run's, shape by shape. Inputs are
 random from a fixed seed (the prologue's from a generator of its own per
 shape, so that two versions see the same rows); the other outputs are not
 checked here (``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold
-them).
+them). ``wkv`` runs at ``chip_smoke.py``'s shapes (``wkv_shapes``: generate's
+4 x 100 prefill, 1000, the engine's longest admission, 4000 in bf16 and
+f32, the smoke config's n = 16), each from a generator of its own, so
+that two versions see the same inputs, and with the device time of each
+of its kernels a call (``kernels_us``, torch.profiler over ten calls).
+``rwkv_prefill`` times rwkv6-3b's whole prefill at 1 x 1000 and 1 x 4000
+tokens (``rwkv_prefill_rows``): five wall times and a device profile.
+``--only`` times the named kernels' rows.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
 import os
+import re
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -60,6 +72,7 @@ TL_SHAPES = (("tl_gemv", 4, 1536, 1536, False, False), ("tl_gemv", 4, 4096, 1536
              ("tl_matmul", 512, 1536, 1536, False, False),
              ("tl_matmul", 512, 4096, 1536, True, False))
 TL_SWIGLU_ROWS = (4, 512)
+KERNELS = ("ternary_gemv", "ternary_swiglu", "norm_quant", "tl", "wkv", "rwkv_prefill")
 
 
 def _digest(t) -> str:
@@ -153,6 +166,65 @@ def tl_rows(torch, CS, PK, gen, dev) -> list[dict]:
     return rows
 
 
+def wkv_rows(torch, CS) -> list[dict]:
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    rows = []
+    for tag, (b, h, s, n), dtype in CS.wkv_shapes(torch):
+        gen = torch.Generator(device="cuda").manual_seed(1900 + s + n)
+        args = CS.wkv_inputs(torch, gen, b, h, s, n, dtype)
+        timing, sets = CS.wkv_timing(torch, wkv_ops.wkv, args, wkv_ops.wkv(*args))
+        calls = itertools.cycle(sets)
+        prof = CS.profile_device(torch, lambda: wkv_ops.wkv(*next(calls)), steps=10)
+        launches_us = {re.search(r"wkv_\w*kernel", k["name"]).group(0): k["ms_per_step"] * 1e3
+                       for k in prof["top_device"] if "wkv" in k["name"]}
+        rows.append({"kernel": "wkv", "shape": CS.wkv_shape_name(args), "shape_tag": tag,
+                     **timing, "kernels_us": launches_us})
+    return rows
+
+
+def rwkv_prefill_rows(torch, CS) -> list[dict]:
+    """rwkv6-3b's ``prefill_bucketed`` at ``chip_smoke.RWKV_PREFILL_SHAPES``
+    through the kernels, at full width with random weights from seed 0:
+    the wall time of five prefills one after another after a warm-up, and
+    torch.profiler over three more (device ms, the device's busy share,
+    launches, the top kernels)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine as E
+
+    cfg = get_config("rwkv6-3b")
+    params = CS.full_params(torch, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for b, s in CS.RWKV_PREFILL_SHAPES:
+        prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+
+        def prefill():
+            return E.prefill_bucketed(params, cfg, prompts, kernels=K.KERNELS)
+
+        wall = []
+        with torch.inference_mode():
+            prefill()
+            torch.cuda.synchronize()
+            for _ in range(5):
+                t = time.perf_counter()
+                prefill()
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t) * 1e3)
+        prof = CS.profile_device(torch, prefill, steps=3, warmup=1)
+        rows.append({"kernel": "rwkv_prefill", "shape": f"{b}x{s}", "wall_ms": wall,
+                     "wall_ms_median": sorted(wall)[len(wall) // 2],
+                     "device_ms": prof["device_ms_per_step"],
+                     "profile_wall_ms": prof["wall_ms_per_step"],
+                     "device_busy_share": prof["device_busy_share"],
+                     "launches": prof["kernel_launches_per_step"],
+                     "top_device": prof["top_device"]})
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
 def compare_norm_quant(rows, against: str) -> list[dict]:
     """Each norm_quant row's codes and scales against the same shape's in
     another run's output, by digest."""
@@ -176,6 +248,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--against", default=None,
                     help="another run's --out: compare norm_quant's codes and scales")
+    ap.add_argument("--only", choices=KERNELS, nargs="+", default=None,
+                    help="time these kernels' rows only")
     args = ap.parse_args(argv)
 
     import torch
@@ -204,8 +278,11 @@ def main(argv=None) -> int:
     def scales(m):
         return torch.rand((m, 1), generator=gen, device=dev) * 1e-3 + 1e-4
 
+    def wanted(name):
+        return args.only is None or name in args.only
+
     rows = []
-    for tag, m, n, k, residual in GEMV_SHAPES:
+    for tag, m, n, k, residual in GEMV_SHAPES if wanted("ternary_gemv") else ():
         wp = packed(n, k)
         ws = torch.tensor(0.02, device=dev)
         x, xs = int8(m, n), scales(m)
@@ -221,7 +298,7 @@ def main(argv=None) -> int:
                      "bound_ms": bms, "bound_by": bby})
     wg, wu = packed(D_MODEL, D_FF), packed(D_MODEL, D_FF)
     sg, su = torch.tensor(0.03, device=dev), torch.tensor(0.025, device=dev)
-    for m in SWIGLU_ROWS:
+    for m in SWIGLU_ROWS if wanted("ternary_swiglu") else ():
         x, xs = int8(m, D_MODEL), scales(m)
         n_copies = CS.copies_for(2 * wg.numel())
         sets = [(x, xs, wg.clone(), sg, wu.clone(), su) for _ in range(n_copies)]
@@ -241,8 +318,14 @@ def main(argv=None) -> int:
                      "eager_ms": CS.eager_ms(torch, swiglu, sets, iters=200 if m <= 512 else 40),
                      "twin_ms": CS.time_ms(torch, twin, sets, iters=100 if m <= 512 else 20),
                      "bound_ms": bms, "bound_by": bby})
-    rows += norm_quant_rows(torch, CS, dev)
-    rows += tl_rows(torch, CS, PK, gen, dev)
+    if wanted("norm_quant"):
+        rows += norm_quant_rows(torch, CS, dev)
+    if wanted("tl"):
+        rows += tl_rows(torch, CS, PK, gen, dev)
+    if wanted("wkv"):
+        rows += wkv_rows(torch, CS)
+    if wanted("rwkv_prefill"):
+        rows += rwkv_prefill_rows(torch, CS)
     out = {"tag": args.tag, "src": os.path.abspath(args.src), "device": torch.cuda.get_device_name(0),
            "nvidia_smi": CS.nvidia_smi_line(), "rows": rows}
     if args.against:

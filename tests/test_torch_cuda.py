@@ -70,8 +70,12 @@ across the clip range [-10, -1e-4] on the others: both run in f32 and
 differ in the order of their sums and in the chunk (the kernel's 64 with a
 masked tail, the plain version's JAX rule), which moves a decay ratio by a
 few ulps of the cumulative log-decay; the per-head error stays near 1e-6.
-Strided inputs (the [B, S, H, n] views ``time_mix`` passes) give the
-contiguous inputs' outputs bit for bit. The rwkv smoke config in f32
+The kernels (chunk states, a state scan, outputs with the decay factored
+at 16-row sub-chunk boundaries) are also held at S on either side of
+those boundaries (1 to 129), over 4000 tokens, and with every decay at
+-10 or -1e-4. Strided inputs (the [B, S, H, n] views ``time_mix``
+passes) give the contiguous inputs' outputs bit for bit; so do a second
+call, and each head of a B = 4 call run alone. The rwkv smoke config in f32
 through the kernels gives the plain versions' streams on the CPU, through
 ``generate`` and the legacy engine.
 """
@@ -1017,15 +1021,14 @@ def _head_rel_err(got, want):
     return (diff / want.abs().flatten(2).amax(-1)).max().item()
 
 
-@pytest.mark.parametrize("b,h,s,n,dtype", [
-    (3, 4, 77, 16, "float32"), (2, 3, 1, 32, "float32"), (2, 3, 130, 32, "bfloat16"),
-    (1, 2, 64, 64, "float32"), (4, 40, 100, 64, "bfloat16"), (1, 4, 200, 64, "float32"),
-    (1, 8, 1000, 64, "bfloat16")])
-def test_wkv(cuda, b, h, s, n, dtype):
+def _wkv_check(args):
+    """The kernels against the plain version on ``args``: y and the final
+    state f32, of their shapes, within WKV_TOL of each head's scale (NaN
+    fails too)."""
     from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.kernels.wkv import ref as wkv_ref
 
-    args = _wkv_inputs(np.random.default_rng(s + n), b, h, s, n, TORCH_DT[dtype], cuda)
+    b, h, s, n = args[0].shape
     y, s_n = wkv_ops.wkv(*args)
     want_y, want_s = wkv_ref.wkv(*args)
     torch.cuda.synchronize()
@@ -1033,10 +1036,50 @@ def test_wkv(cuda, b, h, s, n, dtype):
     assert y.shape == (b, h, s, n) and s_n.shape == (b, h, n, n)
     assert _head_rel_err(y, want_y) <= WKV_TOL
     assert _head_rel_err(s_n, want_s) <= WKV_TOL
+    return y, s_n
+
+
+# S on either side of the kernels' 64-row chunks and 16-row sub-chunks
+# (1 to 129), and 4000 tokens (63 chunks), where the slow channels carry
+# the state through every step of the state scan
+@pytest.mark.parametrize("b,h,s,n,dtype", [
+    (3, 4, 77, 16, "float32"), (2, 3, 1, 32, "float32"), (2, 3, 130, 32, "bfloat16"),
+    (1, 2, 64, 64, "float32"), (4, 40, 100, 64, "bfloat16"), (1, 4, 200, 64, "float32"),
+    (1, 8, 1000, 64, "bfloat16"), *((2, 3, s, 64, "float32") for s in (1, 16, 17, 63, 64, 65, 129)),
+    (1, 4, 4000, 64, "bfloat16")])
+def test_wkv(cuda, b, h, s, n, dtype):
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    args = _wkv_inputs(np.random.default_rng(s + n), b, h, s, n, TORCH_DT[dtype], cuda)
+    y, s_n = _wkv_check(args)
     # the layout time_mix hands over: [B, S, H, n] tensors seen as [B, H, S, n]
     strided = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in args[:4]]
     y2, s2 = wkv_ops.wkv(*strided, args[4])
     assert torch.equal(y2, y) and torch.equal(s2, s_n)
+
+
+@pytest.mark.parametrize("logw", [-10.0, -1e-4])
+def test_wkv_uniform_decay(cuda, logw):
+    """Every decay at the model's clip: -10 a row, where e_t - lc_s spans
+    +-630 within a chunk and the factored exponents must stay <= 0, and
+    -1e-4, where the state keeps nearly all of every row."""
+    r, k, v, w, u = _wkv_inputs(np.random.default_rng(7), 2, 3, 200, 64, torch.float32, cuda)
+    _wkv_check((r, k, v, torch.full_like(w, logw), u))
+
+
+def test_wkv_deterministic_and_batch_invariant(cuda):
+    """Two calls on the same inputs are bit-equal, and each head of a
+    B = 4 call is bit-equal to the same inputs run alone at B = 1: no
+    atomics, so a head's result depends on its own inputs only."""
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    args = _wkv_inputs(np.random.default_rng(11), 4, 5, 300, 64, torch.bfloat16, cuda)
+    y, s_n = wkv_ops.wkv(*args)
+    y2, s_n2 = wkv_ops.wkv(*args)
+    assert torch.equal(y, y2) and torch.equal(s_n, s_n2)
+    for i in range(4):
+        ya, sa = wkv_ops.wkv(*(t[i:i + 1] for t in args[:4]), args[4])
+        assert torch.equal(ya, y[i:i + 1]) and torch.equal(sa, s_n[i:i + 1])
 
 
 def test_wkv_counts_and_checks(cuda):
@@ -1066,6 +1109,19 @@ def test_wkv_counts_and_checks(cuda):
         wkv_ops.wkv(*(t.transpose(-1, -2).contiguous().transpose(-1, -2)
                       for t in (r, k, v, logw)), u)
     assert launch_counts()["wkv"] == 2
+
+
+@pytest.mark.parametrize("bh,s,n", [(1, 0, 64), (3, 1, 16), (40, 64, 64), (40, 65, 64),
+                                    (4, 4000, 32)])
+def test_wkv_buffer_floats(cuda, bh, s, n):
+    """The buffer the wrapper allocates for y and the kernels' scratch, as
+    the library reports it: y's floats alone up to one chunk of 64 rows,
+    then each chunk's state increment [n, n] and decay [n] after y."""
+    from repro_torch.kernels import _build as KB
+
+    nc = -(-s // 64)
+    scratch = bh * nc * (n * n + n) if nc > 1 else 0
+    assert KB.library().tm_wkv_buffer_floats(bh, s, n) == bh * s * n + scratch
 
 
 def test_smoke_rwkv_kernels_vs_plain(cuda):
