@@ -4,7 +4,7 @@ runs it, times them, then drives greedy ``generate``, the one-shot prefill,
 and the continuous-batching ``ServingEngine`` for tellme-0.7b at full
 width, on the contiguous and on the paged KV layout, with the packed matmul
 engine and with the table-lookup one, with chunked and with per-request
-prefill; then RWKV-6 3B (rwkv6-3b, the ssm family) at full width and depth
+prefill, and with speculative decoding; then RWKV-6 3B (rwkv6-3b, the ssm family) at full width and depth
 through ``generate``, the one-shot prefill and the per-request engine.
 
     python3 chip_smoke.py                # one CUDA device
@@ -29,7 +29,11 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             shapes over a pool of 161 pages of 64 rows, on a permuted table
             with shared pages and NaN in the garbage and unmapped pages
             (output finite and bit-equal to the contiguous kernel on the
-            gathered view; pools byte-equal to the plain version's). Kernel,
+            gathered view; pools byte-equal to the plain version's); the
+            four prefill-append variants also at the speculative verify
+            shape (8 slots, C = 5 at frontiers 163, 700, 517, 900, 301,
+            1000, 99 and 62, the last straddling a page) and at G = 4
+            (q[2,8,5,64], bf16 and f32). Kernel,
             plain, contiguous-twin, library and bound times, and the kernel's
             over the library's (over_library), every shape of these eight
             entry points in one attention_rows line. The four
@@ -71,6 +75,11 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             per-request streams and statuses.
   paged_engine_smoke  the same for the paged engine, a shared prompt prefix
             included: equal streams, statuses and page statistics.
+  spec_engine_smoke  the same for ServingEngine(speculative=True), each
+            cache dtype and layout, with a tiled phrase among the prompts:
+            equal streams, statuses and per-request drafted and accepted
+            counts; streams equal to the engine without speculation; the
+            tiled phrase accepted above 0.2; the verify's launches.
   generate  full-width tellme-0.7b (24 layers, random weights from seed 0),
             B = 4, prompt 100 (bucket 128), 64 greedy steps, once through
             the kernels (launch counters reset just before, read just after)
@@ -126,6 +135,23 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             no prefill-append launch (counters reset just before, read just
             after); agreement with the chunked engine's streams, and where
             one parts, the logit gap of the two tokens.
+  spec_engine  full-width ServingEngine(speculative=True), gamma = 4: (a)
+            the engine phase's workload, each cache dtype, contiguous and
+            paged, through the kernels: every request OK with 32 tokens,
+            one host transfer per tick, 24 prefill-append launches a spec
+            tick (48 with a prompt chunk) and no decode attention in it,
+            0 <= accepted <= drafted, paged streams equal to contiguous;
+            tokens/s, ticks by kind, ms per tick, acceptance, tokens per
+            spec tick, time to first token beside the engine and
+            paged_engine phases' figures, agreement with their streams (a
+            parting reported with its logit gap); (b) 8 phrases of 6-12
+            tokens tiled to 100-400, 64 new tokens, with and without
+            speculation; (c) one verify_chunk_step at the eight verify
+            frontiers from shared caches: kernel logits vs plain and vs
+            teacher-forced kernel decode steps within the logits bar, each
+            layer's cache the plain append of the verify's K/V rows.
+            Then the verify_rows line: the verify-shape rows of the kernels
+            phase with their launches in the spec engine run.
   rwkv_smoke  the rwkv smoke config in f32 on the card (kernels) against
             the same weights on the CPU (plain versions), through generate
             and the engine (prefill="auto", which is legacy): equal streams
@@ -211,9 +237,14 @@ PAGE_SIZE = 64  # kv_page_size of the paged layout (the config's default)
 # largest chunk), so their first chunk rewrites the shared page 8 (a fork)
 PREFIX_LEN, PREFIX_TAILS = 576, (16, 128)
 PAGED_POOL_BYTES = {"bf16": 1_519_386_624, "int8": 791_347_200}  # 161 pages of 64 rows
+# The speculative verify chunk (C = gamma + 1 at the default spec_gamma = 4)
+# at decode frontiers: none a multiple of C or of a kv tile, the one at 62
+# straddling the page boundary at 64
+VERIFY_C, VERIFY_FRONTIERS = 5, (163, 700, 517, 900, 301, 1000, 99, 62)
 PREFILL_SHAPES = ((4, 100), (1, 1000), (1, 4000))  # (batch, prompt): buckets 128, 1024, 4096
 RWKV_PREFILL_SHAPES = ((1, 1000), (1, 4000))  # (batch, prompt), exact length
 ONE_SLOT_REQUESTS = 2  # the rwkv engine's requests also served through one slot
+REPEAT_REQUESTS, REPEAT_NEW = 8, 64  # the speculative engine's repetitive workload
 
 
 def emit(obj) -> None:
@@ -576,12 +607,15 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     paged_rows = paged_prefill_rows(torch, cfg, randn, int8, checks)
     rows += [r for r in paged_rows if r["shape_tag"] == "tick"]
     report["prefill_append_paged_shapes"] = paged_rows
+    ver_rows = [r for r in pa_rows + paged_rows if r["shape_tag"] == "verify"]
+    ver_rows.append(grouped_verify_row(torch, randn, checks))
+    report["prefill_append_verify_shapes"] = ver_rows
     attn_keys = ("name", "shape_tag", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "over_library", "contiguous_twin_ms")
     emit({"phase": "attention_rows",
           "rows": [{k: r[k] for k in attn_keys if k in r}
                    for r in [gen_row, engine_dense, engine_int8, *pa_rows, *paged_decode,
-                             *paged_rows]]})
+                             *paged_rows, ver_rows[-1]]]})
     tl_rows = tl_kernel_rows(torch, cfg, randn, int8, packed, unpacked_bf16, quant_close,
                              checks)
     rows += [r for r in tl_rows if r.get("main_row")]
@@ -700,10 +734,11 @@ def decode_engine_rows(torch, cfg, randn, int8, checks) -> tuple[dict, dict]:
 
 
 def prefill_append_rows(torch, cfg, randn, int8, checks) -> list[dict]:
-    """Prefill-append, bf16 and int8 caches, at two shapes: ``tick`` (the
+    """Prefill-append, bf16 and int8 caches, at three shapes: ``tick`` (the
     engine's fused tick: 8 slots, C = 256, live slots at offsets 0 and 512,
-    six write-only slots at trash_base 1024) and ``one`` (1 slot, C = 128 at
-    offset 768). Outputs against the plain version in bf16 and f32; the
+    six write-only slots at trash_base 1024), ``one`` (1 slot, C = 128 at
+    offset 768) and ``verify`` (8 slots, the speculative verify chunk C = 5
+    at ``VERIFY_FRONTIERS``). Outputs against the plain version in bf16 and f32; the
     cache after the call equal to the plain version's byte for byte, and
     unchanged outside the appended rows."""
     from repro_torch.core.ternary import dequantize_kv
@@ -714,7 +749,8 @@ def prefill_append_rows(torch, cfg, randn, int8, checks) -> list[dict]:
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     m = ENGINE_MAX_LEN + 256
     limit = ENGINE_MAX_LEN  # the engine's trash_base
-    shapes = {"tick": (256, [0, 512] + [limit] * 6), "one": (128, [768])}
+    shapes = {"tick": (256, [0, 512] + [limit] * 6), "one": (128, [768]),
+              "verify": (VERIFY_C, list(VERIFY_FRONTIERS))}
     out_rows = []
     for tag, (c, offs) in shapes.items():
         b = len(offs)
@@ -1206,10 +1242,11 @@ def paged_decode_rows(torch, cfg, randn, int8, checks) -> list[dict]:
 
 def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
     """Paged prefill-append, bf16 and int8 pools (161 pages of 64 rows), at
-    two shapes: ``tick`` (8 slots, C = 256, live slots at offsets 0 and 512,
+    three shapes: ``tick`` (8 slots, C = 256, live slots at offsets 0 and 512,
     six write-only slots at trash_base 1024, whose windows map the garbage
-    page; slot 2 shares slot 1's first 8 pages) and ``one`` (1 slot, C = 128
-    at offset 768). NaN in the garbage and unmapped pages. Output finite and
+    page; slot 2 shares slot 1's first 8 pages), ``one`` (1 slot, C = 128
+    at offset 768) and ``verify`` (8 slots, C = 5 at ``VERIFY_FRONTIERS``,
+    the chunk at 62 straddling a page; slot 2 reads slot 1's first 4 pages). NaN in the garbage and unmapped pages. Output finite and
     bit-equal to the contiguous kernel on the gathered view, within the bars
     of the plain version; the pools after the append equal the plain
     version's byte for byte and the contiguous kernel's cache scattered back,
@@ -1227,7 +1264,9 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
     limit = ENGINE_MAX_LEN  # the engine's trash_base
     rng = np.random.default_rng(16)
     shapes = {"tick": (256, [0, 512] + [limit] * 6, [4, 12, 11, 15, 5, 16, 16, 2], (2, 1, 8)),
-              "one": (128, [768], [14], (0, 0, 0))}
+              "one": (128, [768], [14], (0, 0, 0)),
+              "verify": (VERIFY_C, list(VERIFY_FRONTIERS),
+                         [-(-(o + VERIFY_C) // ps) for o in VERIFY_FRONTIERS], (2, 1, 4))}
     out_rows = []
     for tag, (c, offs, mapped, share) in shapes.items():
         b = len(offs)
@@ -1240,8 +1279,8 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
         # (page, row) the live chunks write; the write-only ones write page 0
         written = torch.zeros((pages, ps), dtype=torch.bool)
         for i in live:
-            for blk in range(offs[i] // ps, (offs[i] + c) // ps):
-                written[table[i, blk]] = True
+            for r in range(offs[i], offs[i] + c):
+                written[table[i, r // ps], r % ps] = True
         written = written.to(dev)
         mapped_pages = torch.zeros(pages, dtype=torch.bool)
         mapped_pages[torch.from_numpy(table.reshape(-1)).long()] = True
@@ -1251,7 +1290,9 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
         not_garbage[0] = False
         live_rows = sum(offs[i] for i in live)  # prefix rows read, per kv head
         pairs = sum(offs[i] * c for i in live) + len(live) * c * (c + 1) // 2
-        entries = sum(offs[i] // ps for i in live) + b * (c // ps)  # table entries read
+        # table entries read: a live slot's prefix and chunk pages, a
+        # write-only slot's chunk pages
+        entries = sum((o + c - 1) // ps + 1 - (0 if o < limit else o // ps) for o in offs)
         for quant in (False, True):
             name = "prefill_append_paged" + ("_quant" if quant else "")
             if quant:
@@ -1283,7 +1324,7 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
                     keep = ~written[:, None, :].expand(a.shape[:3]) & not_garbage[:, None, None]
                     kept &= torch.equal(_bits(torch, a[keep]), _bits(torch, before[keep]))
                     for i in live:
-                        for blk in range(offs[i] // ps, (offs[i] + c) // ps):
+                        for blk in range(offs[i] // ps, (offs[i] + c - 1) // ps + 1):
                             scattered &= torch.equal(
                                 _bits(torch, a[table[i, blk]]),
                                 _bits(torch, view[i, :, blk * ps:(blk + 1) * ps]))
@@ -1364,6 +1405,72 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
                                 + "; the gather, the append and the dequant are not timed"})
             out_rows[-1]["over_library"] = out_rows[-1]["ms"] / out_rows[-1]["library_ms"]
     return out_rows
+
+
+def grouped_verify_row(torch, randn, checks) -> dict:
+    """Prefill-append at the verify chunk with G = 4: q[2,8,5,64], k/v of 2
+    heads, frontiers 163 and 62 over 1280 rows, so that one 64-row query
+    tile holds every query head's rows. Held in bf16 and f32 against the
+    plain version (outputs within the attention bars, the cache its bytes);
+    timed in bf16 beside the bound and SDPA with k/v repeated."""
+    from repro_torch.kernels.prefill_append import ops as pa_ops
+    from repro_torch.kernels.prefill_append import ref as pa_ref
+
+    dev = torch.device("cuda")
+    bf16, c, m, limit = torch.bfloat16, VERIFY_C, ENGINE_MAX_LEN + 256, ENGINE_MAX_LEN
+    offs = [163, 62]
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    q, kn, vn = randn(2, 8, c, 64), randn(2, 2, c, 64), randn(2, 2, c, 64) * 0.25
+    cache = [randn(2, 2, m, 64), randn(2, 2, m, 64) * 0.25]
+    err = None
+    for dtype, tol in ((bf16, ATTN_TOL_BF16), (torch.float32, ATTN_TOL_F32)):
+        cast = [t.to(dtype) for t in (q, kn, vn)]
+        mine = [t.to(dtype).clone() for t in cache]
+        plain = [t.clone() for t in mine]
+        got = pa_ops.prefill_append(*cast, *mine, off, prefix_limit=limit)
+        want = pa_ref.prefill_append(*cast, *plain, off, prefix_limit=limit)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        same = all(torch.equal(a, w) for a, w in zip(mine, plain))
+        checks.append({"kernel": "prefill_append", "shape": f"verify G=4 {dtype}",
+                       "max_abs_err": e, "max_abs_out": want.abs().max().item(), "tol": tol,
+                       "cache_equal": same})
+        if not (same and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)):
+            fail(f"prefill_append[verify G=4, {dtype}]: max |kernel - plain| = {e} (bar "
+                 f"{tol}), cache equal {same}")
+        err = e if err is None else err
+    qb, kb, vb = (t.to(bf16) for t in (q, kn, vn))
+    sets = [(qb, kb, vb, *[t.to(bf16) for t in cache])]
+    end = max(offs) + c
+    kd, vd = [t.to(bf16)[:, :, :end].clone() for t in cache]
+    for i, o in enumerate(offs):  # the chunk's rows, as appended
+        kd[i, :, o:o + c], vd[i, :, o:o + c] = kb[i], vb[i]
+    mask = (torch.arange(end, device=dev)[None, None, :]
+            <= off[:, None, None].to(torch.int64) + torch.arange(c, device=dev)[None, :, None])
+    lib_sets = [(qb, kd.repeat_interleave(4, dim=1), vd.repeat_interleave(4, dim=1),
+                 mask[:, None])]
+    pairs = sum(o * c for o in offs) + 2 * c * (c + 1) // 2
+    nbytes = 2 * _nbytes(qb) + 2 * _nbytes(kb) + (sum(offs) + 2 * c) * 2 * 2 * 64 * 2 + 8
+    bms, bby = bound_ms(nbytes, 4 * 64 * 8 * pairs, "bf16")
+
+    def kern(qq, kk, vv, k_c, v_c):
+        return pa_ops.prefill_append(qq, kk, vv, k_c, v_c, off, prefix_limit=limit)
+
+    def plain_fn(qq, kk, vv, k_c, v_c):
+        return pa_ref.prefill_append(qq, kk, vv, k_c, v_c, off, prefix_limit=limit)
+
+    row = {"name": "prefill_append", "route": "cuda", "shape_tag": "verify G=4",
+           "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append.cu",
+           "replaces": "src/repro/kernels/prefill_append/kernel.py:532",
+           "shape": f"q[2,8,{c},64] k/v 2 heads (G = 4) offsets {offs} cache [2,2,{m},64] bf16",
+           "max_abs_err": err, "ms": time_ms(torch, kern, sets, iters=50),
+           "eager_ms": eager_ms(torch, kern, sets, iters=50),
+           "plain_ms": time_ms(torch, plain_fn, sets, iters=5), "bound_ms": bms,
+           "bound_by": bby,
+           "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib_sets, iters=50),
+           "library_note": "SDPA with k/v repeated to 8 heads and the offset-causal mask"}
+    row["over_library"] = row["ms"] / row["library_ms"]
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1841,34 +1948,41 @@ def _engine_prompts(cfg):
 
 
 def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
-               prefill: str = "auto", slots: int = ENGINE_SLOTS) -> tuple[dict, list]:
+               prefill: str = "auto", slots: int = ENGINE_SLOTS, speculative: bool = False,
+               max_new: int = ENGINE_NEW) -> tuple[dict, list]:
     """Serve ``prompts`` to the end; returns (measurements, requests). With
     ``first_alone`` the first request is served to its end before the others
     are submitted. The launch counters are reset just before the first tick
-    and read just after the last."""
+    and read just after the last. Tick times are kept by kind: speculative
+    (verify only, or with a prompt chunk), fused, decode-only."""
     from repro_torch import kernels as K
     from repro_torch.serving import engine as E
 
     eng = E.ServingEngine(params, cfg, slots=slots, max_len=ENGINE_MAX_LEN,
-                          kernels=kset, eos_id=-1, prefill=prefill)
-    reqs = [E.Request(rid=i, prompt=p, max_new=ENGINE_NEW) for i, p in enumerate(prompts)]
+                          kernels=kset, eos_id=-1, prefill=prefill, speculative=speculative)
+    reqs = [E.Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
     first = {}
     eng.on_emit = lambda req, toks: first.setdefault(
         req.rid, (eng.tick_count, time.perf_counter()))
     waves = [reqs[:1], reqs[1:]] if first_alone else [reqs]
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    fused_ms, decode_ms = [], []
+    fused_ms, decode_ms, spec_ms, spec_mixed_ms, spec_tokens = [], [], [], [], 0
     t0 = time.perf_counter()
     for wave in waves:
         for r in wave:
             eng.submit(r)
         while eng.queue or any(r is not None for r in eng.live):
-            f0, t = eng.fused_ticks, time.perf_counter()
+            f0, s0, t = eng.fused_ticks, eng.spec_ticks, time.perf_counter()
+            n0 = sum(len(r.generated) for r in reqs)
             if not eng.step():
                 break
-            (fused_ms if eng.fused_ticks > f0 else decode_ms).append(
-                (time.perf_counter() - t) * 1e3)
+            ms = (time.perf_counter() - t) * 1e3
+            if eng.spec_ticks > s0:
+                (spec_mixed_ms if eng.fused_ticks > f0 else spec_ms).append(ms)
+                spec_tokens += sum(len(r.generated) for r in reqs) - n0
+            else:
+                (fused_ms if eng.fused_ticks > f0 else decode_ms).append(ms)
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     st = eng.stats()
@@ -1877,11 +1991,20 @@ def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
     def mean(xs):
         return sum(xs) / len(xs) if xs else None
 
+    spec = {}
+    if speculative:
+        spec = {"spec_ticks": st["spec_ticks"], "spec_tick_ms_mean": mean(spec_ms),
+                "spec_mixed_tick_ms_mean": mean(spec_mixed_ms), "spec_tick_ms": spec_ms,
+                "spec_mixed_tick_ms": spec_mixed_ms, "spec_acceptance": st["spec_acceptance"],
+                "spec_drafted": sum(r.spec_drafted for r in reqs),
+                "spec_accepted": sum(r.spec_accepted for r in reqs),
+                "tokens_per_spec_tick": spec_tokens / max(st["spec_ticks"], 1),
+                "still_speculative": st["speculative"]}
     return {"ticks": st["ticks"], "fused_ticks": st["fused_ticks"],
             "host_transfers": st["host_transfers"], "statuses": st["statuses"],
             "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
             "fused_tick_ms_mean": mean(fused_ms), "decode_tick_ms_mean": mean(decode_ms),
-            "fused_tick_ms": fused_ms, "decode_tick_ms": decode_ms,
+            "fused_tick_ms": fused_ms, "decode_tick_ms": decode_ms, **spec,
             "first_token_ticks": [first[r.rid][0] for r in reqs if r.rid in first],
             "first_token_ms": [(first[r.rid][1] - t0) * 1e3 for r in reqs if r.rid in first],
             "cache_bytes": E.cache_nbytes(eng.caches), "launch_counts": counts,
@@ -2343,6 +2466,323 @@ def legacy_engine_phase(torch, cfg, params, chunked_streams, report: dict) -> No
                 fail(f"legacy_engine[{kv}]: " + "; ".join(problems))
     report["legacy_engine"] = out
     emit(out)
+
+
+# ---------------------------------------------------------------------------
+# phases: speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def _attention_sfx(layout: str, kv: str) -> str:
+    """The attention wrappers' suffix for a layout and a cache dtype."""
+    return ("_paged" if layout == "paged" else "") + ("_quant" if kv == "int8" else "")
+
+
+def _spec_count_problems(counts, st, n_layers: int, sfx: str) -> list[str]:
+    """A spec tick launches one prefill-append a layer for the verify and,
+    with a prompt chunk, one more; decode attention runs only in the ticks
+    that are not speculative; no attention wrapper of another layout or
+    cache dtype runs."""
+    problems = []
+    want_pa = n_layers * (st["spec_ticks"] + st["fused_ticks"])
+    if counts["prefill_append" + sfx] != want_pa:
+        problems.append(f"prefill_append{sfx} launched {counts['prefill_append' + sfx]} times, "
+                        f"not {want_pa} ({st['spec_ticks']} spec ticks, {st['fused_ticks']} "
+                        "with a chunk)")
+    want_da = n_layers * (st["ticks"] - st["spec_ticks"])
+    if counts["decode_attention" + sfx] != want_da:
+        problems.append(f"decode_attention{sfx} launched {counts['decode_attention' + sfx]} "
+                        f"times, not {want_da}")
+    others = {n: v for n, v in counts.items() if v and n.startswith(
+        ("prefill_append", "decode_attention")) and n not in (
+        "prefill_append" + sfx, "decode_attention" + sfx)}
+    if others:
+        problems.append(f"attention wrappers of another layout or cache dtype ran: {others}")
+    if st["spec_ticks"] <= 0:
+        problems.append("no speculative tick ran")
+    return problems
+
+
+def spec_engine_smoke_phase(torch, report: dict) -> None:
+    """The f32 smoke config in ServingEngine(speculative=True), each cache
+    dtype and layout, five ragged prompts and a tiled phrase: through the
+    kernels on the card, the same streams, statuses and per-request drafted
+    and accepted counts as through the plain versions on the CPU, and the
+    same streams as the engine without speculation on the card; the tiled
+    phrase's drafts accepted above 0.2; one host transfer per tick; the
+    verify through the prefill-append kernel of the layout and dtype."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    base = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32)
+    specs = Tr.param_specs(base)
+    cpu_params = Tr.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=base.dtype)
+    cuda_params = _to_cuda(cpu_params)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+    prompts.append(np.tile(rng.integers(0, base.vocab_size, 7), 9))
+    out = {"phase": "spec_engine_smoke"}
+    for layout in ("contiguous", "paged"):
+        for kv in ("bf16", "int8"):
+            cfg = dataclasses.replace(base, kv_cache_dtype=kv, kv_layout=layout)
+            runs = []
+            for params, kset, device, spec in ((cuda_params, K.KERNELS, None, True),
+                                               (cpu_params, K.PLAIN, "cpu", True),
+                                               (cuda_params, K.KERNELS, None, False)):
+                eng = E.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kset,
+                                      device=device, speculative=spec)
+                reqs = [E.Request(rid=i, prompt=p, max_new=16) for i, p in enumerate(prompts)]
+                for r in reqs:
+                    eng.submit(r)
+                K.reset_launch_counts()
+                eng.run()
+                runs.append(([(r.generated, r.status.name, r.spec_drafted, r.spec_accepted)
+                              for r in reqs], eng.stats(), K.launch_counts()))
+            (got, st, counts), (want, _, _), (plain, _, _) = runs
+            tiled = got[-1][3] / max(got[-1][2], 1)
+            res = {"streams_equal_cpu": sum(a[0] == b[0] for a, b in zip(got, want)),
+                   "counts_equal_cpu": got == want,
+                   "streams_equal_plain_engine": sum(a[0] == b[0] for a, b in zip(got, plain)),
+                   "ticks": st["ticks"], "spec_ticks": st["spec_ticks"],
+                   "host_transfers": st["host_transfers"],
+                   "spec_acceptance": st["spec_acceptance"], "tiled_phrase_acceptance": tiled,
+                   "drafted_accepted": [g[2:] for g in got]}
+            out[f"{layout} {kv}"] = res
+            problems = _spec_count_problems(counts, st, base.n_layers, _attention_sfx(layout, kv))
+            if got != want:
+                problems.append("streams, statuses or drafted/accepted counts differ from the "
+                                "CPU's")
+            if [g[:2] for g in got] != [p[:2] for p in plain]:
+                problems.append("streams differ from the engine without speculation")
+            if st["host_transfers"] != st["ticks"]:
+                problems.append(f"{st['host_transfers']} transfers for {st['ticks']} ticks")
+            if not tiled > 0.2:
+                problems.append(f"the tiled phrase's acceptance is {tiled}")
+            if problems:
+                emit(out)
+                fail(f"spec_engine_smoke[{layout}, {kv}]: " + "; ".join(problems))
+    report["spec_engine_smoke"] = out
+    emit(out)
+
+
+def _repetitive_prompts(cfg):
+    """8 prompts, each a random phrase of 6-12 tokens tiled to 100-400."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    out = []
+    for _ in range(REPEAT_REQUESTS):
+        phrase = rng.integers(0, cfg.vocab_size, int(rng.integers(6, 13)))
+        out.append(np.resize(phrase, int(rng.integers(100, 401))))
+    return out
+
+
+def verify_step_check(torch, cfg, params) -> dict:
+    """One full-width verify_chunk_step at ``VERIFY_FRONTIERS`` from shared
+    caches (a 1024-token prompt per slot prefilled through the kernels, so
+    the rows past each frontier hold stale prompt rows), each slot's chunk
+    its current token and the greedy continuation of five teacher-forced
+    kernel decode steps. Held: kernel logits against plain within
+    LOGIT_REL_TOL of max |logit|; kernel verify row j against the kernel's
+    decode step j within the same bar, the argmax equal or a near-tie
+    reported with its gap; every layer's cache after the kernel verify equal,
+    byte for byte, to the plain append of the K/V rows that verify computed
+    (the rows at [pos, pos + 5) written, every other row untouched).
+    Reported: layer 0's rows against the plain verify's."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels.prefill_append import ref as pa_ref
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    dev = torch.device("cuda")
+    b, c = len(VERIFY_FRONTIERS), VERIFY_C
+    pos = torch.tensor(VERIFY_FRONTIERS, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (b, ENGINE_MAX_LEN), generator=gen, device=dev)
+    m = ENGINE_MAX_LEN + 256
+
+    def copy(caches):
+        return {"blocks": {n: {k: v.clone() for k, v in leaves.items()}
+                           for n, leaves in caches["blocks"].items()}}
+
+    out = {}
+    for kv in ("bf16", "int8"):
+        c_kv = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        _, caches = Tr.forward(params, prompt, c_kv, kernels=K.KERNELS, collect_cache=True)
+        caches = E.fit_caches(caches, c_kv, m)
+        dec = copy(caches)
+        tok = prompt.gather(1, pos.to(torch.int64)[:, None])[:, 0]
+        seq, dec_logits = [tok], []
+        for j in range(c):
+            lg, _ = Tr.decode_step(params, seq[-1][:, None], dec, pos + j, c_kv,
+                                   kernels=K.KERNELS)
+            dec_logits.append(lg.float())
+            seq.append(torch.argmax(lg, -1))
+        chunk = torch.stack(seq[:c], dim=1)
+        rows = []  # (k_new, v_new) each layer, as the kernel verify computed them
+
+        def capture(q, k_new, v_new, *a, **kw):
+            rows.append((k_new.clone(), v_new.clone()))
+            return K.KERNELS.prefill_append(q, k_new, v_new, *a, **kw)
+
+        kset = dataclasses.replace(K.KERNELS, prefill_append=capture)
+        before = copy(caches)
+        kc, pc = copy(caches), copy(caches)
+        lk, _ = Tr.verify_chunk_step(params, chunk, kc, pos, c_kv, kernels=kset,
+                                     prefix_limit=ENGINE_MAX_LEN)
+        lp, _ = Tr.verify_chunk_step(params, chunk, pc, pos, c_kv, kernels=K.PLAIN,
+                                     prefix_limit=ENGINE_MAX_LEN)
+        lk, lp = lk.float(), lp.float()
+        scale = lp.abs().max().item()
+        ref_caches = before["blocks"]["b0"]
+        for li, (k_new, v_new) in enumerate(rows):
+            layer = {n: t[li] for n, t in ref_caches.items()}
+            if kv == "int8":
+                pa_ref.append_kv_cache_quant(layer["k"], layer["v"], layer["k_scale"],
+                                             layer["v_scale"], k_new, v_new, pos)
+            else:
+                pa_ref.append_kv_cache(layer["k"], layer["v"], k_new, v_new, pos)
+        kb = kc["blocks"]["b0"]
+        bytes_equal = len(rows) == cfg.n_layers and all(
+            torch.equal(_bits(torch, kb[n]), _bits(torch, ref_caches[n])) for n in kb)
+        pb = pc["blocks"]["b0"]
+        layer0 = all(torch.equal(_bits(torch, kb[n][0]), _bits(torch, pb[n][0])) for n in kb)
+        rows_vs_decode, near_ties = [], []
+        for j in range(c):
+            d = (lk[:, j] - dec_logits[j]).abs().max().item()
+            rows_vs_decode.append(d)
+            a_v, a_d = lk[:, j].argmax(-1), dec_logits[j].argmax(-1)
+            for s in torch.nonzero(a_v != a_d)[:, 0].tolist():
+                row = dec_logits[j][s]
+                near_ties.append({"slot": s, "row": j, "tokens": [int(a_v[s]), int(a_d[s])],
+                                  "decode_logit_gap_rel": (row[a_d[s]] - row[a_v[s]]).item()
+                                  / row.abs().max().item()})
+        res = {"logit_max_abs_err_vs_plain": (lk - lp).abs().max().item(),
+               "logit_max_abs": scale,
+               "rows_vs_decode_max_abs": rows_vs_decode,
+               "argmax_partings_vs_decode": near_ties,
+               "accepted_of_4": [int(x) for x in
+                                 (torch.argmax(lk[:, :c - 1], -1) == chunk[:, 1:]).to(
+                                     torch.int32).cumprod(1).sum(1).tolist()],
+               "cache_bytes_equal_plain_append": bytes_equal,
+               "layer0_rows_equal_plain_verify": layer0}
+        out[kv] = res
+        problems = []
+        if res["logit_max_abs_err_vs_plain"] > LOGIT_REL_TOL * scale:
+            problems.append(f"kernel vs plain logits differ by {res['logit_max_abs_err_vs_plain']}")
+        if max(rows_vs_decode) > LOGIT_REL_TOL * scale:
+            problems.append(f"verify rows vs decode steps differ by {rows_vs_decode}")
+        if any(t["decode_logit_gap_rel"] > LOGIT_REL_TOL for t in near_ties):
+            problems.append(f"argmax parts from the decode step's over the bar: {near_ties}")
+        if not bytes_equal:
+            problems.append("the cache after the kernel verify is not the plain append of its "
+                            "rows")
+        if problems:
+            return {**out, "problems": [f"{kv}: " + p for p in problems]}
+        del caches, dec, kc, pc, before
+    return out
+
+
+def spec_engine_phase(torch, cfg, params, plain_streams, report: dict) -> dict:
+    """The full-width ServingEngine(speculative=True), gamma = 4, through
+    the kernels: (a) the engine phase's ragged workload for each cache
+    dtype, contiguous and paged; every request OK with 32 tokens, one host
+    transfer per tick, the launch counts of a spec tick, 0 <= accepted <=
+    drafted, paged streams equal to contiguous ones; set beside the engine
+    without speculation (the engine and paged_engine phases of this call),
+    with agreement with its streams and, where one parts, the logit gap of
+    the two tokens (``divergence``; reported, not held: the verify's and
+    decode's attention round bf16 differently); (b) a repetitive workload,
+    speculative and not (contiguous, bf16); (c) ``verify_step_check``.
+    Returns the launch counts of (a) by (layout, cache dtype)."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+
+    prompts = _engine_prompts(cfg)
+    out = {"phase": "spec_engine", "model": cfg.name, "slots": ENGINE_SLOTS,
+           "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS, "max_new": ENGINE_NEW,
+           "gamma": cfg.spec_gamma}
+    counts_by, spec_streams = {}, {}
+    keep = ("ticks", "fused_ticks", "wall_s", "tokens_per_s", "fused_tick_ms_mean",
+            "decode_tick_ms_mean")
+    with torch.inference_mode():
+        for layout in ("contiguous", "paged"):
+            for kv in ("bf16", "int8"):
+                c = dataclasses.replace(cfg, kv_cache_dtype=kv, kv_layout=layout,
+                                        kv_page_size=PAGE_SIZE)
+                sfx = _attention_sfx(layout, kv)
+                got, reqs = engine_run(torch, c, params, K.KERNELS, prompts, speculative=True)
+                counts = got["launch_counts"]
+                counts_by[(layout, kv)] = counts
+                streams = [r.generated for r in reqs]
+                problems = _spec_count_problems(counts, got, cfg.n_layers, sfx)
+                bad = [r.rid for r in reqs
+                       if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+                if bad:
+                    problems.append(f"requests not OK with {ENGINE_NEW} tokens: {bad}")
+                if got["host_transfers"] != got["ticks"]:
+                    problems.append(f"{got['host_transfers']} transfers for {got['ticks']} "
+                                    "ticks")
+                if not all(0 <= r.spec_accepted <= r.spec_drafted for r in reqs):
+                    problems.append("accepted drafts outside [0, drafted]")
+                if layout == "paged":
+                    got["streams_equal_to_contiguous"] = sum(
+                        a == b for a, b in zip(streams, spec_streams[kv]))
+                    if got["streams_equal_to_contiguous"] != ENGINE_REQUESTS:
+                        problems.append(f"{got['streams_equal_to_contiguous']} of "
+                                        f"{ENGINE_REQUESTS} paged streams equal the "
+                                        "contiguous ones")
+                    plain = report["paged_engine"][kv]
+                else:
+                    spec_streams[kv] = streams
+                    plain = report["engine"][kv]
+                    parted = [i for i, (a, w) in enumerate(zip(streams, plain_streams[kv]))
+                              if a != w]
+                    got["streams_equal_to_plain_engine"] = ENGINE_REQUESTS - len(parted)
+                    got["plain_engine_partings"] = [
+                        dict(request=i, **divergence(torch, c, params, prompts[i], streams[i],
+                                                     plain_streams[kv][i])) for i in parted]
+                got["plain_engine"] = {k: plain[k] for k in keep}
+                out[f"{layout} {kv}"] = got
+                if problems:
+                    emit(out)
+                    fail(f"spec_engine[{layout}, {kv}]: " + "; ".join(problems))
+        # (b) a repetitive workload, with and without speculation
+        c = dataclasses.replace(cfg, kv_cache_dtype="bf16")
+        rep = _repetitive_prompts(cfg)
+        spec_b, sreqs = engine_run(torch, c, params, K.KERNELS, rep, speculative=True,
+                                   max_new=REPEAT_NEW)
+        plain_b, preqs = engine_run(torch, c, params, K.KERNELS, rep, max_new=REPEAT_NEW)
+        out["repetitive"] = {
+            "prompt_lengths": [len(p) for p in rep], "max_new": REPEAT_NEW,
+            "spec": {k: spec_b[k] for k in keep + (
+                "spec_ticks", "spec_tick_ms_mean", "spec_mixed_tick_ms_mean",
+                "spec_acceptance", "tokens_per_spec_tick", "spec_drafted", "spec_accepted",
+                "statuses")},
+            "plain": {k: plain_b[k] for k in keep + ("statuses",)},
+            "streams_equal": sum(a.generated == b.generated for a, b in zip(sreqs, preqs))}
+        # (c) one verify step at the eight frontiers
+        out["verify_step"] = verify_step_check(torch, cfg, params)
+        if out["verify_step"].get("problems"):
+            emit(out)
+            fail("spec_engine[verify_step]: " + "; ".join(out["verify_step"]["problems"]))
+    for key in [k for k in out if k.startswith(("contiguous", "paged"))]:
+        for lst in ("fused_tick_ms", "decode_tick_ms", "spec_tick_ms", "spec_mixed_tick_ms"):
+            out[key].pop(lst, None)  # the means stay
+    report["spec_engine"] = out
+    emit(out)
+    return counts_by
 
 
 # ---------------------------------------------------------------------------
@@ -3002,6 +3442,7 @@ def main(argv=None) -> int:
     smoke_phase(torch, report)
     engine_smoke_phase(torch, report)
     paged_engine_smoke_phase(torch, report)
+    spec_engine_smoke_phase(torch, report)
     params = full_params(torch, cfg)
     gen_counts, gen_tokens = generate_phase(torch, cfg, params, STEPS, report)
     eng_counts, eng_streams = engine_phase(torch, cfg, params, report)
@@ -3011,6 +3452,22 @@ def main(argv=None) -> int:
                          shared_streams["bf16"], report)
     prefill_phase(torch, cfg, params, report)
     legacy_engine_phase(torch, cfg, params, eng_streams, report)
+    spec_counts = spec_engine_phase(torch, cfg, params, eng_streams, report)
+    spec_run = {"prefill_append": ("contiguous", "bf16"),
+                "prefill_append_quant": ("contiguous", "int8"),
+                "prefill_append_paged": ("paged", "bf16"),
+                "prefill_append_paged_quant": ("paged", "int8")}
+    for row in report["prefill_append_verify_shapes"]:  # launches of the spec engine run
+        layout, kv = spec_run[row["name"]]
+        row["launches"], row["launches_run"] = (
+            (0, "no model of the port has G > 1") if row["shape_tag"] == "verify G=4"
+            else (spec_counts[(layout, kv)][row["name"]], f"spec engine, {layout} {kv}"))
+    verify_keys = ("name", "shape_tag", "shape", "launches", "launches_run", "max_abs_err",
+                   "ms", "eager_ms", "plain_ms", "contiguous_twin_ms", "bound_ms", "bound_by",
+                   "library_ms", "over_library")
+    emit({"phase": "verify_rows",
+          "rows": [{k: r[k] for k in verify_keys if k in r}
+                   for r in report["prefill_append_verify_shapes"]]})
     del params
     gc.collect()
     torch.cuda.empty_cache()

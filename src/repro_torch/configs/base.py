@@ -43,6 +43,17 @@ class ModelConfig:
     # the table-lookup engine, "auto" takes TL only where a measured TL win
     # is on record (kernels/autotune.py) and the tree carries w_idx.
     matmul_engine: str = "auto"  # packed | tl | auto
+    # Speculative decoding (ServingEngine(speculative=True) opts in): gamma
+    # tokens drafted per decoding slot by prompt lookup over the slot's
+    # history (the longest n-gram suffix, n <= spec_ngram_max) and verified
+    # in one gamma + 1-row chunk; the engine stops speculating once
+    # spec_disable_after drafts were offered at an acceptance below
+    # spec_min_acceptance.
+    spec_gamma: int = 4
+    spec_draft: str = "ngram"  # serving/speculative.py DRAFTERS key
+    spec_ngram_max: int = 3
+    spec_min_acceptance: float = 0.05
+    spec_disable_after: int = 64
     admission_queue_cap: int = 0  # 0 = unbounded
     request_ttl_s: float = 0.0  # 0 = no deadline
     stats_ring_events: int = 4096  # engine event ring (0 = unbounded)

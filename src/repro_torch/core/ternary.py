@@ -1,5 +1,5 @@
-"""Ternary weights, int8 activations and the KV page helpers
-(``repro/core/ternary.py:36-105,163-207``).
+"""Ternary weights, int8 activations, the frontier mask and the KV page
+helpers (``repro/core/ternary.py:36-105,121-145,163-207``).
 
 Weights: absmean scale, then {-1, 0, +1}. Activations and KV-cache rows:
 per-token absmax int8. ``quantize_act`` computes the scale and ``x / scale`` in the *input*
@@ -60,6 +60,26 @@ def dequantize_kv(x_i8: torch.Tensor, scale: torch.Tensor,
     """Inverse of :func:`quantize_kv`: the product in f32, then one cast to
     ``dtype`` (the attention compute dtype)."""
     return (x_i8.to(torch.float32) * scale[..., None].to(torch.float32)).to(dtype)
+
+
+def mask_past_frontier(x: torch.Tensor, frontier, *, seq_axis: int,
+                       batch_axis: int = 0) -> torch.Tensor:
+    """``x`` with every element at sequence positions ``>= frontier`` zeroed
+    (``core/ternary.py:121``). Rows at or past a slot's frontier are dead:
+    every attention read stops below the frontier and the next append lands
+    on them, so rejecting drafted tokens is a rewind of the frontier, and
+    two caches hold the same state when they agree under this mask.
+    ``frontier`` is a number or a per-slot [B] tensor along ``batch_axis``."""
+    n = x.shape[seq_axis]
+    idx_shape = [1] * x.ndim
+    idx_shape[seq_axis] = n
+    idx = torch.arange(n, device=x.device).reshape(idx_shape)
+    frontier = torch.as_tensor(frontier, device=x.device).to(torch.int64)
+    if frontier.ndim:
+        f_shape = [1] * x.ndim
+        f_shape[batch_axis] = frontier.shape[0]
+        frontier = frontier.reshape(f_shape)
+    return torch.where(idx < frontier, x, torch.zeros_like(x))
 
 
 def gather_kv_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

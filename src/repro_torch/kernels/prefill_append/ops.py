@@ -20,8 +20,10 @@ from . import ref
 def prefill_append(q, k_new, v_new, k_cache, v_cache, offset, *, k_scale=None,
                    v_scale=None, window: int = 0, softcap: float = 0.0,
                    prefix_limit: int = 0):
-    """q [B, H, C, D] at positions offset[b] + [0, C) (offset ≡ 0 mod C,
-    offset + C <= M); k/v_new [B, HK, C, D]; k/v cache [B, HK, M, D] in q's
+    """q [B, H, C, D] at positions offset[b] + [0, C) (any offset with
+    offset + C <= M: a prefill chunk's, a multiple of C, or a speculative
+    verify chunk's, at a decode frontier); k/v_new [B, HK, C, D]; k/v cache
+    [B, HK, M, D] in q's
     dtype, or int8 with ``k_scale``/``v_scale`` [B, HK, M] f32; offset [B]
     int32. Slots at ``offset >= prefix_limit > 0`` only write; their output
     rows are zero. Appends the chunk in place and returns out [B, H, C, D]."""
@@ -59,10 +61,11 @@ def prefill_append_paged(q, k_new, v_new, k_pool, v_pool, page_table, offset, *,
     """:func:`prefill_append` over k/v pools [P, HK, ps, D] (q's dtype, or
     int8 with ``k_scale``/``v_scale`` pools [P, HK, ps] f32): slot b's
     logical row r is row r % ps of page ``page_table[b, r // ps]``
-    (``page_table`` [B, NB] int32, NB * ps the logical cache length). The
-    chunk's rows fill whole pages (C % ps == 0) and are written into the
-    pools in place; every page a live chunk writes must be mapped by no other
-    slot. Returns out [B, H, C, D]."""
+    (``page_table`` [B, NB] int32, NB * ps the logical cache length; ps a
+    multiple of 32). The chunk's rows may start anywhere in a page and
+    straddle page boundaries, as a verify chunk at a decode frontier does;
+    they are written into the pools in place, and every page a live chunk
+    writes must be mapped by no other slot. Returns out [B, H, C, D]."""
     if q.device.type == "cpu":
         return ref.prefill_append_paged(q, k_new, v_new, k_pool, v_pool, page_table,
                                         offset, k_scale=k_scale, v_scale=v_scale,
@@ -126,9 +129,8 @@ def _launch(name, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, offset,
                          f"{tuple(offset.shape)}"
                          + (f", page_table {tuple(page_table.shape)}" if paged else "")
                          + " do not fit")
-    if paged and (rows % 32 or c % rows):
-        raise ValueError(f"{name}: page size {rows} must be a multiple of 32 (one kv tile) "
-                         f"and divide the chunk {c}")
+    if paged and rows % 32:
+        raise ValueError(f"{name}: page size {rows} must be a multiple of 32 (one kv tile)")
     if d not in (16, 32, 64, 96, 128):
         raise ValueError(f"{name}: head_dim {d} is not one of 16, 32, 64, 96, 128")
     for what in ("k_new", "v_new", "k_cache", "v_cache"):  # read as 16-byte vectors

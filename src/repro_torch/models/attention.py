@@ -10,7 +10,12 @@ layouts.
   variant for an int8 cache).
 * ``prefill_append_attention`` — a chunk per slot against its cache prefix
   and itself, appending the chunk's K/V in place, through the kernel set
-  (the CUDA prefill-append kernel on the card).
+  (the CUDA prefill-append kernel on the card) at any offset: a prefill
+  chunk's, a multiple of its size, or a speculative verify chunk's, at a
+  decode frontier. The JAX package routes the unaligned case to its XLA
+  form (``attention.py:249-262,374-386``), because its Pallas kernel writes
+  aligned cache windows; the port's kernel appends row by row and takes
+  any frontier on both layouts.
 * ``update_kv_cache`` / ``update_kv_cache_quant`` — write each slot's new
   K/V row at its ``pos`` (int8: quantized, with its f32 row scale), and
   ``append_kv_cache`` / ``append_kv_cache_quant``, the chunk append that
@@ -48,27 +53,16 @@ def decode_attention(q, k_cache, v_cache, pos, *, kernels, k_scale=None, v_scale
 
 
 def prefill_append_attention(q, k_new, v_new, k_cache, v_cache, offset, *, kernels,
-                             k_scale=None, v_scale=None, prefix_limit: int = 0,
-                             aligned: bool = True):
+                             k_scale=None, v_scale=None, prefix_limit: int = 0):
     """A chunk ``q [B, H, C, D]`` at positions ``offset[b] + [0, C)`` attends
     to the slot's cache prefix and causally to itself; its K/V
-    ``[B, HK, C, D]`` are appended at ``[offset, offset + C)`` in place.
-    Offsets at or past ``prefix_limit > 0`` are write-only (the engine's
-    trash-diverted slots). The kernel writes whole chunk windows, so
-    ``offset ≡ 0 (mod C)`` (``aligned``); the unaligned append of
-    speculative verify is not ported, and asking for it raises, as the JAX
-    kernel route does (``attention.py:256-262``)."""
-    _require_aligned("prefill_append_attention", aligned)
+    ``[B, HK, C, D]`` are appended at ``[offset, offset + C)`` in place, at
+    any offset with ``offset + C <= M``. Offsets at or past
+    ``prefix_limit > 0`` are write-only (the engine's trash-diverted
+    slots)."""
     return kernels.prefill_append(q, k_new, v_new, k_cache, v_cache, offset,
                                   k_scale=k_scale, v_scale=v_scale,
                                   prefix_limit=prefix_limit)
-
-
-def _require_aligned(name: str, aligned: bool) -> None:
-    if not aligned:
-        raise ValueError(
-            f"{name}: the kernel requires chunk-aligned offsets "
-            "(aligned=True); the unaligned append of speculative verify is not ported")
 
 
 def decode_attention_paged(q, k_pool, v_pool, page_table, pos, *, kernels, k_scale=None,
@@ -82,12 +76,11 @@ def decode_attention_paged(q, k_pool, v_pool, page_table, pos, *, kernels, k_sca
 
 def prefill_append_attention_paged(q, k_new, v_new, k_pool, v_pool, page_table, offset, *,
                                    kernels, k_scale=None, v_scale=None,
-                                   prefix_limit: int = 0, aligned: bool = True):
-    """Page-indirect twin of :func:`prefill_append_attention`: the chunk's
-    K/V land in the pool pages ``page_table[b, offset/ps + t]`` in place,
-    which the engine has made exclusive to the slot (``ensure_writable``).
-    The same ``aligned`` contract."""
-    _require_aligned("prefill_append_attention_paged", aligned)
+                                   prefix_limit: int = 0):
+    """Page-indirect twin of :func:`prefill_append_attention`: row r of the
+    chunk lands in pool page ``page_table[b, (offset + r) // ps]`` in place,
+    which the engine has made exclusive to the slot (``ensure_writable``);
+    a chunk may start anywhere in a page and straddle the next."""
     return kernels.prefill_append_paged(q, k_new, v_new, k_pool, v_pool, page_table,
                                         offset, k_scale=k_scale, v_scale=v_scale,
                                         prefix_limit=prefix_limit)

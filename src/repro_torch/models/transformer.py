@@ -329,8 +329,9 @@ def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *,
 def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
                        kernels, last_row=None, prefix_limit: int = 0, page_table=None):
     """One chunked-prefill step (``transformer.py:608-666``): ``tokens
-    [B, C]`` at positions ``offset[b] + [0, C)`` (``offset [B]`` int32,
-    ≡ 0 mod C) attend to each slot's cache prefix and to themselves, and
+    [B, C]`` at positions ``offset[b] + [0, C)`` (``offset [B]`` int32, any
+    offset with ``offset + C`` within the cache) attend to each slot's cache
+    prefix and to themselves, and
     every layer appends the chunk's K/V into ``caches`` in place. Offsets
     at or past ``prefix_limit > 0`` are write-only. Returns (logits, caches):
     logits [B, C, V], or with ``last_row [B]`` only each slot's row, gathered
@@ -355,6 +356,22 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
         idx = last_row.to(torch.int64)[:, None, None].expand(b, 1, x.shape[-1])
         return _head(params, x.gather(1, idx), cfg)[:, 0], caches
     return _head(params, x, cfg), caches
+
+
+def verify_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
+                      kernels, prefix_limit: int = 0, page_table=None):
+    """The speculative verify step (``transformer.py:669-703``): the chunk
+    ``tokens [B, C]`` = [current token, C - 1 drafts] at each slot's decode
+    frontier ``offset [B]`` (anywhere, not a multiple of C), through
+    :func:`prefill_chunk_step`, returning (logits at every chunk row
+    [B, C, V], caches). Row j is the model's distribution after chunk rows
+    0..j, what j + 1 decode steps give one by one. The chunk's K/V land at
+    ``[offset, offset + C)``; the rows of rejected drafts are rolled back by
+    rewinding the frontier (``core.ternary.mask_past_frontier``). The
+    port's prefill-append kernel runs here at any frontier, where JAX pins
+    its XLA form."""
+    return prefill_chunk_step(params, tokens, caches, offset, cfg, kernels=kernels,
+                              prefix_limit=prefix_limit, page_table=page_table)
 
 
 def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> dict:

@@ -22,10 +22,16 @@ prefilled whole at admission, by the one-shot ``prefill_bucketed`` of
 ``generate``, and its caches are written into the slot's rows; its first
 token is recorded on the next decode-only tick. The RWKV-6 family (``ssm``)
 is served this way only, its per-slot recurrent state written into the
-slot in place of cache rows. Not ported yet: the other model families,
-speculative ticks, fault injection, the straggler monitor and request
-export. A tick that raises
-propagates out of :meth:`ServingEngine.step`: there is no fallback to the
+slot in place of cache rows. With ``ServingEngine(speculative=True)``
+(chunked prefill, either layout, either cache dtype) every decoding slot
+drafts ``spec_gamma`` tokens a tick from its device-resident token history
+(prompt lookup, ``serving/speculative.py``) and verifies them in one
+``spec_gamma + 1``-row chunk through the prefill-append kernels at its
+frontier; it emits the accepted prefix and the model's correction, then
+rewinds its frontier past the rejected rows. Greedy streams are the plain
+engine's. Not ported yet: the other model families, fault injection (the
+spec tick's too), the straggler monitor and request export. A tick that
+raises propagates out of :meth:`ServingEngine.step`: there is no fallback to the
 plain versions or to the CPU; a page pool that runs dry fails the request
 that needed the page (``FAILED``, ``page_pool_exhausted``).
 """
@@ -42,9 +48,11 @@ import torch
 
 from .. import _common as C
 from ..core import bitlinear
+from ..core.ternary import mask_past_frontier
 from ..kernels import KERNELS
 from ..models import transformer as Tr
 from . import resilience as R
+from . import speculative as Sp
 from .paging import PagedKV, PagePoolExhausted
 
 
@@ -129,6 +137,18 @@ def fit_caches(caches, cfg, max_len: int) -> dict:
     without positions pass through. Cropped rows lie past every live
     frontier, so no attended state goes."""
     return _resize_caches(caches, cfg, max_len, crop=True)
+
+
+def live_cache_state(caches, cfg, frontier) -> dict:
+    """The live view of a contiguous cache tree for state comparisons
+    (``engine.py:1586-1605``): every row of a sequence leaf (axis 3, slots
+    on axis 1, int8 scales included) at or past the slot's ``frontier [B]``
+    is zeroed. Rows past a frontier are dead, so two engine states are the
+    same when their live views are."""
+    seq = Tr.seq_leaves(cfg)
+    return {"blocks": {b: {n: (mask_past_frontier(leaf, frontier, seq_axis=3, batch_axis=1)
+                               if n in seq else leaf) for n, leaf in leaves.items()}
+                       for b, leaves in caches["blocks"].items()}}
 
 
 def engine_params(params, cfg):
@@ -303,6 +323,86 @@ def _fused_tick_step(params, caches, cur_tok, pos, done, gen_count, max_new, dec
     return new_tok, new_pos, new_done, new_count, torch.stack(rows)
 
 
+def _spec_tick_step(params, caches, hist, cur_tok, pos, done, gen_count, max_new, dec_active,
+                    chunk_tok, chunk_off, finishing, last_row, fin_pos, page_table, *, cfg,
+                    kernels, drafter, gamma: int, eos_id: int, max_len: int, trash_base: int,
+                    guards: bool):
+    """One speculative tick (``engine.py:1764-1900``): every decoding slot
+    drafts ``gamma`` tokens from its history ``hist [B, L]`` and verifies
+    them in one ``gamma + 1``-row chunk at its frontier (the others diverted
+    to ``trash_base``, write-only); with ``chunk_tok`` (None: no prefill
+    work) one prompt chunk per selected slot follows, as in the fused tick.
+    A decoding slot emits n in [1, gamma + 1] tokens: the accepted drafts
+    and the model's correction, cut at the first token that retires it
+    (``_retire`` per micro-step), so the stream is what n decode ticks give.
+    Its frontier advances by n only: the rejected rows are rolled back by
+    that rewind. Returns the new (hist, cur_tok, pos, done, gen_count) and
+    the packed int32 state [gamma + 1 emission rows, emitted count,
+    chargeable drafts, done (, guard flags)] x slots; a finishing slot's
+    first token is its emission row 0."""
+    drafts = drafter(hist, pos)
+    ver_tok = torch.cat([cur_tok[:, None], drafts], dim=1).to(torch.int64)
+    ver_off = torch.where(dec_active, pos, torch.full_like(pos, trash_base))
+    ver_logits, caches = Tr.verify_chunk_step(params, ver_tok, caches, ver_off, cfg,
+                                              kernels=kernels, prefix_limit=trash_base,
+                                              page_table=page_table)
+    targets, k = Sp.accept_tokens(drafts, ver_logits)
+    # micro-step j emits targets[:, j] while j <= k, and stops after the
+    # first token that retires the slot
+    dev = pos.device
+    j = torch.arange(gamma + 1, dtype=torch.int32, device=dev)[None, :]
+    retire_j = _retire(targets, pos[:, None] + j + 1, gen_count[:, None] + j + 1,
+                       max_new[:, None], eos_id=eos_id, max_len=max_len)
+    stop_before = torch.cumsum(torch.nn.functional.pad(retire_j[:, :-1].to(torch.int32),
+                                                       (1, 0)), dim=1) > 0
+    emit = (j <= k[:, None]) & ~stop_before & dec_active[:, None]
+    n_emit = emit.sum(dim=1).to(torch.int32)
+    last_tok = targets.gather(1, (n_emit - 1).clamp(min=0).to(torch.int64)[:, None])[:, 0]
+    new_tok = torch.where(dec_active, last_tok, cur_tok)
+    new_pos, new_count = pos + n_emit, gen_count + n_emit  # the rewind is the rollback
+    new_done = done | (retire_j & emit).any(dim=1)
+    # the emissions into the history: micro-step j's token at pos + 1 + j
+    hidx = torch.arange(hist.shape[1], device=dev)[None, :]
+    rel = hidx - (pos.to(torch.int64)[:, None] + 1)
+    relc = rel.clamp(0, gamma)
+    write = emit.gather(1, relc) & (rel >= 0) & (rel <= gamma)
+    hist = torch.where(write, targets.gather(1, relc), hist)
+    if chunk_tok is not None:  # the mixed tick: the fused tick's prefill phase
+        first_logits, caches = Tr.prefill_chunk_step(
+            params, chunk_tok, caches, chunk_off, cfg, kernels=kernels, last_row=last_row,
+            prefix_limit=trash_base, page_table=page_table)
+        first_tok, new_tok, new_pos, new_count, new_done = _prefill_handoff(
+            first_logits, finishing, fin_pos, new_tok, new_pos, new_count, new_done, max_new,
+            eos_id=eos_id, max_len=max_len)
+        hist = torch.where((hidx == fin_pos.to(torch.int64)[:, None]) & finishing[:, None],
+                           first_tok[:, None], hist)
+        emit0 = torch.where(finishing, first_tok, targets[:, 0])
+        n_out = torch.where(finishing, torch.ones_like(n_emit), n_emit)
+    else:
+        emit0, n_out = targets[:, 0], n_emit
+    # drafts chargeable to the acceptance: only positions the budget and the
+    # cache could have emitted (an EOS cut still counts)
+    window = torch.minimum(torch.minimum(max_new - gen_count, (max_len - 1) - pos),
+                           torch.full_like(pos, gamma + 1))
+    drafted = (window - 1).clamp(0, gamma) * dec_active.to(torch.int32)
+    rows = [torch.cat([emit0[:, None], targets[:, 1:]], dim=1).T, n_out[None], drafted[None],
+            new_done.to(torch.int32)[None]]
+    if guards:
+        # logits of the emitting rows; scales of the rows written live
+        logit_bad = R.logits_guard(ver_logits, where=dec_active)
+        grows = ver_off[:, None] + j
+        gvalid = dec_active[:, None].expand(-1, gamma + 1)
+        if chunk_tok is not None:
+            chunk = chunk_tok.shape[1]
+            logit_bad = logit_bad | R.logits_guard(first_logits, where=finishing)
+            grows = torch.cat([grows, chunk_off[:, None] + torch.arange(
+                chunk, dtype=torch.int32, device=dev)[None, :]], dim=1)
+            gvalid = torch.cat([gvalid, (chunk_off < trash_base)[:, None].expand(-1, chunk)],
+                               dim=1)
+        rows.append(_guard_row(logit_bad, caches, grows, gvalid, page_table is not None)[None])
+    return hist, new_tok, new_pos, new_done, new_count, torch.cat(rows).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Continuous batching: the scheduler
 # ---------------------------------------------------------------------------
@@ -324,6 +424,14 @@ class Request:
     cancel_requested: bool = False
     preemptions: int = 0  # times evicted and requeued for re-prefill
     _seq: int = 0  # submission order (FIFO within a priority, preemption ties)
+    # speculative decoding: drafts offered and accepted over its verify ticks
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+
+    @property
+    def spec_acceptance(self) -> float:
+        """Share of the drafted tokens accepted (0.0 when none was drafted)."""
+        return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
 
     def expired(self, now: float) -> bool:
         return (self.deadline_s is not None and self.submitted_at is not None
@@ -373,6 +481,18 @@ class ServingEngine:
     slots step their state too, as in JAX; the scale guard finds no int8
     scales there, so only the logits guard acts.
 
+    ``speculative=True`` (``engine.py:606-623``; the chunked prefill only,
+    so the ssm family stays on plain decode) turns every tick with a
+    decoding slot into a speculative tick (:meth:`_spec_tick`): each
+    decoding slot drafts ``spec_gamma`` (default ``cfg.spec_gamma``) tokens
+    from its row of the device-resident history ``hist [slots, cache_len]``
+    (prompt and emissions) and verifies them in one chunk at its frontier;
+    the verify rows ride the tick's chunk budget, and a prompt chunk may
+    follow in the same tick. A pure-prefill tick stays the plain fused tick.
+    Once ``cfg.spec_disable_after`` drafts were offered at an acceptance
+    below ``cfg.spec_min_acceptance`` the engine stops speculating (event
+    ``spec_disabled``).
+
     Every request ends in exactly one terminal ``resilience.Status``:
     ``submit`` applies queue backpressure (``queue_cap`` /
     ``cfg.admission_queue_cap``), deadlines come from ``Request.deadline_s``
@@ -388,7 +508,8 @@ class ServingEngine:
 
     def __init__(self, params, cfg, *, slots: int = 8, max_len: int = 2048,
                  eos_id: int = -1, prefill: str = "auto", queue_cap: int | None = None,
-                 guards: bool = True, clock=time.monotonic, kernels=KERNELS, device=None):
+                 guards: bool = True, clock=time.monotonic, kernels=KERNELS, device=None,
+                 speculative: bool = False, spec_gamma: int | None = None):
         self.dev = C.resolve_device(device)
         self.params, self.cfg, self.kernels = engine_params(params, cfg), cfg, kernels
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
@@ -441,6 +562,18 @@ class ServingEngine:
         self.caches = init_caches(
             cfg, slots, self.cache_len, device=self.dev,
             kv_pages=self.paged.num_pages if self.paged is not None else None)
+        # speculative decoding (engine.py:606-623): chunked engines only
+        self.speculative = bool(speculative) and prefill == "chunked"
+        self.spec_gamma = int(spec_gamma if spec_gamma is not None else cfg.spec_gamma)
+        if self.speculative and not 1 <= self.spec_gamma < cmax:
+            raise ValueError(f"spec_gamma={self.spec_gamma} must be in [1, {cmax}): the "
+                             "gamma + 1 verify chunk must fit the chunk_max trash tail")
+        self._drafter = Sp.make_drafter(cfg, gamma=self.spec_gamma) if self.speculative else None
+        # the drafter's corpus, each slot's prompt and emissions; live at <= pos
+        self.hist = (torch.zeros((slots, self.cache_len), dtype=torch.int32, device=self.dev)
+                     if self.speculative else None)
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
 
         def zeros(dtype):
             return torch.zeros((slots,), dtype=dtype, device=self.dev)
@@ -458,6 +591,7 @@ class ServingEngine:
         self._started_at = clock()
         self.tick_count = 0
         self.fused_ticks = 0  # ticks that appended prompt chunks
+        self.spec_ticks = 0  # speculative ticks (verify, with or without a chunk)
         self.host_transfers = 0
         self.events: list[dict] = []  # a bounded ring of scheduler events
         self.events_cap = int(cfg.stats_ring_events)
@@ -565,6 +699,7 @@ class ServingEngine:
         return {
             "ticks": self.tick_count,
             "fused_ticks": self.fused_ticks,
+            "spec_ticks": self.spec_ticks,
             "host_transfers": self.host_transfers,
             "uptime_s": max(self._clock() - self._started_at, 0.0),
             "statuses": {s.name: n for s, n in sorted(
@@ -578,7 +713,15 @@ class ServingEngine:
             "kv_layout": "paged" if self.paged is not None else "contiguous",
             "paged": self.paged.stats() if self.paged is not None else None,
             "kv_cache_dtype": self.cfg.kv_cache_dtype,
+            "speculative": self.speculative,
+            "spec_acceptance": self.spec_acceptance_rate,
         }
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Drafted tokens accepted over every verify tick."""
+        return (self.spec_accepted_total / self.spec_drafted_total
+                if self.spec_drafted_total else 0.0)
 
     @property
     def prefilling_slots(self) -> int:
@@ -635,6 +778,8 @@ class ServingEngine:
                                         true_len=plen)
         self.live[slot] = req
         self.max_new_arr[slot] = remaining
+        if self.speculative:  # seed the drafter's history with the prompt
+            self.hist[slot, :plen] = torch.as_tensor(prompt, device=self.dev).to(torch.int32)
         return True
 
     def _prefill_slot(self, slot: int, req: Request, prompt: np.ndarray, remaining: int):
@@ -781,18 +926,21 @@ class ServingEngine:
         return failed
 
     def _prepare_tick_pages(self, selected, chunk, chunk_tok, chunk_off, finishing,
-                            last_row, fin_pos, dec_active):
-        """Page preparation for a fused tick: the chunk windows of the
-        selected slots and the frontier row of each decoding slot become
-        exclusive; slots shed on pool exhaustion are diverted in place (their
-        chunk to the trash tail, their decode and handoff masked off).
-        Returns the device page table, or None on the contiguous layout."""
+                            last_row, fin_pos, dec_active, dec_span: int = 1):
+        """Page preparation for a fused or speculative tick: the chunk
+        windows of the selected slots and the ``dec_span`` rows from the
+        frontier of each decoding slot (one decode row, or the verify chunk,
+        which may straddle two pages) become exclusive; slots shed on pool
+        exhaustion are diverted in place (their chunk to the trash tail,
+        their decode and handoff masked off). Returns the device page table,
+        or None on the contiguous layout."""
         if self.paged is None:
             return None
         ps = self.paged.page_size
         writes = [(s, range(int(chunk_off[s]) // ps, (int(chunk_off[s]) + chunk) // ps))
                   for s in selected]
-        writes += [(s, [int(self._pos_host[s]) // ps])
+        writes += [(s, range(int(self._pos_host[s]) // ps,
+                             (int(self._pos_host[s]) + dec_span - 1) // ps + 1))
                    for s in range(self.slots) if dec_active[s]]
         for s in self._cow_prepare(writes):
             if s in selected:
@@ -841,6 +989,8 @@ class ServingEngine:
                 if self.paged is not None:  # intern the finished prefill
                     self.paged.insert_prefix(s)
                 req.generated.append(int(tok[s]))
+                if self.hist is not None:  # keep the drafter's history current
+                    self.hist[s, int(fin_pos[s])] = int(tok[s])
                 if done[s]:
                     self._finish(s, req, self._terminal_status(req))
             elif s in selected:  # mid-prefill: advance the plan
@@ -851,6 +1001,84 @@ class ServingEngine:
                 req.generated.append(int(tok[s]))
                 if done[s]:
                     self._finish(s, req, self._terminal_status(req))
+        return True
+
+    def _spec_tick(self, prefilling: list) -> bool:
+        """One speculative tick (``engine.py:1256-1348``): draft and verify
+        ``spec_gamma`` tokens for every decoding slot and, with slots
+        mid-prefill, one prompt chunk per selected slot; one host transfer."""
+        slots, gamma = self.slots, self.spec_gamma
+        dec_active = np.array([self.live[s] is not None and self._plan[s] is None
+                               for s in range(slots)])
+        if prefilling:
+            # the verify rows ride the chunk budget: every decoding slot spends
+            # gamma + 1 rows, prompts get the rest (at least one chunk)
+            (chunk, selected, chunk_tok, chunk_off, finishing, last_row,
+             fin_pos) = self._plan_chunks(
+                prefilling, self._chunk_budget() - int(dec_active.sum()) * (gamma + 1))
+        else:
+            chunk, selected = None, []
+            chunk_tok = np.zeros((slots, 1), np.int64)
+            chunk_off = np.full((slots,), self.trash_base, np.int32)
+            finishing = np.zeros((slots,), bool)
+            last_row = np.zeros((slots,), np.int32)
+            fin_pos = np.zeros((slots,), np.int32)
+        # the verify writes gamma + 1 rows from each decoding slot's frontier;
+        # rejected ones roll back by the rewind alone, in pages already its own
+        page_table = self._prepare_tick_pages(selected, chunk, chunk_tok, chunk_off,
+                                              finishing, last_row, fin_pos, dec_active,
+                                              dec_span=gamma + 1)
+        self.spec_ticks += 1
+        self.fused_ticks += int(chunk is not None)
+        (self.hist, self.cur_tok, self.pos, self.done, self.gen_count,
+         packed) = _spec_tick_step(
+            self.params, self.caches, self.hist, self.cur_tok, self.pos, self.done,
+            self.gen_count, self.max_new_arr, self._to_device(dec_active),
+            self._to_device(chunk_tok) if chunk is not None else None,
+            self._to_device(chunk_off), self._to_device(finishing),
+            self._to_device(last_row), self._to_device(fin_pos), page_table, cfg=self.cfg,
+            kernels=self.kernels, drafter=self._drafter, gamma=gamma, eos_id=self.eos_id,
+            max_len=self.max_len, trash_base=self.trash_base, guards=self.guards)
+        state = self._transfer(packed)
+        toks, n_out = state[: gamma + 1], state[gamma + 1]
+        drafted, done = state[gamma + 2], state[gamma + 3]
+        guard = state[gamma + 4] if self.guards else np.zeros((slots,), np.int64)
+        if self.paged is not None:  # mirror the device frontier's advance
+            self._pos_host[dec_active] += n_out[dec_active]
+            self._pos_host[finishing] = fin_pos[finishing]
+        for s, req in enumerate(self.live):
+            if req is None:
+                continue
+            if guard[s]:
+                self._quarantine(s, req, guard[s])
+            elif finishing[s]:
+                self._plan[s] = None
+                if self.paged is not None:  # intern the finished prefill
+                    self.paged.insert_prefix(s)
+                req.generated.append(int(toks[0, s]))
+                if done[s]:
+                    self._finish(s, req, self._terminal_status(req))
+            elif s in selected:  # mid-prefill: advance the plan
+                p = self._plan[s]
+                p.off += chunk
+                p.ci += 1
+            elif dec_active[s]:
+                n, d = int(n_out[s]), int(drafted[s])
+                req.generated.extend(int(toks[j, s]) for j in range(n))
+                req.spec_drafted += d
+                req.spec_accepted += min(n - 1, d)
+                self.spec_drafted_total += d
+                self.spec_accepted_total += min(n - 1, d)
+                if done[s]:
+                    self._finish(s, req, self._terminal_status(req))
+        # the acceptance watchdog: with enough drafts offered to judge, a
+        # collapsed acceptance makes every verify pure overhead
+        if (self.cfg.spec_disable_after > 0
+                and self.spec_drafted_total >= self.cfg.spec_disable_after
+                and self.spec_acceptance_rate < self.cfg.spec_min_acceptance):
+            self.speculative = False
+            self._event("spec_disabled", acceptance=round(self.spec_acceptance_rate, 4),
+                        drafted=self.spec_drafted_total)
         return True
 
     def _decode_tick(self) -> bool:
@@ -900,6 +1128,10 @@ class ServingEngine:
     def _dispatch(self) -> bool:
         prefilling = [s for s in range(self.slots) if self._plan[s] is not None]
         with torch.no_grad():
+            if self.speculative and any(r is not None and p is None
+                                        for r, p in zip(self.live, self._plan)):
+                return self._spec_tick(prefilling)
+            # a pure-prefill tick has nothing to verify: the plain fused tick
             return self._fused_tick(prefilling) if prefilling else self._decode_tick()
 
     def step(self) -> bool:

@@ -33,7 +33,11 @@ tiles) with two query heads a kv head at C = 256 and at C = 96, where a
 tile holds the end of one head and the start of the next, paged at
 ps = 32 and 64. Each kernel on the clean gathered view gives the paged
 kernel's output on the poisoned pools bit for bit, so no unread row
-reaches it.
+reaches it. The speculative verify chunk (C = 1, 5, 9, and G = 4 at C =
+5) is held the same way at decode frontiers that are no multiple of C or
+of a tile, chunks straddling page boundaries; the smoke config through
+``ServingEngine(speculative=True)`` gives the CPU's streams, statuses and
+drafted/accepted counts, and the plain engine's streams.
 
 The table-lookup (TL) kernels are bit-equal to their plain versions and to
 their packed twins (the same int32 sums through the same epilogues), at
@@ -658,6 +662,75 @@ def test_prefill_append_grouped_tiles(cuda, dtype, quant, c, g, window, ps):
                                    _bits(view[s, :, blk * ps:(blk + 1) * ps]))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("c,g", [(1, 1), (5, 1), (9, 1), (5, 4)])
+def test_prefill_append_verify_frontiers(cuda, dtype, quant, c, g):
+    """Speculative verify chunks (C = gamma + 1) at decode frontiers that
+    are no multiple of C or of a tile: a partial last prefix tile, chunks
+    that straddle a page boundary (paged, ps = 64: 62 and 125), a 64-row
+    query tile holding the rows of G query heads, and a write-only slot.
+    Contiguous on the clean gathered view within the bars of the plain
+    version, its cache equal to the plain version's bytes and unchanged
+    outside the append; paged on NaN pools finite, bit for bit the
+    contiguous kernel on both views, its pools equal to the plain
+    version's bytes (the mapped pages), its written rows that kernel's
+    cache scattered back."""
+    rng = np.random.default_rng(90 + c + g + quant)
+    b, hk, d, ps, m = 6, 2, 96, 64, 640
+    nb = m // ps
+    off_np = np.array([163, 62, 517, 125, 0, 576], np.int32)  # the last one write-only
+    limit = 576
+    pages = b * nb + 2
+    mapped = [-(-(o + c) // ps) for o in off_np[:5]] + [0]
+    table = _paged_table(rng, b, nb, pages, mapped, share=(2, 0, 2))
+    poisoned, clean = _paged_pools(rng, cuda, pages, hk, ps, d, TORCH_DT[dtype], quant, table)
+    td = TORCH_DT[dtype]
+    q = _t(rng.standard_normal((b, hk * g, c, d)).astype(np.float32), cuda, td)
+    kn = _t(rng.standard_normal((b, hk, c, d)).astype(np.float32), cuda, td)
+    vn = _t(rng.standard_normal((b, hk, c, d)).astype(np.float32) * 0.25, cuda, td)
+    off, pt = _t(off_np, cuda), _t(table, cuda)
+
+    def scales(pools):
+        return dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+
+    dense = [gather_kv_pages(t, pt) for t in clean]
+    mine, plain = [t.clone() for t in dense], [t.clone() for t in dense]
+    got = pa_ops.prefill_append(q, kn, vn, mine[0], mine[1], off, prefix_limit=limit,
+                                **scales(mine))
+    want = pa_ref.prefill_append(q, kn, vn, plain[0], plain[1], off, prefix_limit=limit,
+                                 **scales(plain))
+    pools, ref_pools = [t.clone() for t in poisoned], [t.clone() for t in clean]
+    views = [gather_kv_pages(t, pt) for t in poisoned]
+    paged = pa_ops.prefill_append_paged(q, kn, vn, pools[0], pools[1], pt, off,
+                                        prefix_limit=limit, **scales(pools))
+    twin = pa_ops.prefill_append(q, kn, vn, views[0], views[1], off, prefix_limit=limit,
+                                 **scales(views))
+    pa_ref.prefill_append_paged(q, kn, vn, ref_pools[0], ref_pools[1], pt, off,
+                                prefix_limit=limit, **scales(ref_pools))
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    written = torch.zeros(dense[0].shape[:3], dtype=torch.bool, device=cuda)
+    for s, o in enumerate(off_np.tolist()):
+        written[s, :, o:o + c] = True
+    for a, w, before in zip(mine, plain, dense):
+        assert torch.equal(_bits(a), _bits(w))
+        assert torch.equal(_bits(a[~written]), _bits(before[~written]))
+    assert torch.isfinite(paged).all()
+    assert torch.equal(_bits(paged), _bits(twin)) and torch.equal(_bits(paged), _bits(got))
+    live = torch.zeros(pages, dtype=torch.bool)
+    live[torch.from_numpy(table.reshape(-1)).long()] = True
+    live[0] = False  # the garbage page: written by the write-only slot
+    live = live.to(cuda)
+    for a, r, view in zip(pools, ref_pools, views):
+        assert torch.equal(_bits(a[live]), _bits(r[live]))
+        for s, o in enumerate(off_np[:5]):
+            for blk in range(o // ps, (o + c - 1) // ps + 1):
+                assert torch.equal(_bits(a[table[s, blk]]),
+                                   _bits(view[s, :, blk * ps:(blk + 1) * ps]))
+
+
 def test_paged_wrappers_count_and_check(cuda):
     pool = torch.zeros((3, 2, 64, 32), device=cuda)
     pt = torch.ones((1, 2), dtype=torch.int32, device=cuda)
@@ -669,9 +742,14 @@ def test_paged_wrappers_count_and_check(cuda):
     KERNELS.prefill_append_paged(qc, qc, qc, pool, pool.clone(), pt, pos)
     counts = launch_counts()
     assert counts["decode_attention_paged"] == counts["prefill_append_paged"] == 1
+    # a chunk shorter than a page, at an unaligned offset, is taken; a page
+    # size that is no multiple of 32 rows (one kv tile) is not
+    q5 = torch.zeros((1, 2, 5, 32), device=cuda)
+    KERNELS.prefill_append_paged(q5, q5, q5, pool, pool.clone(), pt, pos + 3)
+    assert launch_counts()["prefill_append_paged"] == 2
+    pool48 = torch.zeros((3, 2, 48, 32), device=cuda)
     with pytest.raises(ValueError, match="page size"):
-        pa_ops.prefill_append_paged(qc[:, :, :32].contiguous(), qc[:, :, :32].contiguous(),
-                                    qc[:, :, :32].contiguous(), pool, pool.clone(), pt, pos)
+        pa_ops.prefill_append_paged(q5, q5, q5, pool48, pool48.clone(), pt, pos)
     with pytest.raises(TypeError, match="page_table"):
         da_ops.decode_attention_paged(q, pool, pool.clone(), pt.long(), pos)
 
@@ -719,6 +797,54 @@ def test_smoke_paged_engine_kernels_vs_plain(cuda, kv):
     assert counts["decode_attention_paged" + sfx] == cfg.n_layers * st["ticks"]
     assert counts["prefill_append_paged" + sfx] == cfg.n_layers * st["fused_ticks"] > 0
     assert counts["decode_attention" + sfx] == counts["prefill_append" + sfx] == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_smoke_spec_engine_kernels_vs_plain(cuda, kv, layout):
+    """The f32 smoke config in ServingEngine(speculative=True), a tiled
+    phrase among ragged prompts: through the kernels on the card, the same
+    streams, statuses and per-request drafted and accepted counts as
+    through the plain versions on the CPU, and the same streams as the
+    plain engine on the card; one host transfer per tick; the verify runs
+    through the prefill-append kernel of the layout and cache dtype, 2
+    (layers) launches a spec tick plus 2 a tick with a prompt chunk, and
+    decode attention only in the ticks that are not speculative."""
+    cfg = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                              kv_cache_dtype=kv, kv_layout=layout)
+    specs = TT.param_specs(cfg)
+    cpu_params = TT.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=cfg.dtype)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 30, 70, 130)]
+    prompts.append(np.tile(rng.integers(0, cfg.vocab_size, 7), 9))
+
+    def serve(params, kernels, device, speculative=True):
+        eng = TE.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kernels,
+                               device=device, speculative=speculative)
+        reqs = [TE.Request(rid=i, prompt=p, max_new=16) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [(r.generated, r.status, r.spec_drafted, r.spec_accepted) for r in reqs], eng
+
+    cuda_params = _to(cpu_params, cuda)
+    reset_launch_counts()
+    got, eng = serve(cuda_params, KERNELS, None)
+    counts = launch_counts()
+    want, _ = serve(cpu_params, PLAIN, "cpu")
+    assert got == want
+    plain, _ = serve(cuda_params, KERNELS, None, speculative=False)
+    assert [g[:2] for g in got] == [p[:2] for p in plain]
+    st = eng.stats()
+    assert st["host_transfers"] == st["ticks"] and st["spec_ticks"] > 0
+    assert got[-1][3] > 0.2 * got[-1][2]
+    sfx = ("_paged" if layout == "paged" else "") + ("_quant" if kv == "int8" else "")
+    assert counts["prefill_append" + sfx] == cfg.n_layers * (st["spec_ticks"] + st["fused_ticks"])
+    assert counts["decode_attention" + sfx] == cfg.n_layers * (st["ticks"] - st["spec_ticks"])
+    assert sum(counts.values()) == sum(counts[n] for n in (
+        "norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
+        "prefill_append" + sfx, "decode_attention" + sfx))
 
 
 def _to(tree, dev):

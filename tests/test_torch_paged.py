@@ -321,9 +321,24 @@ def test_prefill_append_paged_plain_vs_jax(dtype, quant, g, window, softcap):
             prefix_limit=3 * C, **tkw_m)
         assert torch.equal(got_m, got)
         assert all(torch.equal(_bits(a)[1:], _bits(b_)[1:]) for a, b_ in zip(pools_m, pools))
-        with pytest.raises(ValueError, match="aligned"):
-            TA.prefill_append_attention_paged(*tx, pools_m[0], pools_m[1], _t(table),
-                                              _t(off), kernels=PLAIN, aligned=False)
+        # chunks at unaligned offsets, each straddling page boundaries, on a
+        # table that maps every block they write: the contiguous form on the
+        # gathered view, output and written rows alike
+        off_u = np.array([7, C + PS - 3, 2 * C + 1, 3 * C], np.int32)
+        mapped_u = [-(-(o + C) // PS) for o in off_u[:3]]
+        table_u = _t(_table(rng, B, NB, PAGES, mapped=mapped_u + [0], share=(2, 1, 2)))
+        views = [TT.gather_kv_pages(t, table_u) for t in pools_m]
+        vkw = dict(k_scale=views[2], v_scale=views[3]) if quant else {}
+        twin = TA.prefill_append_attention(*tx, views[0], views[1], _t(off_u), kernels=PLAIN,
+                                           prefix_limit=3 * C, **vkw)
+        got_u = TA.prefill_append_attention_paged(*tx, pools_m[0], pools_m[1], table_u,
+                                                  _t(off_u), kernels=PLAIN, prefix_limit=3 * C,
+                                                  **tkw_m)
+        assert torch.equal(got_u, twin)
+        for pool, view in zip(pools_m, views):  # the rows of mapped blocks
+            after = TT.gather_kv_pages(pool, table_u)
+            for slot, n in enumerate(mapped_u):
+                assert torch.equal(_bits(after[slot, :, :n * PS]), _bits(view[slot, :, :n * PS]))
 
 
 def test_cache_specs_paged_match_jax():

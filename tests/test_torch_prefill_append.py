@@ -233,13 +233,24 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     assert sum(launch_counts().values()) == 0
 
 
-def test_unaligned_append_is_refused():
-    """The speculative-verify form (``aligned=False``) is not ported: the
-    kernel route refuses it, as JAX's does."""
-    _, (q, kn, vn, k, v) = _inputs("float32", False, 1, seed=1)
-    with pytest.raises(ValueError, match="aligned"):
-        TA.prefill_append_attention(q, kn, vn, k, v, _t(OFFSETS), kernels=KERNELS,
-                                    aligned=False)
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+def test_unaligned_append_plain_vs_jax_xla(quant):
+    """A chunk at offsets that are no multiple of C (speculative verify's
+    decode frontiers), through the model-level form with the kernel set:
+    the caches equal JAX's XLA form (``aligned=False``) exactly, the live
+    outputs within the f32 bar."""
+    jargs, targs = _inputs("float32", quant, 1, seed=1)
+    offsets = np.array([5, 61, 130, 3 * C], np.int32)  # the last one write-only
+    jkw = dict(k_scale=jargs[5], v_scale=jargs[6]) if quant else {}
+    want = jA.prefill_append_attention(*jargs[:5], jnp.asarray(offsets), impl="xla",
+                                       aligned=False, prefix_limit=PREFIX_LIMIT, **jkw)
+    tkw = dict(k_scale=targs[5], v_scale=targs[6]) if quant else {}
+    got = TA.prefill_append_attention(*targs[:5], _t(offsets), kernels=KERNELS,
+                                      prefix_limit=PREFIX_LIMIT, **tkw)
+    for mine, ref_ in zip(targs[3:], want[1:]):
+        np.testing.assert_array_equal(_np(mine), _np(ref_))
+    tol = OUT_TOL["float32"]
+    np.testing.assert_allclose(_np(got)[LIVE], _np(want[0])[LIVE], atol=tol, rtol=tol)
 
 
 def test_new_wrappers_refuse_non_cuda_devices():
