@@ -4,8 +4,9 @@ runs it, times them, then drives greedy ``generate``, the one-shot prefill,
 and the continuous-batching ``ServingEngine`` for tellme-0.7b at full
 width, on the contiguous and on the paged KV layout, with the packed matmul
 engine and with the table-lookup one, with chunked and with per-request
-prefill, and with speculative decoding; then RWKV-6 3B (rwkv6-3b, the ssm family) at full width and depth
-through ``generate``, the one-shot prefill and the per-request engine.
+prefill, with speculative decoding, and under injected faults; then RWKV-6
+3B (rwkv6-3b, the ssm family) at full width and depth through
+``generate``, the one-shot prefill and the per-request engine.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
@@ -80,6 +81,12 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             equal streams, statuses and per-request drafted and accepted
             counts; streams equal to the engine without speculation; the
             tiled phrase accepted above 0.2; the verify's launches.
+  fault_engine_smoke  the smoke engine under a FaultPlan (NaN on one slot,
+            cache_growth on the other, a raising tick, a 0.05 s slow tick),
+            each cache dtype, plain and speculative with garbage drafts on
+            every tick: card (kernels) vs CPU (plain versions), equal
+            streams, statuses, details and event kinds (straggler events
+            dropped); step() never raised; every fault left its event.
   generate  full-width tellme-0.7b (24 layers, random weights from seed 0),
             B = 4, prompt 100 (bucket 128), 64 greedy steps, once through
             the kernels (launch counters reset just before, read just after)
@@ -152,6 +159,20 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             layer's cache the plain append of the verify's K/V rows.
             Then the verify_rows line: the verify-shape rows of the kernels
             phase with their launches in the spec engine run.
+  fault_engine  the engine phase's workload under faults, through the
+            kernels: (a) contiguous bf16 under FAULT_PLAN: the NaN slot
+            QUARANTINED (guard_flag=1), the raising tick's live requests
+            (8) FAILED, every stream a prefix of the engine phase's and every OK
+            one equal to it (the requests queued at the raising tick among
+            them), consecutive_tick_failures back to 0, the slow tick's
+            straggler event, one host transfer per tick that ran; the ms
+            the containment took to rebuild the cache; (b) the same on the
+            paged int8 layout, the rebuilt pool's statistics a fresh
+            pool's; (c) speculative bf16 with garbage drafts on every tick:
+            one spec_disabled event, every request OK with 32 tokens,
+            agreement with the plain streams reported; (d) a plan that
+            never fires between two runs without one: the engine phase's
+            streams, the same launches, tokens/s of each.
   rwkv_smoke  the rwkv smoke config in f32 on the card (kernels) against
             the same weights on the CPU (plain versions), through generate
             and the engine (prefill="auto", which is legacy): equal streams
@@ -245,6 +266,14 @@ PREFILL_SHAPES = ((4, 100), (1, 1000), (1, 4000))  # (batch, prompt): buckets 12
 RWKV_PREFILL_SHAPES = ((1, 1000), (1, 4000))  # (batch, prompt), exact length
 ONE_SLOT_REQUESTS = 2  # the rwkv engine's requests also served through one slot
 REPEAT_REQUESTS, REPEAT_NEW = 8, 64  # the speculative engine's repetitive workload
+# the fault phases' plans: ticks and slots where the engine phase's schedule
+# (and the smoke engine's) has the targeted slots live
+FAULT_PLAN = [dict(kind="nan", tick=10, slot=2), dict(kind="cache_growth", tick=14, slot=5),
+              dict(kind="tick_exception", tick=20),
+              dict(kind="slow_tick", tick=30, duration_s=0.25)]
+FAULT_SMOKE_PLAN = [dict(kind="nan", tick=3, slot=0), dict(kind="cache_growth", tick=5, slot=1),
+                    dict(kind="tick_exception", tick=9),
+                    dict(kind="slow_tick", tick=12, duration_s=0.05)]
 
 
 def emit(obj) -> None:
@@ -1949,17 +1978,27 @@ def _engine_prompts(cfg):
 
 def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
                prefill: str = "auto", slots: int = ENGINE_SLOTS, speculative: bool = False,
-               max_new: int = ENGINE_NEW) -> tuple[dict, list]:
-    """Serve ``prompts`` to the end; returns (measurements, requests). With
-    ``first_alone`` the first request is served to its end before the others
-    are submitted. The launch counters are reset just before the first tick
-    and read just after the last. Tick times are kept by kind: speculative
-    (verify only, or with a prompt chunk), fused, decode-only."""
+               max_new: int = ENGINE_NEW, engine_kw: dict | None = None
+               ) -> tuple[dict, list, object]:
+    """Serve ``prompts`` to the end; returns (measurements, requests, the
+    engine). With ``first_alone`` the first request is served to its end
+    before the others are submitted. The launch counters are reset just
+    before the first tick and read just after the last. Tick times are kept
+    by kind: speculative (verify only, or with a prompt chunk), fused,
+    decode-only. ``engine_kw`` goes to the engine's constructor. A tick
+    that fails is contained by the engine; without a ``fault_plan`` that is
+    a fault of the port and fails the script. Under a plan, each contained
+    tick is measured (``containments``: its ms, synchronised at both ends,
+    the bytes allocated at its peak beyond those resident before it, the
+    requests it ended, the slots and queue and page pool just after)."""
     from repro_torch import kernels as K
     from repro_torch.serving import engine as E
 
+    plan = (engine_kw or {}).get("fault_plan")
     eng = E.ServingEngine(params, cfg, slots=slots, max_len=ENGINE_MAX_LEN,
-                          kernels=kset, eos_id=-1, prefill=prefill, speculative=speculative)
+                          kernels=kset, eos_id=-1, prefill=prefill, speculative=speculative,
+                          **(engine_kw or {}))
+    contained = []
     reqs = [E.Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
     first = {}
     eng.on_emit = lambda req, toks: first.setdefault(
@@ -1973,10 +2012,30 @@ def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
         for r in wave:
             eng.submit(r)
         while eng.queue or any(r is not None for r in eng.live):
+            raising = plan is not None and bool(plan.at(eng.tick_count, "tick_exception"))
+            if raising:
+                torch.cuda.synchronize()
+                ended = {r.rid for r in reqs if r.done}
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
             f0, s0, t = eng.fused_ticks, eng.spec_ticks, time.perf_counter()
             n0 = sum(len(r.generated) for r in reqs)
             if not eng.step():
                 break
+            if eng.consecutive_tick_failures:
+                failure = [e for e in eng.events if e["kind"] == "tick_failure"][-1]
+                if not raising:
+                    fail(f"tick {failure['tick']} failed and was contained: "
+                         f"{failure['detail']}")
+                torch.cuda.synchronize()
+                contained.append({
+                    "tick": failure["tick"], "ms": (time.perf_counter() - t) * 1e3,
+                    "peak_extra_bytes": torch.cuda.max_memory_allocated() - resident,
+                    "ended": [r.rid for r in reqs if r.done and r.rid not in ended],
+                    "live_after": sum(r is not None for r in eng.live),
+                    "queued": [r.rid for r in eng.queue],
+                    "paged": eng.paged.stats() if eng.paged is not None else None})
+                continue
             ms = (time.perf_counter() - t) * 1e3
             if eng.spec_ticks > s0:
                 (spec_mixed_ms if eng.fused_ticks > f0 else spec_ms).append(ms)
@@ -2008,7 +2067,8 @@ def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
             "first_token_ticks": [first[r.rid][0] for r in reqs if r.rid in first],
             "first_token_ms": [(first[r.rid][1] - t0) * 1e3 for r in reqs if r.rid in first],
             "cache_bytes": E.cache_nbytes(eng.caches), "launch_counts": counts,
-            "kv_layout": st["kv_layout"], "paged": st["paged"]}, reqs
+            "kv_layout": st["kv_layout"], "paged": st["paged"],
+            "containments": contained}, reqs, eng
 
 
 def engine_phase(torch, cfg, params, report: dict) -> tuple[dict, dict]:
@@ -2027,9 +2087,9 @@ def engine_phase(torch, cfg, params, report: dict) -> tuple[dict, dict]:
     with torch.inference_mode():
         for kv in ("bf16", "int8"):
             c = dataclasses.replace(cfg, kv_cache_dtype=kv)
-            got, reqs = engine_run(torch, c, params, K.KERNELS, prompts)
+            got, reqs, _ = engine_run(torch, c, params, K.KERNELS, prompts)
             streams_by_kv[kv] = [r.generated for r in reqs]
-            plain, preqs = engine_run(torch, c, params, K.PLAIN, prompts)
+            plain, preqs, _ = engine_run(torch, c, params, K.PLAIN, prompts)
             agree = [sum(a == b for a, b in zip(r.generated, p.generated)) / ENGINE_NEW
                      for r, p in zip(reqs, preqs)]
             got["plain"] = {k: plain[k] for k in ("wall_s", "tokens_per_s",
@@ -2210,12 +2270,12 @@ def paged_engine_phase(torch, cfg, params, contiguous_streams, report: dict) -> 
             c = dataclasses.replace(cfg, kv_cache_dtype=kv, kv_layout="paged",
                                     kv_page_size=PAGE_SIZE)
             sfx = "_quant" if kv == "int8" else ""
-            got, reqs = engine_run(torch, c, params, K.KERNELS, prompts)
+            got, reqs, _ = engine_run(torch, c, params, K.KERNELS, prompts)
             counts = got["launch_counts"]
             counts_by_kv[kv] = counts
             # the contiguous engine again, right after, for the tick times
-            again, _ = engine_run(torch, dataclasses.replace(c, kv_layout="contiguous"), params,
-                                  K.KERNELS, prompts)
+            again, _, _ = engine_run(torch, dataclasses.replace(c, kv_layout="contiguous"), params,
+                                     K.KERNELS, prompts)
             got["contiguous_after"] = {k: again[k] for k in (
                 "wall_s", "tokens_per_s", "fused_tick_ms_mean", "decode_tick_ms_mean")}
             streams = [r.generated for r in reqs]
@@ -2247,9 +2307,9 @@ def paged_engine_phase(torch, cfg, params, contiguous_streams, report: dict) -> 
             if got["cache_bytes"] != PAGED_POOL_BYTES[kv]:
                 problems.append(f"pool bytes {got['cache_bytes']} != {PAGED_POOL_BYTES[kv]}")
             # (b) the shared prefix, then the contiguous engine on it
-            pre, preqs = engine_run(torch, c, params, K.KERNELS, shared, first_alone=True)
-            cont, creqs = engine_run(torch, dataclasses.replace(c, kv_layout="contiguous"),
-                                     params, K.KERNELS, shared, first_alone=True)
+            pre, preqs, _ = engine_run(torch, c, params, K.KERNELS, shared, first_alone=True)
+            cont, creqs, _ = engine_run(torch, dataclasses.replace(c, kv_layout="contiguous"),
+                                        params, K.KERNELS, shared, first_alone=True)
             pst = pre["paged"]
             shared_streams[kv] = [r.generated for r in preqs]
             equal = [r.generated == q.generated for r, q in zip(preqs, creqs)]
@@ -2423,7 +2483,7 @@ def legacy_engine_phase(torch, cfg, params, chunked_streams, report: dict) -> No
         for kv in ("bf16", "int8"):
             c = dataclasses.replace(cfg, kv_cache_dtype=kv)
             sfx = "_quant" if kv == "int8" else ""
-            got, reqs = engine_run(torch, c, params, K.KERNELS, prompts, prefill="legacy")
+            got, reqs, _ = engine_run(torch, c, params, K.KERNELS, prompts, prefill="legacy")
             counts = got["launch_counts"]
             streams = [r.generated for r in reqs]
             alone = [E.generate(params, c, torch.as_tensor(p, device="cuda")[None],
@@ -2722,7 +2782,7 @@ def spec_engine_phase(torch, cfg, params, plain_streams, report: dict) -> dict:
                 c = dataclasses.replace(cfg, kv_cache_dtype=kv, kv_layout=layout,
                                         kv_page_size=PAGE_SIZE)
                 sfx = _attention_sfx(layout, kv)
-                got, reqs = engine_run(torch, c, params, K.KERNELS, prompts, speculative=True)
+                got, reqs, _ = engine_run(torch, c, params, K.KERNELS, prompts, speculative=True)
                 counts = got["launch_counts"]
                 counts_by[(layout, kv)] = counts
                 streams = [r.generated for r in reqs]
@@ -2761,9 +2821,9 @@ def spec_engine_phase(torch, cfg, params, plain_streams, report: dict) -> dict:
         # (b) a repetitive workload, with and without speculation
         c = dataclasses.replace(cfg, kv_cache_dtype="bf16")
         rep = _repetitive_prompts(cfg)
-        spec_b, sreqs = engine_run(torch, c, params, K.KERNELS, rep, speculative=True,
-                                   max_new=REPEAT_NEW)
-        plain_b, preqs = engine_run(torch, c, params, K.KERNELS, rep, max_new=REPEAT_NEW)
+        spec_b, sreqs, _ = engine_run(torch, c, params, K.KERNELS, rep, speculative=True,
+                                      max_new=REPEAT_NEW)
+        plain_b, preqs, _ = engine_run(torch, c, params, K.KERNELS, rep, max_new=REPEAT_NEW)
         out["repetitive"] = {
             "prompt_lengths": [len(p) for p in rep], "max_new": REPEAT_NEW,
             "spec": {k: spec_b[k] for k in keep + (
@@ -2783,6 +2843,256 @@ def spec_engine_phase(torch, cfg, params, plain_streams, report: dict) -> dict:
     report["spec_engine"] = out
     emit(out)
     return counts_by
+
+
+# ---------------------------------------------------------------------------
+# phases: fault injection and containment in the engine
+# ---------------------------------------------------------------------------
+
+
+def _fault_plan(faults):
+    from repro_torch.serving import resilience as R
+
+    return R.FaultPlan(faults=tuple(R.Fault(**f) for f in faults))
+
+
+def _fault_events(eng) -> list:
+    """The engine's events without the wall-clock straggler entries."""
+    return [e for e in eng.events if e["kind"] != "straggler"]
+
+
+def _guarded_run(eng, reqs) -> str | None:
+    """Submit and serve ``reqs`` to the end; the error's text if ``step()``
+    raised, else None."""
+    for r in reqs:
+        eng.submit(r)
+    try:
+        eng.run()
+    except Exception as exc:  # noqa: BLE001 -- step() raising is the failed hold
+        return f"{type(exc).__name__}: {exc}"
+    return None
+
+
+def fault_engine_smoke_phase(torch, report: dict) -> None:
+    """The f32 smoke config under ``FAULT_SMOKE_PLAN`` (NaN on slot 0,
+    cache_growth on slot 1, a raising tick, a 0.05 s slow tick), each cache
+    dtype, the plain engine and the speculative one with drafter_garbage
+    over every tick: through the kernels on the card, the same streams,
+    statuses, status details and event kinds (straggler events dropped) as
+    through the plain versions on the CPU; step() never raised, and every
+    planned fault left its event."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    base = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                               spec_disable_after=8, spec_min_acceptance=0.3)
+    specs = Tr.param_specs(base)
+    cpu_params = Tr.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=base.dtype)
+    cuda_params = _to_cuda(cpu_params)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, base.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+    out = {"phase": "fault_engine_smoke", "plan": FAULT_SMOKE_PLAN}
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        for spec in (False, True):
+            faults = FAULT_SMOKE_PLAN + ([dict(kind="drafter_garbage", tick=0, repeat=10**6)]
+                                         if spec else [])
+            want_kinds = {"quarantine", "cache_growth_fault", "tick_failure",
+                          "slow_tick_fault"} | ({"spec_disabled"} if spec else set())
+            runs = []
+            for params, kset, device in ((cuda_params, KERNELS, None),
+                                         (cpu_params, PLAIN, "cpu")):
+                eng = E.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kset,
+                                      device=device, speculative=spec,
+                                      fault_plan=_fault_plan(faults))
+                reqs = [E.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+                raised = _guarded_run(eng, reqs)
+                runs.append(([(r.generated, r.status.name, r.status_detail) for r in reqs],
+                             [e["kind"] for e in _fault_events(eng)], raised, eng.stats()))
+            (got, kinds, raised, st), (want, want_k, cpu_raised, _) = runs
+            key = f"{kv} {'speculative' if spec else 'plain'}"
+            out[key] = {"streams_equal": got == want, "event_kinds": kinds,
+                        "statuses": st["statuses"], "ticks": st["ticks"],
+                        "host_transfers": st["host_transfers"]}
+            problems = []
+            if raised or cpu_raised:
+                problems.append(f"step() raised: card {raised}, CPU {cpu_raised}")
+            if got != want:
+                problems.append("streams, statuses or details differ from the CPU's")
+            if kinds != want_k:
+                problems.append(f"event kinds {kinds} differ from the CPU's {want_k}")
+            if not want_kinds <= set(kinds):
+                problems.append(f"planned faults left no event: {want_kinds - set(kinds)}")
+            if problems:
+                emit(out)
+                fail(f"fault_engine_smoke[{key}]: " + "; ".join(problems))
+    report["fault_engine_smoke"] = out
+    emit(out)
+
+
+def fault_engine_phase(torch, cfg, params, eng_streams, report: dict) -> None:
+    """Full-width tellme-0.7b on the engine phase's workload under faults,
+    through the kernels: (a) contiguous bf16 under ``FAULT_PLAN`` (NaN on
+    one slot mid-decode, cache_growth on another, a raising tick with 8
+    live slots, a 0.25 s slow tick after the straggler monitor's warm-up):
+    the hit slot QUARANTINED with guard_flag=1, the raising tick's live
+    requests (at least 4) and no other FAILED, the exhausted and FAILED
+    requests' tokens a prefix of their engine-phase stream, every request
+    that ended OK equal to it (those admitted after the raising tick
+    among them), the tick_failure event, consecutive_tick_failures back
+    to 0, the slow tick's straggler event, one host transfer per tick that
+    ran, no slot live just after the raising tick; that tick's ms (its
+    admission, the raise, the FAILED endings and the rebuild of the
+    cache, synchronised at both ends), and its peak allocation beyond
+    what was resident before it under half the cache's bytes (the old
+    cache is freed before the new one is made); (b) the same on
+    the paged int8 layout, with the rebuilt pool's page statistics equal
+    to a fresh pool's; (c) speculative contiguous bf16 with drafter_garbage
+    on every tick: one spec_disabled event below spec_min_acceptance,
+    every request OK with 32 tokens, agreement with the plain streams
+    reported (the verify runs prefill-append where decode runs decode
+    attention, so near-ties may part them); (d) a plan that never fires,
+    between two runs without one: streams equal to the engine phase's, the
+    same launches of every kernel, tokens/s of each run."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import resilience as R
+    from repro_torch.serving.paging import PagedKV
+
+    prompts = _engine_prompts(cfg)
+    out = {"phase": "fault_engine", "model": cfg.name, "slots": ENGINE_SLOTS,
+           "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS, "max_new": ENGINE_NEW,
+           "plan": FAULT_PLAN}
+    by_tick = {f["kind"]: f for f in FAULT_PLAN}
+    keep = ("ticks", "fused_ticks", "host_transfers", "statuses", "wall_s", "tokens",
+            "tokens_per_s", "fused_tick_ms_mean", "decode_tick_ms_mean")
+    with torch.inference_mode():
+        for key, layout, kv in (("a", "contiguous", "bf16"), ("b", "paged", "int8")):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv, kv_layout=layout,
+                                    kv_page_size=PAGE_SIZE)
+            got, reqs, eng = engine_run(torch, c, params, K.KERNELS, prompts,
+                                        engine_kw={"fault_plan": _fault_plan(FAULT_PLAN)})
+            rebuilds = got["containments"]
+            want = eng_streams[kv]
+            events = eng.events
+            st = eng.stats()
+            problems = []
+            quar = [e for e in events if e["kind"] == "quarantine"]
+            if ([(e["tick"], e["slot"], e["flag"]) for e in quar]
+                    != [(by_tick["nan"]["tick"], by_tick["nan"]["slot"], R.GUARD_LOGITS)]):
+                problems.append(f"quarantine events {quar}")
+            else:
+                hit = reqs[quar[0]["rid"]]
+                if (hit.status.name, hit.status_detail) != (
+                        "QUARANTINED", f"guard_flag={R.GUARD_LOGITS}"):
+                    problems.append(f"the NaN slot's request ended {hit.status.name} "
+                                    f"({hit.status_detail})")
+            grown = [e for e in events if e["kind"] == "cache_growth_fault"]
+            if [(e["tick"], e["slot"]) for e in grown] != [
+                    (by_tick["cache_growth"]["tick"], by_tick["cache_growth"]["slot"])]:
+                problems.append(f"cache_growth events {grown}")
+            failed_tick = [e["tick"] for e in events if e["kind"] == "tick_failure"]
+            if failed_tick != [by_tick["tick_exception"]["tick"]]:
+                problems.append(f"tick_failure at ticks {failed_tick}")
+            slow = by_tick["slow_tick"]["tick"]
+            if not any(e["kind"] == "straggler" and e["tick"] == slow for e in events):
+                problems.append(f"no straggler event at the slow tick {slow}")
+            failed = [r.rid for r in reqs if r.status.name == "FAILED"]
+            ended = sorted(rebuilds[0]["ended"]) if rebuilds else []
+            live_after = rebuilds[0]["live_after"] if rebuilds else None
+            if failed != ended or len(failed) < 4 or live_after != 0:
+                problems.append(f"FAILED requests {failed}, ended by the raising tick {ended}, "
+                                f"slots live after it {live_after}")
+            not_prefix = [r.rid for r in reqs if r.status.name != "OK"
+                          and r.generated != want[r.rid][:len(r.generated)]]
+            ok_parted = [r.rid for r in reqs
+                         if r.status.name == "OK" and r.generated != want[r.rid]]
+            if not_prefix:
+                problems.append(f"tokens not a prefix of the fault-free stream: {not_prefix}")
+            if ok_parted:
+                problems.append(f"OK streams differ from the engine phase's: {ok_parted}")
+            after = rebuilds[0]["queued"] if rebuilds else []
+            if not after or any(reqs[i].status.name != "OK" for i in after):
+                problems.append(f"requests admitted after the raising tick: {after}, statuses "
+                                f"{[reqs[i].status.name for i in after]}")
+            if st["consecutive_tick_failures"] != 0:
+                problems.append(f"consecutive_tick_failures {st['consecutive_tick_failures']}")
+            if st["host_transfers"] != st["ticks"] - len(failed_tick):
+                problems.append(f"{st['host_transfers']} transfers for {st['ticks']} ticks, "
+                                f"{len(failed_tick)} of them failed")
+            if len(rebuilds) != 1:
+                problems.append(f"{len(rebuilds)} containments")
+            elif rebuilds[0]["peak_extra_bytes"] >= got["cache_bytes"] // 2:
+                problems.append(f"the rebuild held {rebuilds[0]['peak_extra_bytes']} bytes "
+                                f"beside the {got['cache_bytes']} of the old cache")
+            res = {k: got[k] for k in keep}
+            res.update(kv_layout=layout, kv_cache_dtype=kv, event_kinds=sorted(
+                {e["kind"] for e in events}), failed=failed, admitted_after=after,
+                straggler=st["straggler"], contained_tick_ms=[r["ms"] for r in rebuilds],
+                peak_extra_bytes=[r["peak_extra_bytes"] for r in rebuilds],
+                cache_bytes=got["cache_bytes"])
+            if layout == "paged" and rebuilds:
+                fresh = PagedKV(slots=eng.slots, cache_len=eng.cache_len,
+                                page_size=eng.paged.page_size, num_pages=eng.paged.num_pages,
+                                prefix_cache=eng.paged.prefix_cache).stats()
+                res["rebuilt_pool_equals_fresh"] = rebuilds[0]["paged"] == fresh
+                if not res["rebuilt_pool_equals_fresh"]:
+                    problems.append(f"rebuilt pool {rebuilds[0]['paged']} is not a fresh "
+                                    f"pool {fresh}")
+            out[key] = res
+            if problems:
+                emit(out)
+                fail(f"fault_engine[{key}, {layout} {kv}]: " + "; ".join(problems))
+        # (c) speculation with garbage drafts on every tick
+        c = dataclasses.replace(cfg, kv_cache_dtype="bf16")
+        got, reqs, eng = engine_run(
+            torch, c, params, K.KERNELS, prompts, speculative=True, engine_kw={
+                "fault_plan": _fault_plan([dict(kind="drafter_garbage", tick=0, repeat=10**6)])})
+        dis = [e for e in eng.events if e["kind"] == "spec_disabled"]
+        bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+        out["c"] = {**{k: got[k] for k in keep}, "spec_disabled": dis,
+                    "spec_ticks": eng.spec_ticks,
+                    "streams_equal_to_plain": sum(r.generated == w for r, w in zip(
+                        reqs, eng_streams["bf16"]))}
+        problems = []
+        if len(dis) != 1 or not dis[0]["acceptance"] < c.spec_min_acceptance:
+            problems.append(f"spec_disabled events {dis}")
+        if bad:
+            problems.append(f"requests not OK with {ENGINE_NEW} tokens: {bad}")
+        if problems:
+            emit(out)
+            fail("fault_engine[c, speculative drafter_garbage]: " + "; ".join(problems))
+        # (d) a plan that never fires, between two runs without one
+        idle = [dict(kind=k, tick=10**6) for k in R.FAULT_KINDS]
+        runs = []
+        for armed in (False, True, False):
+            kw = {"fault_plan": _fault_plan(idle)} if armed else None
+            got, reqs, _ = engine_run(torch, c, params, K.KERNELS, prompts, engine_kw=kw)
+            runs.append((got, [r.generated for r in reqs]))
+        (u1, s1), (a, sa), (u2, s2) = runs
+        out["d"] = {"armed": {k: a[k] for k in keep}, "unarmed": [
+            {k: u[k] for k in keep} for u in (u1, u2)]}
+        problems = []
+        if not sa == s1 == s2 == eng_streams["bf16"]:
+            problems.append("streams differ from the engine phase's")
+        if not (a["launch_counts"] == u1["launch_counts"] == u2["launch_counts"]
+                and a["ticks"] == u1["ticks"] == u2["ticks"]):
+            problems.append(f"launches {a['launch_counts']} in {a['ticks']} ticks armed, "
+                            f"{u1['launch_counts']} in {u1['ticks']} unarmed")
+        if problems:
+            emit(out)
+            fail("fault_engine[d, armed idle plan]: " + "; ".join(problems))
+    report["fault_engine"] = out
+    emit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -3100,7 +3410,7 @@ def rwkv_engine_phase(torch, cfg, params, report: dict) -> None:
            "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS, "max_new": ENGINE_NEW,
            "prompt_lengths": [len(p) for p in prompts]}
     with torch.inference_mode():
-        got, reqs = engine_run(torch, cfg, params, K.KERNELS, prompts, prefill="auto")
+        got, reqs, _ = engine_run(torch, cfg, params, K.KERNELS, prompts, prefill="auto")
         checked, streams, step_logits = rwkv_engine_checked(torch, cfg, params, prompts)
         checked["streams_equal_to_timed_run"] = sum(
             r.generated == x for r, x in zip(reqs, streams))
@@ -3111,8 +3421,8 @@ def rwkv_engine_phase(torch, cfg, params, report: dict) -> None:
         got["streams_equal_to_generate"] = ENGINE_REQUESTS - len(parted)
         got["partings"] = [_engine_parting(step_logits, i, streams[i], alone[i])
                            for i in parted]
-        one, one_reqs = engine_run(torch, cfg, params, K.KERNELS,
-                                   prompts[:ONE_SLOT_REQUESTS], slots=1)
+        one, one_reqs, _ = engine_run(torch, cfg, params, K.KERNELS,
+                                      prompts[:ONE_SLOT_REQUESTS], slots=1)
         got["one_slot"] = {k: one[k] for k in ("ticks", "host_transfers", "statuses",
                                                 "tokens_per_s")}
         got["one_slot"]["streams_equal_to_generate"] = sum(
@@ -3375,8 +3685,8 @@ def tl_phase(torch, cfg, params, packed_tokens, engine_streams, shared_streams,
                     tl_cfg, kv_cache_dtype="bf16", kv_layout="paged", kv_page_size=PAGE_SIZE),
                  _shared_prefix_prompts(cfg), shared_streams,
                  report["paged_engine"]["bf16"]["shared_prefix"], True)):
-            got, reqs = engine_run(torch, c, tl_params, K.KERNELS, prompts_e,
-                                   first_alone=first_alone)
+            got, reqs, _ = engine_run(torch, c, tl_params, K.KERNELS, prompts_e,
+                                      first_alone=first_alone)
             equal = sum(r.generated == w for r, w in zip(reqs, want))
             res = {"tl": {k: got[k] for k in keys + ("host_transfers", "statuses")},
                    "packed": {k: packed_run[k] for k in keys},
@@ -3443,6 +3753,7 @@ def main(argv=None) -> int:
     engine_smoke_phase(torch, report)
     paged_engine_smoke_phase(torch, report)
     spec_engine_smoke_phase(torch, report)
+    fault_engine_smoke_phase(torch, report)
     params = full_params(torch, cfg)
     gen_counts, gen_tokens = generate_phase(torch, cfg, params, STEPS, report)
     eng_counts, eng_streams = engine_phase(torch, cfg, params, report)
@@ -3453,6 +3764,7 @@ def main(argv=None) -> int:
     prefill_phase(torch, cfg, params, report)
     legacy_engine_phase(torch, cfg, params, eng_streams, report)
     spec_counts = spec_engine_phase(torch, cfg, params, eng_streams, report)
+    fault_engine_phase(torch, cfg, params, eng_streams, report)
     spec_run = {"prefill_append": ("contiguous", "bf16"),
                 "prefill_append_quant": ("contiguous", "int8"),
                 "prefill_append_paged": ("paged", "bf16"),

@@ -29,11 +29,24 @@ drafts ``spec_gamma`` tokens a tick from its device-resident token history
 ``spec_gamma + 1``-row chunk through the prefill-append kernels at its
 frontier; it emits the accepted prefix and the model's correction, then
 rewinds its frontier past the rejected rows. Greedy streams are the plain
-engine's. Not ported yet: the other model families, fault injection (the
-spec tick's too), the straggler monitor and request export. A tick that
-raises propagates out of :meth:`ServingEngine.step`: there is no fallback to the
-plain versions or to the CPU; a page pool that runs dry fails the request
-that needed the page (``FAILED``, ``page_pool_exhausted``).
+engine's.
+
+Fault injection and containment (``engine.py:1168-1510``): a
+``resilience.FaultPlan`` poisons a slot's logits with NaN at the guards'
+observation point (the guard quarantines it), deranges its speculative
+drafts (the acceptance watchdog stops speculating), retires it
+``CACHE_EXHAUSTED``, stalls a tick, or makes a tick raise before any device
+work. Each tick's wall time feeds a ``StragglerMonitor``
+(``runtime/fault_tolerance.py``), and ``export_requests`` snapshots every
+unfinished request for a fresh engine to resume. A tick that raises is contained: its
+live requests end ``FAILED`` (the tokens they emitted kept), the device
+state is rebuilt, and the queue is served on. This is the port's one
+difference from JAX there: JAX first flips a sticky kernel-to-XLA
+attention fallback and retries the tick; the port has no second
+implementation to fall back to, neither the plain versions nor the CPU, so
+it goes straight to JAX's last resort. A page pool that runs dry fails the
+request that needed the page (``FAILED``, ``page_pool_exhausted``). Not
+ported yet: the other model families.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from ..core import bitlinear
 from ..core.ternary import mask_past_frontier
 from ..kernels import KERNELS
 from ..models import transformer as Tr
+from ..runtime import fault_tolerance as FT
 from . import resilience as R
 from . import speculative as Sp
 from .paging import PagedKV, PagePoolExhausted
@@ -258,15 +272,27 @@ def _guard_row(logit_bad, caches, rows, valid, paged: bool):
             + scale_bad.to(torch.int32) * R.GUARD_SCALES)
 
 
+def _poison(logits, fault_nan):
+    """The ``nan`` fault: the masked slots' logits (slots on axis 0) become
+    NaN; ``None`` leaves them as they are."""
+    if fault_nan is None:
+        return logits
+    return logits.masked_fill(fault_nan.reshape((-1,) + (1,) * (logits.dim() - 1)),
+                              float("nan"))
+
+
 def _advance(logits, first_tok, pos, done, gen_count, max_new, active, caches, *, eos_id: int,
-             max_len: int, guards: bool, paged: bool = False):
+             max_len: int, guards: bool, paged: bool = False, fault_nan=None):
     """State transition of a decode-only tick (``engine.py:1501-1549``):
     greedy tokens, active slots' positions and counts advanced, retirements
     folded into ``done``. Returns the new (cur_tok, pos, done, gen_count) and
     the packed int32 state [prefill token, next token, position, done,
     count, done at entry (, guard flags)] x slots: ``first_tok`` is the
     token each slot entered the tick with, which a legacy prefill set, and a
-    slot done at entry retired on it, so its decode output is dropped."""
+    slot done at entry retired on it, so its decode output is dropped.
+    ``fault_nan`` [slots] (or None) poisons the logits of the ``nan``
+    fault's slots."""
+    logits = _poison(logits, fault_nan)
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     inc = active.to(torch.int32)
     new_pos, new_count = pos + inc, gen_count + inc
@@ -283,22 +309,24 @@ def _advance(logits, first_tok, pos, done, gen_count, max_new, active, caches, *
 def _fused_tick_step(params, caches, cur_tok, pos, done, gen_count, max_new, dec_active,
                      chunk_tok, chunk_off, finishing, last_row, fin_pos, page_table, *, cfg,
                      kernels, eos_id: int, max_len: int, cache_len: int, trash_base: int,
-                     guards: bool):
+                     guards: bool, fault_nan=None):
     """One fused tick (``engine.py:1674-1761``): a decode token for every
     decoding slot (the others diverted to row ``cache_len - 1``), then one
     prompt chunk per selected slot at its offset (the others write into the
     trash tail at ``trash_base``, write-only), the LM head only at each
     slot's ``last_row``, and the prefill-to-decode handoff. ``page_table``
     (None on the contiguous layout) addresses the paged pools; the trash
-    region's entries map the garbage page. Returns the new (cur_tok, pos,
-    done, gen_count) and the packed int32 state [token, position, done,
-    count (, guard flags)] x slots."""
+    region's entries map the garbage page. ``fault_nan`` [slots] (or None)
+    poisons both logits of the ``nan`` fault's slots. Returns the new
+    (cur_tok, pos, done, gen_count) and the packed int32 state [token,
+    position, done, count (, guard flags)] x slots."""
     dpos = torch.where(dec_active, pos, torch.full_like(pos, cache_len - 1))
     dec_logits, caches = Tr.decode_step(params, cur_tok[:, None].to(torch.int64), caches,
                                         dpos, cfg, kernels=kernels, page_table=page_table)
     first_logits, caches = Tr.prefill_chunk_step(
         params, chunk_tok, caches, chunk_off, cfg, kernels=kernels, last_row=last_row,
         prefix_limit=trash_base, page_table=page_table)
+    dec_logits, first_logits = _poison(dec_logits, fault_nan), _poison(first_logits, fault_nan)
     next_dec = torch.argmax(dec_logits, dim=-1).to(torch.int32)
     inc = dec_active.to(torch.int32)
     new_pos, new_count = pos + inc, gen_count + inc
@@ -326,7 +354,7 @@ def _fused_tick_step(params, caches, cur_tok, pos, done, gen_count, max_new, dec
 def _spec_tick_step(params, caches, hist, cur_tok, pos, done, gen_count, max_new, dec_active,
                     chunk_tok, chunk_off, finishing, last_row, fin_pos, page_table, *, cfg,
                     kernels, drafter, gamma: int, eos_id: int, max_len: int, trash_base: int,
-                    guards: bool):
+                    guards: bool, fault_nan=None, fault_draft=None):
     """One speculative tick (``engine.py:1764-1900``): every decoding slot
     drafts ``gamma`` tokens from its history ``hist [B, L]`` and verifies
     them in one ``gamma + 1``-row chunk at its frontier (the others diverted
@@ -339,13 +367,19 @@ def _spec_tick_step(params, caches, hist, cur_tok, pos, done, gen_count, max_new
     that rewind. Returns the new (hist, cur_tok, pos, done, gen_count) and
     the packed int32 state [gamma + 1 emission rows, emitted count,
     chargeable drafts, done (, guard flags)] x slots; a finishing slot's
-    first token is its emission row 0."""
+    first token is its emission row 0. ``fault_draft`` [slots] (or None)
+    deranges the drafts of the ``drafter_garbage`` fault's slots;
+    ``fault_nan`` poisons the verify and chunk logits of the ``nan``
+    fault's."""
     drafts = drafter(hist, pos)
+    if fault_draft is not None:
+        drafts = R.scramble_tokens(drafts, fault_draft, cfg.vocab_size)
     ver_tok = torch.cat([cur_tok[:, None], drafts], dim=1).to(torch.int64)
     ver_off = torch.where(dec_active, pos, torch.full_like(pos, trash_base))
     ver_logits, caches = Tr.verify_chunk_step(params, ver_tok, caches, ver_off, cfg,
                                               kernels=kernels, prefix_limit=trash_base,
                                               page_table=page_table)
+    ver_logits = _poison(ver_logits, fault_nan)
     targets, k = Sp.accept_tokens(drafts, ver_logits)
     # micro-step j emits targets[:, j] while j <= k, and stops after the
     # first token that retires the slot
@@ -371,6 +405,7 @@ def _spec_tick_step(params, caches, hist, cur_tok, pos, done, gen_count, max_new
         first_logits, caches = Tr.prefill_chunk_step(
             params, chunk_tok, caches, chunk_off, cfg, kernels=kernels, last_row=last_row,
             prefix_limit=trash_base, page_table=page_table)
+        first_logits = _poison(first_logits, fault_nan)
         first_tok, new_tok, new_pos, new_count, new_done = _prefill_handoff(
             first_logits, finishing, fin_pos, new_tok, new_pos, new_count, new_done, max_new,
             eos_id=eos_id, max_len=max_len)
@@ -423,6 +458,12 @@ class Request:
     finished_at: float | None = None
     cancel_requested: bool = False
     preemptions: int = 0  # times evicted and requeued for re-prefill
+    migrations: int = 0  # times moved to another replica after a crash or hang
+    # SLO class (None outside a pool) and its chunk-budget weight: the
+    # highest weight among the slots mid-prefill scales the tick's
+    # prefill_chunk_budget (1.0, the default, leaves it as it is)
+    slo: str | None = None
+    budget_weight: float = 1.0
     _seq: int = 0  # submission order (FIFO within a priority, preemption ties)
     # speculative decoding: drafts offered and accepted over its verify ticks
     spec_drafted: int = 0
@@ -436,6 +477,23 @@ class Request:
     def expired(self, now: float) -> bool:
         return (self.deadline_s is not None and self.submitted_at is not None
                 and now - self.submitted_at > self.deadline_s)
+
+
+def snapshot_request(req: Request) -> Request:
+    """A resumable copy of ``req`` (``engine.py:452-470``): the prompt and
+    emitted tokens (copies, never aliased) and the lifecycle fields. A fresh
+    engine re-prefills prompt and history with the budget left, which gives
+    the same greedy stream, as after a preemption."""
+    snap = Request(rid=req.rid, prompt=np.array(req.prompt), max_new=req.max_new,
+                   generated=list(req.generated))
+    snap.priority = req.priority
+    snap.deadline_s = req.deadline_s
+    snap.submitted_at = req.submitted_at
+    snap.preemptions = req.preemptions
+    snap.migrations = req.migrations
+    snap.slo = req.slo
+    snap.budget_weight = req.budget_weight
+    return snap
 
 
 @dataclasses.dataclass
@@ -500,16 +558,32 @@ class ServingEngine:
     a strictly higher-priority waiter preempts the lowest-priority slot when
     all are taken, and with ``guards`` (default on) a slot whose logits or
     new int8 scales are not finite is quarantined. ``step()`` makes one
-    device-to-host transfer per tick (``stats()["host_transfers"]``).
+    device-to-host transfer per tick that runs (``stats()["host_transfers"]``).
     ``on_emit(req, tokens)`` and ``on_finish(req)`` fire after each tick.
     ``params`` live on ``device`` (CUDA unless ``device="cpu"``); ``kernels``
     is the kernel set the model runs through.
+
+    A ``fault_plan`` (``resilience.FaultPlan``) injects faults on the ticks
+    it names (see the module docstring); without one, or on a tick it does
+    not target, the tick runs exactly as without a plan. ``straggler`` (a
+    fresh ``StragglerMonitor`` when None) gets each tick's wall time, and
+    ``replica_id`` names the engine in ``stats()``. A tick that raises is
+    contained (:meth:`_fail_all_live`): ``consecutive_tick_failures``
+    counts such ticks until a clean one resets it, the live requests end
+    ``FAILED`` and the device state is rebuilt. There is no retry on other
+    kernels, the plain versions or the CPU. ``step()`` raises only when the
+    rebuild itself fails (a sticky CUDA error: the context is lost).
+    ``_chunk_budget`` scales ``cfg.prefill_chunk_budget`` by the highest
+    ``Request.budget_weight`` among the slots mid-prefill.
     """
 
     def __init__(self, params, cfg, *, slots: int = 8, max_len: int = 2048,
                  eos_id: int = -1, prefill: str = "auto", queue_cap: int | None = None,
                  guards: bool = True, clock=time.monotonic, kernels=KERNELS, device=None,
-                 speculative: bool = False, spec_gamma: int | None = None):
+                 speculative: bool = False, spec_gamma: int | None = None,
+                 fault_plan: R.FaultPlan | None = None,
+                 straggler: FT.StragglerMonitor | None = None,
+                 replica_id: int | str | None = None):
         self.dev = C.resolve_device(device)
         self.params, self.cfg, self.kernels = engine_params(params, cfg), cfg, kernels
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
@@ -588,6 +662,12 @@ class ServingEngine:
         self.queue_cap = int(cfg.admission_queue_cap if queue_cap is None else queue_cap)
         self.guards = bool(guards)
         self._clock = clock
+        self._fault_plan = fault_plan
+        self.straggler = straggler or FT.StragglerMonitor()
+        # the pool's identity and drain gate: ticks that entered the
+        # exception path since the last clean one (not reset by the rebuild)
+        self.replica_id = replica_id
+        self.consecutive_tick_failures = 0
         self._started_at = clock()
         self.tick_count = 0
         self.fused_ticks = 0  # ticks that appended prompt chunks
@@ -694,20 +774,62 @@ class ServingEngine:
             elif req.expired(now):
                 self._finish(slot, req, R.Status.DEADLINE_EXCEEDED)
 
+    def _fail_all_live(self, detail: str):
+        """Containment of a failed tick (``engine.py:769-796``): every live
+        request ends ``FAILED`` with the tokens it emitted, and the device
+        state is rebuilt (the old caches dropped first), a fresh page pool
+        and prefix trie on the paged layout, so the engine serves the queue
+        on. An error of the rebuild itself leaves ``step()``."""
+        self._event("tick_failure", detail=detail)
+        for slot in range(self.slots):
+            req = self.live[slot]
+            if req is not None:
+                self._finish(slot, req, R.Status.FAILED, detail=detail)
+        self.caches = None  # freed before the new caches are made
+        if self.paged is not None:
+            # a fresh pool and trie: the pages may hold garbage, and a
+            # poisoned interned prefix must not reach a new request
+            self.paged = PagedKV(slots=self.slots, cache_len=self.cache_len,
+                                 page_size=self.paged.page_size,
+                                 num_pages=self.paged.num_pages,
+                                 prefix_cache=self.paged.prefix_cache)
+            self._pos_host[:] = 0
+        self.caches = init_caches(
+            self.cfg, self.slots, self.cache_len, device=self.dev,
+            kv_pages=self.paged.num_pages if self.paged is not None else None)
+        for name in ("pos", "cur_tok", "gen_count", "max_new_arr"):
+            setattr(self, name, torch.zeros((self.slots,), dtype=torch.int32, device=self.dev))
+        self.done = torch.zeros((self.slots,), dtype=torch.bool, device=self.dev)
+        if self.hist is not None:
+            self.hist = torch.zeros((self.slots, self.cache_len), dtype=torch.int32,
+                                    device=self.dev)
+
+    def export_requests(self) -> list[Request]:
+        """Resumable snapshots (:func:`snapshot_request`) of every request
+        not yet ended, queued first, then by slot (``engine.py:823-846``).
+        No device state crosses: a fresh engine that re-prefills prompt and
+        history gives the same streams."""
+        return [snapshot_request(req)
+                for req in list(self.queue) + [r for r in self.live if r is not None]
+                if not req.done]
+
     def stats(self) -> dict:
         """Serving and lifecycle counters for CLIs and tests."""
         return {
+            "replica_id": self.replica_id,
             "ticks": self.tick_count,
             "fused_ticks": self.fused_ticks,
             "spec_ticks": self.spec_ticks,
             "host_transfers": self.host_transfers,
             "uptime_s": max(self._clock() - self._started_at, 0.0),
+            "consecutive_tick_failures": self.consecutive_tick_failures,
             "statuses": {s.name: n for s, n in sorted(
                 self.status_counts.items(), key=lambda kv: kv[0].name)},
             "events": [dict(e) for e in self.events],
             "events_dropped": self.events_dropped,
             "queued": len(self.queue),
             "live": sum(r is not None for r in self.live),
+            "straggler": self.straggler.report(),
             "preemptions": sum(1 for e in self.events if e["kind"] == "preempt"),
             "quarantined": self.status_counts.get(R.Status.QUARANTINED, 0),
             "kv_layout": "paged" if self.paged is not None else "contiguous",
@@ -856,8 +978,15 @@ class ServingEngine:
     # -- the ticks ----------------------------------------------------------
 
     def _chunk_budget(self) -> int:
-        """Chunk tokens this tick may append (at least one chunk is taken)."""
-        return max(1, int(self.cfg.prefill_chunk_budget))
+        """Chunk tokens this tick may append (``engine.py:1110-1124``): the
+        base ``cfg.prefill_chunk_budget`` scaled by the highest
+        ``budget_weight`` among the requests mid-prefill, so the highest SLO
+        class present sets the pace. All weights 1.0 give the base budget;
+        ``_plan_chunks`` still takes at least one chunk."""
+        w = max((self.live[s].budget_weight for s in range(self.slots)
+                 if self._plan[s] is not None and self.live[s] is not None),
+                default=1.0)
+        return max(1, int(round(self.cfg.prefill_chunk_budget * w)))
 
     def _plan_chunks(self, prefilling: list, budget: int):
         """This tick's chunk work: the first prefilling slot's next chunk size
@@ -953,12 +1082,30 @@ class ServingEngine:
             dec_active[s] = False
         return self._to_device(self.paged.table)
 
+    # -- fault injection (engine.py:1168-1186) ---------------------------------
+
+    def _maybe_raise_tick_fault(self):
+        """The ``tick_exception`` fault: raise before any device work of the
+        tick, as a failing kernel launch would."""
+        if self._fault_plan is not None and self._fault_plan.at(self.tick_count,
+                                                                 "tick_exception"):
+            raise R.FaultInjected(f"injected tick exception @ tick {self.tick_count}")
+
+    def _fault_mask(self, kind: str) -> torch.Tensor | None:
+        """The [slots] device mask of the slots ``kind`` targets this tick,
+        or None when it targets none (then the tick runs as with no plan)."""
+        if self._fault_plan is None:
+            return None
+        mask = self._fault_plan.slot_mask(self.tick_count, kind, self.slots)
+        return self._to_device(mask) if mask.any() else None
+
     def _transfer(self, packed: torch.Tensor) -> np.ndarray:
         """The tick's one device-to-host transfer."""
         self.host_transfers += 1
         return packed.cpu().numpy()
 
     def _fused_tick(self, prefilling: list) -> bool:
+        self._maybe_raise_tick_fault()
         (chunk, selected, chunk_tok, chunk_off, finishing, last_row,
          fin_pos) = self._plan_chunks(prefilling, self._chunk_budget())
         dec_active = np.array([self.live[s] is not None and self._plan[s] is None
@@ -972,7 +1119,8 @@ class ServingEngine:
             self._to_device(chunk_off), self._to_device(finishing),
             self._to_device(last_row), self._to_device(fin_pos), page_table, cfg=self.cfg,
             kernels=self.kernels, eos_id=self.eos_id, max_len=self.max_len,
-            cache_len=self.cache_len, trash_base=self.trash_base, guards=self.guards)
+            cache_len=self.cache_len, trash_base=self.trash_base, guards=self.guards,
+            fault_nan=self._fault_mask("nan"))
         state = self._transfer(packed)
         tok, done = state[0], state[2]
         guard = state[4] if self.guards else np.zeros((self.slots,), np.int64)
@@ -1007,6 +1155,7 @@ class ServingEngine:
         """One speculative tick (``engine.py:1256-1348``): draft and verify
         ``spec_gamma`` tokens for every decoding slot and, with slots
         mid-prefill, one prompt chunk per selected slot; one host transfer."""
+        self._maybe_raise_tick_fault()
         slots, gamma = self.slots, self.spec_gamma
         dec_active = np.array([self.live[s] is not None and self._plan[s] is None
                                for s in range(slots)])
@@ -1038,7 +1187,8 @@ class ServingEngine:
             self._to_device(chunk_off), self._to_device(finishing),
             self._to_device(last_row), self._to_device(fin_pos), page_table, cfg=self.cfg,
             kernels=self.kernels, drafter=self._drafter, gamma=gamma, eos_id=self.eos_id,
-            max_len=self.max_len, trash_base=self.trash_base, guards=self.guards)
+            max_len=self.max_len, trash_base=self.trash_base, guards=self.guards,
+            fault_nan=self._fault_mask("nan"), fault_draft=self._fault_mask("drafter_garbage"))
         state = self._transfer(packed)
         toks, n_out = state[: gamma + 1], state[gamma + 1]
         drafted, done = state[gamma + 2], state[gamma + 3]
@@ -1082,6 +1232,7 @@ class ServingEngine:
         return True
 
     def _decode_tick(self) -> bool:
+        self._maybe_raise_tick_fault()
         page_table = None
         if self.paged is not None:
             # one frontier row per live slot; empty slots write the garbage
@@ -1102,7 +1253,7 @@ class ServingEngine:
         (self.cur_tok, self.pos, self.done, self.gen_count, packed) = _advance(
             logits, self.cur_tok, self.pos, self.done, self.gen_count, self.max_new_arr,
             active, self.caches, eos_id=self.eos_id, max_len=self.max_len,
-            guards=self.guards, paged=page_table is not None)
+            guards=self.guards, paged=page_table is not None, fault_nan=self._fault_mask("nan"))
         state = self._transfer(packed)
         if self.paged is not None:  # mirror the device frontier's advance
             self._pos_host[active_np] += 1
@@ -1137,8 +1288,10 @@ class ServingEngine:
     def step(self) -> bool:
         """One scheduler tick: expiry and cancellation, admission (with
         preemption), then a fused or decode-only tick with its one host
-        transfer. Returns False when there was nothing to run. Afterwards
-        ``on_emit`` fires for each request that emitted (its new tokens) and
+        transfer. Returns False when there was nothing to run. A tick that
+        raises is contained (:meth:`_fail_all_live`), so ``step()`` raises
+        only when rebuilding the device state fails. Afterwards ``on_emit``
+        fires for each request that emitted (its new tokens) and
         ``on_finish`` for each that ended, tokens before the finish."""
         watch = None
         if self.on_emit is not None or self.on_finish is not None:
@@ -1154,14 +1307,49 @@ class ServingEngine:
         return out
 
     def _step_impl(self) -> bool:
+        tick = self.tick_count
         self._expire_and_cancel(self._clock())
+        if self._fault_plan is not None:
+            # cache_growth: the slot's cache cannot hold the request; it
+            # retires CACHE_EXHAUSTED with the tokens it emitted
+            for f in self._fault_plan.at(tick, "cache_growth"):
+                for s in (range(self.slots) if f.slot is None else [f.slot]):
+                    if 0 <= s < self.slots and self.live[s] is not None:
+                        self._event("cache_growth_fault", rid=self.live[s].rid, slot=s)
+                        self._finish(s, self.live[s], R.Status.CACHE_EXHAUSTED,
+                                     detail="fault_injected")
         self._admission()
         if all(r is None for r in self.live):
             return False
+        t0 = time.perf_counter()
         try:
-            return self._dispatch()
+            if self._fault_plan is not None:
+                for f in self._fault_plan.at(tick, "slow_tick"):
+                    self._event("slow_tick_fault", duration_s=f.duration_s)
+                    time.sleep(f.duration_s)
+            failure = None
+            try:
+                out = self._dispatch()
+                self.consecutive_tick_failures = 0  # a clean tick resets the gate
+            except Exception as exc:  # noqa: BLE001 -- a failing tick is contained
+                self.consecutive_tick_failures += 1
+                failure = f"{type(exc).__name__}: {exc}"[:200]
+            if failure is not None:
+                # JAX's engine first flips a sticky kernel-to-XLA attention
+                # and retries (engine.py:1413-1440); the port has no second
+                # implementation and takes JAX's last resort at once. Outside
+                # the except block the traceback is gone, and with it the
+                # raising frames' references to the old caches.
+                self._fail_all_live(failure)
+                out = True
         finally:
+            # the tick's wall time; on the card it includes the tick's
+            # synchronising transfer
+            dur = time.perf_counter() - t0
+            if self.straggler.record(tick, dur):
+                self._event("straggler", duration_s=round(dur, 4))
             self.tick_count += 1
+        return out
 
     def run(self):
         while self.queue or any(r is not None for r in self.live):
