@@ -4,9 +4,10 @@ runs it, times them, then drives greedy ``generate``, the one-shot prefill,
 and the continuous-batching ``ServingEngine`` for tellme-0.7b at full
 width, on the contiguous and on the paged KV layout, with the packed matmul
 engine and with the table-lookup one, with chunked and with per-request
-prefill, with speculative decoding, and under injected faults; then RWKV-6
-3B (rwkv6-3b, the ssm family) at full width and depth through
-``generate``, the one-shot prefill and the per-request engine.
+prefill, with speculative decoding, under injected faults, in a replica
+pool and behind the HTTP/SSE front door; then RWKV-6 3B (rwkv6-3b, the ssm
+family) at full width and depth through ``generate``, the one-shot prefill
+and the per-request engine.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
@@ -173,6 +174,34 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             agreement with the plain streams reported; (d) a plan that
             never fires between two runs without one: the engine phase's
             streams, the same launches, tokens/s of each.
+  pool_smoke  the f32 smoke config in a ReplicaPool of two replicas (each
+            warmed up by its default request) under a replica_crash on
+            replica 0, on the card (kernels) and on the CPU (plain
+            versions): equal streams and terminal events, every request OK,
+            at least one migrated.
+  pool      full-width ReplicaPool of 2 engines (8 slots, max_len 1024,
+            bf16 contiguous cache) over one params tree, driven by poll()
+            on this thread, on the engine phase's workload: (a) fault-free:
+            every request OK, streams equal to the engine phase's, every
+            path kernel launched (the threads share the counters, so > 0);
+            tokens/s beside the engine phase's, straggler events, drains;
+            (b) a replica_crash on replica 0 at its tick 10 (the straggler
+            gate off): every request OK, at least one migrated, delivery
+            exactly once (each sink's tokens its request's final stream),
+            unmigrated streams equal to the engine phase's, a migrated one's
+            parting reported with its logit gap; then, on a clock moved past
+            a 30 s backoff, the restart from the factory and the probe bring
+            replica 0 back to ready: its ms and its peak allocation beyond
+            what was resident; (c) a 2.5 s replica_hang on replica 1: the
+            failover on the stale heartbeat, every request OK, exactly once
+            after the replica wakes; the stall-to-failover ms.
+  server    a ServingServer on 127.0.0.1 over one full-width engine (the
+            engine phase's), 16 concurrent SSE clients: streams equal to
+            the engine phase's, time to first token p50/p99, tokens/s; again
+            with the longest prompt's client leaving after its first token:
+            CANCELLED, the other 15 unchanged. Then ``python -m
+            repro_torch.launch.server --port 0 --replicas 2`` as a process:
+            ready, four requests OK, SIGTERM, exit code 0.
   rwkv_smoke  the rwkv smoke config in f32 on the card (kernels) against
             the same weights on the CPU (plain versions), through generate
             and the engine (prefill="auto", which is legacy): equal streams
@@ -274,6 +303,12 @@ FAULT_PLAN = [dict(kind="nan", tick=10, slot=2), dict(kind="cache_growth", tick=
 FAULT_SMOKE_PLAN = [dict(kind="nan", tick=3, slot=0), dict(kind="cache_growth", tick=5, slot=1),
                     dict(kind="tick_exception", tick=9),
                     dict(kind="slow_tick", tick=12, duration_s=0.05)]
+# the pool phases: replicas of the full-width engine, and the replica faults
+# (a replica's engine ticks count its warmup's two)
+POOL_REPLICAS = 2
+POOL_SMOKE_CRASH = dict(kind="replica_crash", tick=5, replica=0)
+POOL_CRASH = dict(kind="replica_crash", tick=10, replica=0)
+POOL_HANG = dict(kind="replica_hang", tick=10, replica=1, duration_s=2.5)
 
 
 def emit(obj) -> None:
@@ -3096,6 +3131,477 @@ def fault_engine_phase(torch, cfg, params, eng_streams, report: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases: the replica pool and the HTTP/SSE front door (A11b)
+# ---------------------------------------------------------------------------
+
+
+class _Sink:
+    """A pool sink that keeps every push with its time (time.perf_counter)."""
+
+    def __init__(self):
+        self.items, self.times = [], []
+
+    def push(self, item):
+        self.items.append(item)
+        self.times.append(time.perf_counter())
+
+    @property
+    def tokens(self) -> list:
+        return [t for it in self.items if it[0] == "tokens" for t in it[1]]
+
+    @property
+    def finals(self) -> list:
+        return [it for it in self.items if it[0] == "final"]
+
+
+def _pool_until(pool, pred, what: str, timeout_s: float, each=None) -> None:
+    """poll() until ``pred()``; ``each()`` after every poll; fails past the
+    timeout."""
+    t0 = time.perf_counter()
+    while True:
+        pool.poll()
+        if each is not None:
+            each()
+        if pred():
+            return
+        if time.perf_counter() - t0 > timeout_s:
+            errors = [repr(r.driver.error) for r in pool.replicas]
+            fail(f"timed out after {timeout_s} s waiting for {what}; driver errors {errors}: "
+                 f"{pool.stats()}")
+        time.sleep(0.001)
+
+
+def pool_smoke_phase(torch, report: dict) -> None:
+    """The f32 smoke pool of two replicas (default warmup) under a
+    replica_crash on replica 0, through the kernels on the card and through
+    the plain versions on the CPU: equal streams and terminal events, every
+    request OK, at least one migrated."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import resilience as R
+    from repro_torch.serving.pool import ReplicaPool
+
+    cfg = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                              pool_backoff_s=0.1, pool_hang_timeout_s=300.0)
+    specs = Tr.param_specs(cfg)
+    cpu_params = Tr.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=cfg.dtype)
+    cuda_params = _to_cuda(cpu_params)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 70, 30, 17, 25, 55)]
+    plan = R.FaultPlan(faults=(R.Fault(**POOL_SMOKE_CRASH),))
+    runs = []
+    for params, kset, device in ((cuda_params, KERNELS, None), (cpu_params, PLAIN, "cpu")):
+        pool = ReplicaPool(lambda idx: E.ServingEngine(params, cfg, slots=2, max_len=192,
+                                                       kernels=kset, device=device),
+                           cfg, replicas=2, fault_plan=plan)
+        pool.start(supervise=False)
+        try:
+            _pool_until(pool, lambda: all(r.state == "ready" for r in pool.replicas),
+                        "the smoke replicas", 300)
+            sinks = [_Sink() for _ in prompts]
+            for p, s in zip(prompts, sinks):
+                pool.submit(p, max_new=10, sink=s)
+            _pool_until(pool, pool.idle, "the smoke pool", 300)
+            runs.append(([(s.tokens, s.finals) for s in sinks], pool.stats()))
+        finally:
+            pool.stop()
+    (got, st), (want, cpu_st) = runs
+    out = {"phase": "pool_smoke", "plan": POOL_SMOKE_CRASH, "streams_equal": got == want,
+           "migrated": [st["migrated_total"], cpu_st["migrated_total"]],
+           "statuses": st["statuses"]}
+    report["pool_smoke"] = out
+    emit(out)
+    if (got != want or st["statuses"] != {"OK": len(prompts)} or st["migrated_total"] < 1
+            or any(len(f) != 1 for _, f in got)):
+        fail(f"pool_smoke: card vs CPU streams equal {got == want}, statuses "
+             f"{st['statuses']}, migrated {st['migrated_total']}")
+
+
+def pool_run(torch, cfg, params, prompts, *, plan=None, cfg_kw=None, clock=None,
+             each=None) -> tuple[dict, list, dict, object]:
+    """Serve ``prompts`` (ENGINE_NEW tokens each) on a ReplicaPool of
+    POOL_REPLICAS full-width engines over one params tree (slots, max_len and
+    eos as the engine phase's), driven by this thread's poll() every
+    millisecond. The replicas warm up (the default: one request each through
+    the kernels) before the launch counters are reset; they are read when
+    the pool is idle. ``each(pool)`` runs after every poll. Returns
+    (measurements, sinks, the pool's stream records by request index, the
+    pool, still running: the caller stops it)."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.pool import ReplicaPool
+
+    c = dataclasses.replace(cfg, **(cfg_kw or {}))
+    pool = ReplicaPool(lambda idx: E.ServingEngine(params, c, slots=ENGINE_SLOTS,
+                                                   max_len=ENGINE_MAX_LEN, kernels=K.KERNELS,
+                                                   eos_id=-1),
+                       c, replicas=POOL_REPLICAS, fault_plan=plan,
+                       clock=clock or time.monotonic)
+    pool.start(supervise=False)
+    _pool_until(pool, lambda: all(r.state == "ready" for r in pool.replicas),
+                "the replicas' warmup", 300)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    sinks = [_Sink() for _ in prompts]
+    seen = {"migrated_at": None, "states": set()}
+    t0 = time.perf_counter()
+    rids = [pool.submit(p, max_new=ENGINE_NEW, sink=s) for p, s in zip(prompts, sinks)]
+    streams = {i: pool._streams[rid] for i, rid in enumerate(rids)}
+
+    def watch():
+        if seen["migrated_at"] is None and pool.migrated_total:
+            seen["migrated_at"] = time.perf_counter()
+        seen["states"] |= {(r.idx, r.state) for r in pool.replicas}
+        if each is not None:
+            each(pool)
+
+    _pool_until(pool, pool.idle, "the pool to serve the workload", 600, watch)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    st = pool.stats()
+    tokens = sum(len(s.tokens) for s in sinks)
+    firsts = sorted((s.times[0] - t0) * 1e3 for s in sinks if s.tokens)
+    per = [{k: r[k] for k in ("replica_id", "state", "crashes", "restarts")}
+           | {"ticks": r["engine"]["ticks"] if r["engine"] else None,
+              "straggler_events": (r["engine"]["straggler"]["straggler_events"]
+                                   if r["engine"] else None)}
+           for r in st["per_replica"]]
+    return ({"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+             "statuses": st["statuses"], "migrated_total": st["migrated_total"],
+             "first_token_ms": firsts, "per_replica": per, "launch_counts": counts,
+             "drained_replicas": sorted({i for i, s in seen["states"]
+                                         if s in ("draining", "quarantined")}),
+             "t0": t0, "migrated_at": seen["migrated_at"]},
+            sinks, streams, pool)
+
+
+def _delivery_problems(sinks, streams) -> list[str]:
+    """Exactly-once delivery: each sink's tokens are its request's final
+    stream (ENGINE_NEW tokens), with one final event ``OK`` of that count."""
+    bad = []
+    for i, s in enumerate(sinks):
+        gen = [int(t) for t in streams[i].req.generated]
+        if (s.tokens != gen or len(gen) != ENGINE_NEW
+                or s.finals != [("final", "OK", None, ENGINE_NEW)]):
+            bad.append(i)
+    return [f"delivery not exactly once or not OK: {bad}"] if bad else []
+
+
+def _resume_ms(res, sinks, streams) -> list:
+    """Per migrated stream: ms from the failover (the poll that requeued it)
+    to its first token after it, and its longest gap between tokens."""
+    t = res["migrated_at"]
+    out = []
+    for i, s in enumerate(sinks):
+        if streams[i].req.migrations:
+            after = [x for x, it in zip(s.times, s.items) if it[0] == "tokens" and x >= t]
+            gaps = [b - a for a, b in zip(s.times, s.times[1:])]
+            out.append({"request": i, "resume_ms": (after[0] - t) * 1e3 if after else None,
+                        "max_gap_ms": max(gaps) * 1e3 if gaps else None})
+    return out
+
+
+def pool_phase(torch, cfg, params, eng_streams, report: dict) -> None:
+    """tellme-0.7b at full width: a pool of POOL_REPLICAS engines (8 slots,
+    max_len 1024, bf16 contiguous cache each) over one params tree, on the
+    engine phase's 16-request ragged workload. (a) fault-free: every
+    request OK, streams equal to the engine phase's, every kernel of the
+    engine's path launched (threads share the counters, so > 0 is held);
+    tokens/s beside the engine phase's, straggler events, drains. (b) a
+    replica_crash on replica 0 at its tick POOL_CRASH_TICK, the straggler
+    gate off: every request OK, at least one migrated, delivery exactly once,
+    streams that were not migrated equal to the engine phase's, a migrated
+    stream's parting reported with the gap of its two tokens; then, on a
+    clock moved past the backoff, the restart from the factory and the
+    probe bring replica 0 back to ready, and the peak bytes allocated
+    beyond what was resident while it restarts (the dead engine's caches
+    live until then). (c) a replica_hang of POOL_HANG on replica 1, the
+    straggler gate off: failover on the stale heartbeat, every request OK,
+    delivery exactly once after the replica wakes, streams that were not
+    migrated equal to the engine phase's (partings of migrated ones
+    reported); the ms from the stall to the failover and to each migrated
+    stream's next token."""
+    import dataclasses
+
+    from repro_torch.serving import resilience as R
+
+    prompts = _engine_prompts(cfg)
+    c = dataclasses.replace(cfg, kv_cache_dtype="bf16")
+    want = eng_streams["bf16"]
+    path = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
+            "decode_attention", "prefill_append")
+    keep = ("wall_s", "tokens", "tokens_per_s", "statuses", "migrated_total", "first_token_ms",
+            "per_replica", "drained_replicas")
+    out = {"phase": "pool", "model": cfg.name, "replicas": POOL_REPLICAS,
+           "slots": ENGINE_SLOTS, "max_len": ENGINE_MAX_LEN, "requests": ENGINE_REQUESTS,
+           "max_new": ENGINE_NEW,
+           "engine_phase_tokens_per_s": report["engine"]["bf16"]["tokens_per_s"]}
+    no_stragglers = {"pool_straggler_events": 10**6}
+    with torch.inference_mode():
+        # (a) fault-free
+        res, sinks, streams, pool = pool_run(torch, c, params, prompts)
+        pool.stop()
+        problems = _delivery_problems(sinks, streams)
+        parted = [i for i, s in enumerate(sinks) if s.tokens != want[i]]
+        if parted:
+            problems.append(f"streams differ from the engine phase's: {parted}")
+        missing = [n for n in path if res["launch_counts"][n] <= 0]
+        if missing:
+            problems.append(f"kernels never launched on the pool's path: {missing}")
+        out["a"] = {k: res[k] for k in keep} | {"streams_equal_to_engine": ENGINE_REQUESTS - len(parted)}
+        if problems:
+            emit(out)
+            fail("pool[a, fault-free]: " + "; ".join(problems))
+
+        # (b) replica_crash on replica 0; a clock this thread moves past the
+        # backoff once the workload is served, so the restart runs alone
+        offset = [0.0]
+        backoff = 30.0
+        res, sinks, streams, pool = pool_run(
+            torch, c, params, prompts, plan=R.FaultPlan(faults=(R.Fault(**POOL_CRASH),)),
+            cfg_kw=no_stragglers | {"pool_backoff_s": backoff, "pool_hang_timeout_s": 300.0},
+            clock=lambda: time.monotonic() + offset[0])
+        try:
+            problems = _delivery_problems(sinks, streams)
+            migrated = [i for i in streams if streams[i].req.migrations]
+            parted = [i for i, s in enumerate(sinks) if s.tokens != want[i]]
+            if res["statuses"] != {"OK": ENGINE_REQUESTS} or not migrated:
+                problems.append(f"statuses {res['statuses']}, migrated {migrated}")
+            if set(parted) - set(migrated):
+                problems.append(f"streams not migrated differ: {sorted(set(parted) - set(migrated))}")
+            partings = [divergence(torch, c, params, prompts[i], sinks[i].tokens, want[i])
+                        | {"request": i} for i in parted if len(sinks[i].tokens) == ENGINE_NEW]
+            rep = pool.replicas[0]
+            if rep.state != "quarantined" or rep.crashes != 1:
+                problems.append(f"replica 0 is {rep.state} with {rep.crashes} crashes")
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            offset[0] += backoff + 1.0
+            t_restart = time.perf_counter()
+            _pool_until(pool, lambda: rep.state == "ready", "replica 0's restart and probe", 300)
+            restart_ms = (time.perf_counter() - t_restart) * 1e3
+            torch.cuda.synchronize()
+            peak_extra = torch.cuda.max_memory_allocated() - resident
+            gc.collect()
+            resident_after = torch.cuda.memory_allocated()
+            out["b"] = {k: res[k] for k in keep} | {
+                "plan": POOL_CRASH, "migrated_requests": migrated,
+                "streams_equal_to_engine": ENGINE_REQUESTS - len(parted), "partings": partings,
+                "resume": _resume_ms(res, sinks, streams),
+                "restart_to_ready_ms": restart_ms, "restarts": rep.restarts,
+                "resident_bytes_before_restart": resident,
+                "restart_peak_extra_bytes": peak_extra,
+                "resident_bytes_after_restart": resident_after}
+            if rep.restarts != 1:
+                problems.append(f"replica 0 restarted {rep.restarts} times")
+        finally:
+            pool.stop()
+        if problems:
+            emit(out)
+            fail("pool[b, replica_crash]: " + "; ".join(problems))
+
+        # (c) replica_hang on replica 1, on the real clock
+        hang = {"seen": None}
+
+        def spot(pool):
+            if hang["seen"] is None and ("hang", POOL_HANG["tick"], 1) in pool.replicas[1].fired:
+                hang["seen"] = time.perf_counter()
+
+        res, sinks, streams, pool = pool_run(
+            torch, c, params, prompts, plan=R.FaultPlan(faults=(R.Fault(**POOL_HANG),)),
+            cfg_kw=no_stragglers, each=spot)
+        try:
+            zombie = pool.replicas[1]
+            t_wait = time.perf_counter()
+            while (zombie.engine.queue or any(r is not None for r in zombie.engine.live)
+                   or zombie.driver.beat < time.monotonic() - 1.0):
+                if time.perf_counter() - t_wait > 60:
+                    fail("pool[c]: the hung replica never woke and retired its copies")
+                pool.poll()
+                time.sleep(0.01)
+            problems = _delivery_problems(sinks, streams)
+            migrated = [i for i in streams if streams[i].req.migrations]
+            if res["statuses"] != {"OK": ENGINE_REQUESTS} or not migrated:
+                problems.append(f"statuses {res['statuses']}, migrated {migrated}")
+            if zombie.crashes < 1:  # a probe sent while it still sleeps fails it over again
+                problems.append("replica 1 was never failed over")
+            parted = [i for i, s in enumerate(sinks) if s.tokens != want[i]]
+            if set(parted) - set(migrated):
+                problems.append(f"streams not migrated differ: {sorted(set(parted) - set(migrated))}")
+            partings = [divergence(torch, c, params, prompts[i], sinks[i].tokens, want[i])
+                        | {"request": i} for i in parted if len(sinks[i].tokens) == ENGINE_NEW]
+            out["c"] = {k: res[k] for k in keep} | {
+                "plan": POOL_HANG, "migrated_requests": migrated, "failovers": zombie.crashes,
+                "streams_equal_to_engine": ENGINE_REQUESTS - len(parted), "partings": partings,
+                "stall_to_failover_ms": ((res["migrated_at"] - hang["seen"]) * 1e3
+                                         if hang["seen"] and res["migrated_at"] else None),
+                "resume": _resume_ms(res, sinks, streams)}
+        finally:
+            pool.stop()
+        if problems:
+            emit(out)
+            fail("pool[c, replica_hang]: " + "; ".join(problems))
+    report["pool"] = out
+    emit(out)
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def server_phase(torch, cfg, params, eng_streams, report: dict) -> None:
+    """The HTTP/SSE front door at full width: a ServingServer on 127.0.0.1
+    (an ephemeral port) over one engine as the engine phase's (bf16
+    contiguous cache), warmed up by its default warmup. 16 concurrent SSE
+    clients send the engine phase's workload: every stream OK and equal to
+    the engine phase's, contiguous token indexes, every kernel of the
+    engine's path launched; time to first token (p50, p99) and tokens/s.
+    Again with the longest prompt's client hanging up after its first
+    token: that request CANCELLED, the other 15 streams unchanged. Then
+    ``python -m repro_torch.launch.server --port 0 --replicas 2`` (full
+    width) as a subprocess: ready, four requests OK, SIGTERM, exit code 0."""
+    import asyncio
+    import dataclasses
+    import queue
+    import signal
+    import threading
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.server import ServingServer, http_get, sse_request
+
+    prompts = [[int(t) for t in p] for p in _engine_prompts(cfg)]
+    want = eng_streams["bf16"]
+    c = dataclasses.replace(cfg, kv_cache_dtype="bf16")
+    path = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
+            "decode_attention", "prefill_append")
+    leaver = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    out = {"phase": "server", "model": cfg.name, "clients": len(prompts),
+           "slots": ENGINE_SLOTS, "max_len": ENGINE_MAX_LEN, "max_new": ENGINE_NEW}
+
+    async def clients(server, disconnect=None):
+        t0 = time.perf_counter()
+        recs = await asyncio.gather(*(sse_request(
+            server.host, server.port, {"prompt": p, "max_new": ENGINE_NEW},
+            disconnect_after=1 if i == disconnect else None) for i, p in enumerate(prompts)))
+        return recs, time.perf_counter() - t0
+
+    async def body():
+        engine = E.ServingEngine(params, c, slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                                 kernels=K.KERNELS, eos_id=-1)
+        server = ServingServer(engine, host="127.0.0.1", port=0)
+        t_start = time.perf_counter()
+        await server.start()
+        out["warmup_s"] = time.perf_counter() - t_start
+        try:
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            recs, wall = await clients(server)
+            counts = K.launch_counts()
+            recs2, _ = await clients(server, disconnect=leaver)
+            t0 = time.perf_counter()
+            while True:
+                stats = json.loads((await http_get(server.host, server.port, "/v1/stats"))[1])
+                if stats["statuses"].get("CANCELLED") or time.perf_counter() - t0 > 60:
+                    break
+                await asyncio.sleep(0.02)
+            return recs, wall, counts, recs2, stats
+        finally:
+            await server.drain_and_stop(30.0)
+
+    recs, wall, counts, recs2, stats = asyncio.run(asyncio.wait_for(body(), 600))
+    problems = []
+    bad = [i for i, r in enumerate(recs)
+           if r["status"] != "OK" or r["indexes"] != list(range(ENGINE_NEW))]
+    parted = [i for i, r in enumerate(recs) if r["tokens"] != want[i]]
+    if bad or parted:
+        problems.append(f"requests not OK {bad}, streams differing from the engine phase's "
+                        f"{parted}")
+    missing = [n for n in path if counts[n] <= 0]
+    if missing:
+        problems.append(f"kernels never launched behind the server: {missing}")
+    ttft = [(r["t_first"] - r["t_sent"]) * 1e3 for r in recs if r["t_first"] is not None]
+    tokens = sum(len(r["tokens"]) for r in recs)
+    kept = [i for i in range(len(prompts)) if i != leaver]
+    changed = [i for i in kept if recs2[i]["tokens"] != want[i] or recs2[i]["status"] != "OK"]
+    if not recs2[leaver]["disconnected"] or stats["statuses"].get("CANCELLED") != 1 or changed:
+        problems.append(f"the disconnect: CANCELLED {stats['statuses'].get('CANCELLED')}, "
+                        f"other streams changed {changed}")
+    out.update(ttft_ms_p50=_pct(ttft, 0.5), ttft_ms_p99=_pct(ttft, 0.99), ttft_ms=ttft,
+               wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+               engine_phase_tokens_per_s=report["engine"]["bf16"]["tokens_per_s"],
+               streams_equal_to_engine=len(prompts) - len(parted), disconnected=leaver,
+               statuses_after_disconnect=stats["statuses"], launch_counts=counts)
+    if problems:
+        emit(out)
+        fail("server: " + "; ".join(problems))
+
+    # the launcher as a process: a pool of two full-width replicas
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.server", "--port", "0",
+                             "--replicas", "2"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+                              daemon=True)
+    reader.start()
+    launcher = {"command": "python -m repro_torch.launch.server --port 0 --replicas 2"}
+    try:
+        try:
+            first = lines.get(timeout=300)
+        except queue.Empty:
+            first = None
+        if not first or "listening on http://" not in first:
+            fail(f"server: the launcher did not start: {first!r}")
+        port = int(first.split("http://")[1].split()[0].rsplit(":", 1)[1])
+
+        async def probe():
+            while (await http_get("127.0.0.1", port, "/readyz"))[0] != 200:
+                await asyncio.sleep(0.1)
+            launcher["ready_s"] = time.perf_counter() - t0
+            return await asyncio.gather(*(sse_request("127.0.0.1", port,
+                                                      {"prompt": p[:100], "max_new": 8})
+                                          for p in prompts[:4]))
+
+        recs = asyncio.run(asyncio.wait_for(probe(), 300))
+        launcher["statuses"] = [r["status"] for r in recs]
+        proc.send_signal(signal.SIGTERM)
+        launcher["exit_code"] = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    reader.join(timeout=10)
+    tail = []
+    while not lines.empty():
+        x = lines.get()
+        if x is not None:
+            tail.append(x.rstrip())
+    launcher["output_tail"] = tail[-3:]
+    out["launcher"] = launcher
+    report["server"] = out
+    emit(out)
+    if launcher["statuses"] != ["OK"] * 4 or launcher["exit_code"] != 0:
+        fail(f"server: the launcher served {launcher['statuses']} and exited "
+             f"{launcher['exit_code']}")
+
+
+# ---------------------------------------------------------------------------
 # phases: RWKV-6 3B (the ssm family, the WKV kernel B15)
 # ---------------------------------------------------------------------------
 
@@ -3765,6 +4271,9 @@ def main(argv=None) -> int:
     legacy_engine_phase(torch, cfg, params, eng_streams, report)
     spec_counts = spec_engine_phase(torch, cfg, params, eng_streams, report)
     fault_engine_phase(torch, cfg, params, eng_streams, report)
+    pool_smoke_phase(torch, report)
+    pool_phase(torch, cfg, params, eng_streams, report)
+    server_phase(torch, cfg, params, eng_streams, report)
     spec_run = {"prefill_append": ("contiguous", "bf16"),
                 "prefill_append_quant": ("contiguous", "int8"),
                 "prefill_append_paged": ("paged", "bf16"),

@@ -7,7 +7,10 @@ test can hold each shared field against it. Two families are ported: the
 dense transformer and ``ssm`` (RWKV-6). The options of other architectures
 (softcaps, sliding windows, local/global layers, MoE, MLA, hybrids) come
 with the slice that ports a config using them. ``sub_quadratic`` is left
-out: only the JAX package's dry-run reads it.
+out: only the JAX package's dry-run reads it. The serving knobs of the
+replica pool and the HTTP/SSE front door (``serving/pool.py``,
+``serving/server.py``) and :func:`resolve_slo` are JAX's
+(``base.py:115-153, 238-248``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,35 @@ class ModelConfig:
     admission_queue_cap: int = 0  # 0 = unbounded
     request_ttl_s: float = 0.0  # 0 = no deadline
     stats_ring_events: int = 4096  # engine event ring (0 = unbounded)
+    # SLO classes of the replica pool: (name, priority, default deadline_s,
+    # chunk-budget weight); a 0.0 deadline means none (request_ttl_s then
+    # applies). A tuple of tuples, so the frozen config stays hashable.
+    slo_classes: tuple = (
+        ("interactive", 2, 0.0, 1.0),
+        ("batch", 1, 0.0, 0.5),
+        ("best_effort", 0, 0.0, 0.25),
+    )
+    # Replica pool health gating and failover (serving/pool.py): drain after
+    # pool_health_fail_ticks failed ticks in a row or a dense straggler
+    # window (pool_straggler_events of the last pool_straggler_window
+    # ticks); quarantine under a backoff doubling from pool_backoff_s to
+    # pool_backoff_max_s, then a probe request within pool_probe_timeout_s;
+    # a driver whose heartbeat is pool_hang_timeout_s old is hung.
+    pool_replicas: int = 2
+    pool_health_fail_ticks: int = 3
+    pool_backoff_s: float = 0.25
+    pool_backoff_max_s: float = 8.0
+    pool_hang_timeout_s: float = 2.0
+    pool_probe_timeout_s: float = 10.0
+    pool_poll_interval_s: float = 0.01
+    pool_straggler_window: int = 8
+    pool_straggler_events: int = 3
+    # HTTP/SSE front door (serving/server.py): bind address, the SIGTERM
+    # drain's hard-kill timeout and the driver thread's idle poll
+    server_host: str = "127.0.0.1"
+    server_port: int = 8080
+    server_drain_timeout_s: float = 30.0
+    server_poll_s: float = 0.001
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
@@ -65,6 +97,17 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Vocab padded to 256, as the JAX package pads it."""
         return ((self.vocab_size + 255) // 256) * 256
+
+
+def resolve_slo(cfg: ModelConfig, name: str) -> tuple[int, float | None, float]:
+    """An SLO class name as the lifecycle fields ``(priority, deadline_s or
+    None, chunk_budget_weight)``; a 0.0 class deadline is None. An unknown
+    class raises ``KeyError`` (the front door's 400), never a silent
+    demotion."""
+    for cls, prio, deadline, weight in cfg.slo_classes:
+        if cls == name:
+            return int(prio), (float(deadline) if deadline else None), float(weight)
+    raise KeyError(f"unknown SLO class {name!r}; have {[c[0] for c in cfg.slo_classes]}")
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

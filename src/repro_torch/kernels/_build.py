@@ -10,6 +10,9 @@ library has a plain ``extern "C"`` interface: every pointer and the stream
 cross as ``ctypes.c_void_p``, element strides as ``ctypes.c_longlong``, and
 every launcher returns the ``cudaGetLastError()`` after its launch, which
 :func:`check` turns into an exception. Nothing here runs at import.
+:func:`build` and :func:`library` hold one lock, so threads that first use
+the kernels at the same time (the replicas of a pool warming up) build
+and load the library once.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -90,6 +94,7 @@ SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_LOCK = threading.RLock()  # build() and library(): one build, one load per process
 
 
 def nvcc() -> str:
@@ -111,6 +116,11 @@ def build() -> Path:
     """Compile (if needed) and return the path of the shared library. The
     compiler's output, ptxas register and shared-memory counts included,
     is kept beside it in ``build.log``."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> Path:
     out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / "librepro_torch_kernels.so"
     if lib_path.exists():
@@ -147,17 +157,20 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.tm_error_string.argtypes = [ctypes.c_int]
-        lib.tm_error_string.restype = ctypes.c_char_p
-        lib.tm_wkv_buffer_floats.argtypes = [ctypes.c_int] * 3  # bh, s, n
-        lib.tm_wkv_buffer_floats.restype = ctypes.c_longlong
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.tm_error_string.argtypes = [ctypes.c_int]
+            lib.tm_error_string.restype = ctypes.c_char_p
+            lib.tm_wkv_buffer_floats.argtypes = [ctypes.c_int] * 3  # bh, s, n
+            lib.tm_wkv_buffer_floats.restype = ctypes.c_longlong
+            _lib = lib
     return _lib
 
 

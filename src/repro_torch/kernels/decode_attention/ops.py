@@ -28,7 +28,13 @@ from . import ref
 SPLIT_ROWS = 128  # cache rows per block of the kernel
 HEAD_DIMS = (16, 32, 64, 96, 128)
 
-_TICKETS: dict[int, torch.Tensor] = {}  # device index -> int32 zeros
+# device index -> int32 zeros. One buffer serves every launch on the
+# device, which is safe only while those launches run one after another:
+# two merges in flight at once would count each other's arrivals. So every
+# caller launches on one stream, the device's default stream, which the
+# threads of a replica pool share (serving/pool.py); a stream per replica
+# needs a ticket buffer per stream first.
+_TICKETS: dict[int, torch.Tensor] = {}
 
 
 def _scratch(name, q, b, h, m, d):

@@ -82,9 +82,19 @@ passes) give the contiguous inputs' outputs bit for bit; so do a second
 call, and each head of a B = 4 call run alone. The rwkv smoke config in f32
 through the kernels gives the plain versions' streams on the CPU, through
 ``generate`` and the legacy engine.
+
+Threads share one card: two engines over one params tree, stepped at the
+same time on two threads (each on the device's default stream, so decode
+attention's one ticket buffer is used by one launch at a time), give each
+engine's streams and cache bytes alone, bit for bit, with a bf16 and with
+an int8 cache. The f32 smoke replica pool (two replicas, the default
+warmup, a ``replica_crash`` on replica 0) gives the CPU pool's streams, one
+terminal event each.
 """
 
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -111,6 +121,8 @@ from repro_torch.kernels.tl_gemv import ref as tl_ref
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as TE
+from repro_torch.serving import resilience as TR
+from repro_torch.serving.pool import ReplicaPool
 
 pytestmark = pytest.mark.gpu
 
@@ -1283,3 +1295,114 @@ def test_smoke_rwkv_kernels_vs_plain(cuda):
     assert launch_counts()["wkv"] == cfg.n_layers * len(eng_prompts)
     assert served == serve(cpu_params, PLAIN, "cpu")[0]
     assert eng.prefill == "legacy" and eng.stats()["host_transfers"] == eng.stats()["ticks"]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_two_engines_on_two_threads_equal_each_alone(cuda, kv):
+    """Two engines over one params tree, stepped at the same time on two
+    threads: each gives its streams and cache bytes run alone, bit for bit."""
+    cfg = dataclasses.replace(get_config("tellme-0.7b", smoke=True), kv_cache_dtype=kv)
+    specs = TT.param_specs(cfg)
+    params = TT.pack_tree(PR.init_params(specs, seed=0, device=cuda), specs, dtype=cfg.dtype)
+    rng = np.random.default_rng(11)
+    workloads = [[rng.integers(0, cfg.vocab_size, n) for n in lens]
+                 for lens in ((9, 70, 200, 30, 130), (150, 12, 64, 90))]
+
+    def engine(prompts):
+        eng = TE.ServingEngine(params, cfg, slots=2, max_len=256, kernels=KERNELS)
+        reqs = [TE.Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        return eng, reqs
+
+    def result(eng, reqs):
+        torch.cuda.synchronize()
+        caches = {b: {n: t.cpu() for n, t in leaves.items()}
+                  for b, leaves in eng.caches["blocks"].items()}
+        return [(r.generated, r.status) for r in reqs], caches
+
+    alone = []
+    for prompts in workloads:
+        eng, reqs = engine(prompts)
+        eng.run()
+        alone.append(result(eng, reqs))
+    pairs = [engine(p) for p in workloads]
+    barrier, errors = threading.Barrier(2), []
+
+    def run(eng):
+        try:
+            barrier.wait(timeout=60)
+            eng.run()
+        except BaseException as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(eng,)) for eng, _ in pairs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for (eng, reqs), (streams, caches) in zip(pairs, alone):
+        got_streams, got_caches = result(eng, reqs)
+        assert got_streams == streams
+        assert all(r.status.name == "OK" for r in reqs)
+        for b, leaves in caches.items():
+            for n, t in leaves.items():
+                assert torch.equal(got_caches[b][n], t), (b, n)
+
+
+class _Sink:
+    def __init__(self):
+        self.items = []
+
+    def push(self, item):
+        self.items.append(item)
+
+
+def test_smoke_pool_replica_crash_equals_cpu(cuda):
+    """The f32 smoke pool of two replicas (default warmup: the library
+    loaded, one request through the kernels) under a replica_crash on
+    replica 0: on the card, the CPU pool's streams and terminal events."""
+    cfg = dataclasses.replace(get_config("tellme-0.7b", smoke=True), dtype=torch.float32,
+                              pool_backoff_s=0.1, pool_hang_timeout_s=300.0)
+    specs = TT.param_specs(cfg)
+    cpu_params = TT.pack_tree(PR.init_params(specs, seed=0, device="cpu"), specs,
+                              dtype=cfg.dtype)
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (40, 70, 30, 17, 25, 55)]
+    plan = TR.FaultPlan(faults=(TR.Fault("replica_crash", tick=5, replica=0),))
+
+    def serve(params, kernels, device):
+        pool = ReplicaPool(
+            lambda idx: TE.ServingEngine(params, cfg, slots=2, max_len=192, kernels=kernels,
+                                         device=device),
+            cfg, replicas=2, fault_plan=plan)
+        sinks = [_Sink() for _ in prompts]
+        pool.start(supervise=False)
+        try:
+            t0 = time.monotonic()
+            while sum(r.state == "ready" for r in pool.replicas) < 2:
+                assert time.monotonic() - t0 < 300, pool.stats()
+                pool.poll()
+                time.sleep(0.005)
+            for p, s in zip(prompts, sinks):
+                pool.submit(p, max_new=10, sink=s)
+            while not pool.idle():
+                assert time.monotonic() - t0 < 300, pool.stats()
+                pool.poll()
+                time.sleep(0.005)
+            return [s.items for s in sinks], pool.stats()
+        finally:
+            pool.stop()
+
+    got, st = serve(_to(cpu_params, cuda), KERNELS, None)
+    want, _ = serve(cpu_params, PLAIN, "cpu")
+    assert st["migrated_total"] >= 1 and st["statuses"] == {"OK": len(prompts)}
+
+    def tokens(items):
+        return [t for it in items if it[0] == "tokens" for t in it[1]]
+
+    assert [tokens(i) for i in got] == [tokens(i) for i in want]
+    assert [[it for it in i if it[0] == "final"] for i in got] == [
+        [("final", "OK", None, 10)]] * len(prompts)
