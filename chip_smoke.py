@@ -7,7 +7,9 @@ engine and with the table-lookup one, with chunked and with per-request
 prefill, with speculative decoding, under injected faults, in a replica
 pool and behind the HTTP/SSE front door; then RWKV-6 3B (rwkv6-3b, the ssm
 family) at full width and depth through ``generate``, the one-shot prefill
-and the per-request engine.
+and the per-request engine; then the MoE families at smoke size, and
+DeepSeek-V2-Lite 16B (the mla_moe family) at full width and depth through
+``generate`` and the per-request engine.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
@@ -49,7 +51,9 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             codes and scale, tables build_tables of them), timed beside them.
             Flash attention (the one-shot prefill) at generate's bucket
             q[4,16,128,96], at 1024 and 4096 tokens in bf16, at 4096 in f32
-            and with GQA in f32 at a ragged S (q[1,8,200,64], k/v 2 heads):
+            and with GQA in f32 at a ragged S (q[1,8,200,64], k/v 2 heads),
+            and at DeepSeek's MLA prefills (q/k[4,16,100,192] and
+            [1,16,1000,192], v 128, bf16, the exact lengths it prefills):
             kernel, plain, bound and SDPA times (and the kernel's over
             SDPA's, over_library), and at 4096 the dense schedule
             (causal_skip=False, bit-equal) beside the causal skip. The tiled
@@ -235,6 +239,38 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             the gap of its two tokens in the engine's own logits; the first
             two requests through a one-slot engine, streams equal to
             generate's; one decode step batched against one by one.
+  moe_smoke  the deepseek-v2-lite-16b and arctic-480b smoke configs in f32
+            on the card (kernels) against the same weights on the CPU
+            (plain versions): forward logits within 2 % of max |logit|,
+            argmax equal; generate: equal streams; the legacy engine: equal
+            statuses, one host transfer a tick, each stream equal or
+            parting at a near-tie (the two tokens' plain logits closer than
+            the kernels' logits lie from the plain ones, within 2 %). The
+            smoke's MLA attention (24, 16) runs the flash kernel
+            zero-padded to (32, 32).
+  deepseek_init  full-width deepseek-v2-lite-16b (27 layers, 64 experts,
+            random weights from seed 0) initialised and packed leaf by
+            leaf on the card: seconds and bytes resident.
+  deepseek_blocks  the dense prelude, the first and the last MoE block,
+            each through the kernels and the plain versions on the same
+            input, a 4 x 100 prefill and one decode step: within the
+            logits bar of max |plain|.
+  deepseek_generate  B = 4, a 100-token prompt, 32 steps through the
+            kernels, 8 through the plain versions (2 s a step): decode ms a
+            step and tokens/s, the launches of
+            the run and of one decode step, the 1 x 1000 prefill, the
+            device busy share (torch.profiler over three decode steps), how
+            many streams equal the plain versions' over 8 steps (reported,
+            not held);
+            one flash-attention launch a layer a prefill.
+  deepseek_engine  the legacy engine (prefill="auto"), 8 slots, max_len
+            1024, the ragged 16 prompts, 32 new tokens each: every request
+            OK with its tokens, one host transfer a tick; tokens/s, ms a
+            tick. Then the ``deepseek_rows`` line: row 17's MLA shapes
+            (the kernels phase's q/k[4,16,100,192] and [1,16,1000,192], v
+            128, bf16) with their launches, and rows 3-4's launches in a
+            DeepSeek decode step, the 1 x 1000 prefill, generate and the
+            engine.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -267,6 +303,7 @@ SMOKE_LOGIT_TOL = 1e-3  # f32 smoke prefill logits, card vs CPU
 WKV_TOL = 1e-4  # wkv's y and state, f32, of each head's max |plain| (wkv_rows)
 
 STEPS = 64  # greedy steps of the full-width run
+MLA_ATTENTION = (16, 192, 128)  # deepseek-v2-lite-16b's prefill attention: heads, Dqk, Dv
 DECODE_CHECK_STEPS = 8  # decode steps held against the plain versions from shared caches
 
 # The kernels that generate runs (bf16 cache)
@@ -379,11 +416,11 @@ def eager_ms(torch, fn, arg_sets, iters=200) -> float:
 
 
 # The tensor-core kernels and the packed GEMV in ptxas's log, by the
-# mangled name's template arguments: flash attention in bf16 (D), the
+# mangled name's template arguments: flash attention in bf16 (Dqk, Dv), the
 # packed matmul (weights, tile, dtype), the GEMV (weights, row instance,
 # dtype), prefill-append in bf16 (cache dtype, D, int8 cache, paged)
 _EPI = r"NS_(?:10DequantEpi|9SwigluEpi)I(f|13__nv_bfloat16)E"
-_TC_KERNELS = (("flash_attention_tc", re.compile(r"flash_attention_tc_kernelILi(\d+)E")),
+_TC_KERNELS = (("flash_attention_tc", re.compile(r"flash_attention_tc_kernelILi(\d+)ELi(\d+)E")),
                ("ternary_mma", re.compile(r"17mma_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)"
                                           r"ELi(\d+)E" + _EPI)),
                ("ternary_gemv", re.compile(r"11gemv_kernelILi(\d+)ELi(\d+)E" + _EPI)),
@@ -935,17 +972,22 @@ def flash_attention_rows(torch, cfg, randn, checks) -> list[dict]:
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16, f32 = torch.bfloat16, torch.float32
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    shapes = (  # tag, (B, H, HK, S, D), dtype
-        ("generate", (4, h, hk, 128, hd), bf16),
-        ("1024", (1, h, hk, 1024, hd), bf16),
-        ("4096", (1, h, hk, 4096, hd), bf16),
-        ("4096_f32", (1, h, hk, 4096, hd), f32),
-        ("gqa", (1, 8, 2, 200, 64), f32))
+    ds = MLA_ATTENTION  # DeepSeek-V2-Lite's MLA prefill: 16 heads, Dqk 192, Dv 128
+    shapes = (  # tag, (B, H, HK, S, Dqk, Dv), dtype
+        ("generate", (4, h, hk, 128, hd, hd), bf16),
+        ("1024", (1, h, hk, 1024, hd, hd), bf16),
+        ("4096", (1, h, hk, 4096, hd, hd), bf16),
+        ("4096_f32", (1, h, hk, 4096, hd, hd), f32),
+        ("gqa", (1, 8, 2, 200, 64, 64), f32),
+        ("mla 4x100", (4, ds[0], ds[0], 100, ds[1], ds[2]), bf16),
+        ("mla 1x1000", (1, ds[0], ds[0], 1000, ds[1], ds[2]), bf16))
     rows = []
-    for tag, (b, nh, nk, s, d), dtype in shapes:
-        q, k, v = (randn(b, n, s, d, dtype=dtype) for n in (nh, nk, nk))
-        got = fa_ops.flash_attention(q, k, v)
-        want = fa_ref.flash_attention(q, k, v).float()
+    for tag, (b, nh, nk, s, d, dv), dtype in shapes:
+        q, k = (randn(b, n, s, d, dtype=dtype) for n in (nh, nk))
+        v = randn(b, nk, s, dv, dtype=dtype)
+        scale = 1.0 / math.sqrt(d)  # MLA passes it explicitly; the others' default
+        got = fa_ops.flash_attention(q, k, v, scale=scale)
+        want = fa_ref.flash_attention(q, k, v, scale=scale).float()
         torch.cuda.synchronize()
         diff = (got.float() - want).abs()
         rms_row = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
@@ -969,19 +1011,22 @@ def flash_attention_rows(torch, cfg, randn, checks) -> list[dict]:
         iters = 100 if s <= 256 else 20
         # live (query, key) pairs: causal
         pairs = b * nh * s * (s + 1) // 2
-        nb = 2 * _nbytes(q) + _nbytes(k, v)
-        bms, bby = bound_ms(nb, 4 * d * pairs, "bf16" if dtype is bf16 else "f32")
+        nb = _nbytes(q, k, v) + b * nh * s * dv * q.element_size()  # inputs, then out
+        bms, bby = bound_ms(nb, 2 * (d + dv) * pairs, "bf16" if dtype is bf16 else "f32")
         # the yardstick: SDPA on the same tensors (k/v repeated to H heads
         # for GQA, outside the timing)
         kl, vl = k.repeat_interleave(nh // nk, dim=1), v.repeat_interleave(nh // nk, dim=1)
-        lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, is_causal=True),
+        lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, is_causal=True,
+                                                        scale=scale),
                          [(q, kl, vl)], iters=iters)
         lib_note = "SDPA, is_causal=True" + (", k/v repeated to H heads" if nh != nk else "")
 
         row = {"name": "flash_attention", "route": "cuda", "shape_tag": tag,
                "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
-               "shape": f"q[{b},{nh},{s},{d}] k/v[{b},{nk},{s},{d}] {str(dtype)[6:]}",
+               "shape": (f"q[{b},{nh},{s},{d}] k/v[{b},{nk},{s},{d}] {str(dtype)[6:]}"
+                         if d == dv else f"q/k[{b},{nh}|{nk},{s},{d}] v[{b},{nk},{s},{dv}] "
+                         f"{str(dtype)[6:]}"),
                "max_abs_err": err,
                "ms": time_ms(torch, fa_ops.flash_attention, sets, iters=iters),
                "eager_ms": eager_ms(torch, fa_ops.flash_attention, sets, iters=2 * iters),
@@ -1761,16 +1806,17 @@ def layer_drift(torch, params, cfg, tokens) -> list[dict]:
     x_k = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     x_p = x_k.clone()
     pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    rope = Tr.rope_for(cfg, pos)["attn"]
+    rope = Tr.rope_for(cfg, pos)
+    kind = Tr.ATTN_DENSE
     out = []
     with torch.inference_mode():
         for li in range(cfg.n_layers):
             bp = Tr.layer_slice(params["blocks"]["b0"], li)
             qk = KERNELS.norm_quant(x_p, bp["ln1"]["gamma"], eps=cfg.norm_eps)[0]
             qp = PLAIN.norm_quant(x_p, bp["ln1"]["gamma"], eps=cfg.norm_eps)[0]
-            same_k, _ = Tr.apply_block(bp, x_p, cfg, rope, kernels=KERNELS)
-            x_k, _ = Tr.apply_block(bp, x_k, cfg, rope, kernels=KERNELS)
-            x_p, _ = Tr.apply_block(bp, x_p, cfg, rope, kernels=PLAIN)
+            same_k, _ = Tr.apply_block(kind, bp, x_p, cfg, rope, kernels=KERNELS)
+            x_k, _ = Tr.apply_block(kind, bp, x_k, cfg, rope, kernels=KERNELS)
+            x_p, _ = Tr.apply_block(kind, bp, x_p, cfg, rope, kernels=PLAIN)
             scale = x_p.float().abs().max().item()
             out.append({
                 "layer": li, "prologue_codes_differing": int((qk != qp).sum().item()),
@@ -1829,9 +1875,8 @@ def full_params(torch, cfg):
     from repro_torch.core import params as PR
     from repro_torch.models import transformer as Tr
 
-    specs = Tr.param_specs(cfg)
-    params = Tr.pack_tree(PR.init_params(specs, seed=0, device=torch.device("cuda")), specs,
-                          dtype=cfg.dtype)
+    params = PR.init_packed_params(Tr.param_specs(cfg), 0, torch.device("cuda"),
+                                   dtype=cfg.dtype, dense_leaves=Tr.DENSE_LEAVES)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return params
@@ -4219,6 +4264,301 @@ def tl_phase(torch, cfg, params, packed_tokens, engine_streams, shared_streams,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phases: the MoE families (DeepSeek-V2-Lite, mla_moe; Arctic, moe)
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+MOE_SMOKE_ARCHS = (DEEPSEEK, "arctic-480b")
+# f32 smoke logits, card vs CPU, of max |logit|: as the CPU tests' bar
+# against JAX (tests/test_torch_families.py), an ulp can move one int8 code
+MOE_SMOKE_LOGIT_TOL = 2e-2
+DEEPSEEK_STEPS = 32
+DEEPSEEK_PLAIN_STEPS = 8  # the plain versions' run (2 s a step), the streams' prefix compared
+DEEPSEEK_PREFILLS = ((4, 100), (1, 1000))  # (batch, prompt), exact length
+# the kernels the DeepSeek runs launch: the packed projections (GEMV and
+# tiled matmul) and MLA's one-shot attention; its blocks are unfused
+# (no prologue, no SwiGLU kernel) and its decode attention is plain torch
+DEEPSEEK_PATH = ("ternary_gemv", "ternary_matmul", "flash_attention")
+
+
+def _decode_parting(torch, cfg, cuda_params, cpu_params, prompt, got, want) -> dict:
+    """Where a card stream parts from the CPU's, for a model whose decode
+    is no teacher-forced prefill (MLA absorbs float weights where its
+    prefill quantizes): the CPU's stream replayed through
+    ``prefill_bucketed`` and ``decode_step`` on both sides up to the
+    parting step; the gap between the two tokens' plain logits there, and
+    how far the kernels' logits lie from the plain ones."""
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    step = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+    rows = []
+    for params, kset, dev in ((cuda_params, KERNELS, "cuda"), (cpu_params, PLAIN, "cpu")):
+        tokens = torch.as_tensor(list(prompt), device=dev)[None].long()
+        with torch.inference_mode():
+            logits, caches = E.prefill_bucketed(params, cfg, tokens, kernels=kset)
+            caches = E.fit_caches(caches, cfg, len(prompt) + step + 1)
+            for i in range(step):
+                pos = torch.full((1,), len(prompt) + i, dtype=torch.int32, device=dev)
+                tok = torch.full((1, 1), int(want[i]), dtype=torch.long, device=dev)
+                logits, caches = Tr.decode_step(params, tok, caches, pos, cfg, kernels=kset)
+        rows.append(logits[0].float().cpu())
+    rk, rp = rows
+    return {"step": step, "tokens": [int(got[step]), int(want[step])],
+            "plain_gap": abs(rp[got[step]] - rp[want[step]]).item(),
+            "kernel_vs_plain": (rk - rp).abs().max().item(),
+            "max_abs_logit": rp.abs().max().item()}
+
+
+def moe_smoke_phase(torch, report: dict) -> None:
+    """The deepseek-v2-lite-16b and arctic-480b smoke configs in f32 on the
+    card (kernels) against the same weights on the CPU (plain versions):
+    forward logits within MOE_SMOKE_LOGIT_TOL of max |logit| (argmax
+    equal), generate (B = 3, 13-token prompts, 12 steps): equal streams;
+    the legacy engine (``prefill="auto"``, two slots, five ragged prompts
+    of 9-200 tokens, 8 new each): equal statuses, one host transfer a
+    tick, and every stream equal to the CPU's or parting at a near-tie:
+    where the two tokens' plain logits lie closer than the kernels' lie
+    from the plain ones, those within MOE_SMOKE_LOGIT_TOL (an ulp of f32
+    attention can move an int8 code, and an expert's capacity or a router
+    choice with it); every kernel of DEEPSEEK_PATH launched by the card's
+    generate."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    out = {"phase": "moe_smoke"}
+    for arch in MOE_SMOKE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+        cpu_params = PR.init_packed_params(Tr.param_specs(cfg), 0, "cpu",
+                                           dense_leaves=Tr.DENSE_LEAVES)
+        cuda_params = _to_cuda(cpu_params)
+        gen = torch.Generator().manual_seed(7)
+        prompts = torch.randint(0, cfg.vocab_size, (3, 13), generator=gen)
+        with torch.inference_mode():
+            lk, _ = Tr.forward(cuda_params, prompts.to("cuda"), cfg, kernels=K.KERNELS)
+            lp, _ = Tr.forward(cpu_params, prompts, cfg, kernels=K.PLAIN)
+        lk = lk.cpu()
+        logit_rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+        K.reset_launch_counts()
+        on_card = E.generate(cuda_params, cfg, prompts, steps=12, kernels=K.KERNELS)
+        counts = K.launch_counts()
+        on_cpu = E.generate(cpu_params, cfg, prompts, steps=12, kernels=K.PLAIN, device="cpu")
+        rng = np.random.default_rng(7)
+        eng_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 30, 70, 130, 200)]
+        runs = []
+        for params, kset, device in ((cuda_params, K.KERNELS, None),
+                                     (cpu_params, K.PLAIN, "cpu")):
+            eng = E.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kset,
+                                  device=device)
+            reqs = [E.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(eng_prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            runs.append(([(r.generated, r.status.name) for r in reqs], eng.stats(),
+                         eng.prefill))
+        (got, st, mode), (want, _, _) = runs
+        partings = {i: _decode_parting(torch, cfg, cuda_params, cpu_params, eng_prompts[i],
+                                       g[0], w[0])
+                    for i, (g, w) in enumerate(zip(got, want)) if g[0] != w[0]}
+        near_ties = all(p["plain_gap"] <= p["kernel_vs_plain"]
+                        <= MOE_SMOKE_LOGIT_TOL * p["max_abs_logit"] for p in partings.values())
+        res = {"forward_logit_rel_err": logit_rel,
+               "forward_argmax_equal": bool(torch.equal(lk.argmax(-1), lp.argmax(-1))),
+               "generate_streams_equal": bool(torch.equal(on_card.tokens, on_cpu.tokens)),
+               "generate_launch_counts": {n: c for n, c in counts.items() if c},
+               "engine_prefill": mode, "engine_streams_equal": got == want,
+               "engine_partings": partings,
+               "engine_statuses": [x[1] for x in got], "engine_ticks": st["ticks"],
+               "engine_host_transfers": st["host_transfers"]}
+        out[arch] = res
+        path = DEEPSEEK_PATH if arch == DEEPSEEK else ("ternary_gemv", "flash_attention",
+                                                       "decode_attention")
+        missing = [n for n in path if not counts[n]]
+        if not (logit_rel <= MOE_SMOKE_LOGIT_TOL and res["forward_argmax_equal"]
+                and res["generate_streams_equal"] and near_ties
+                and [x[1] for x in got] == [x[1] for x in want] and mode == "legacy"
+                and st["host_transfers"] == st["ticks"] and not missing):
+            emit(out)
+            fail(f"moe_smoke[{arch}]: {res}, kernels never launched: {missing}")
+    report["moe_smoke"] = out
+    emit(out)
+
+
+def deepseek_params(torch, cfg, report: dict):
+    """Full-width DeepSeek-V2-Lite weights, random from seed 0, packed leaf
+    by leaf on the card; the seconds it took and the bytes resident."""
+    from repro_torch.models import transformer as Tr
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = full_params(torch, cfg)
+    secs = time.perf_counter() - t
+    nbytes = sum(x.numel() * x.element_size() for _, x in Tr.tree_leaves(params))
+    report["deepseek_init"] = {"init_and_pack_s": secs, "param_bytes": nbytes,
+                               "memory_allocated": torch.cuda.memory_allocated(),
+                               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit({"phase": "deepseek_init", **report["deepseek_init"]})
+    return params
+
+
+def deepseek_blocks_phase(torch, cfg, params, report: dict) -> None:
+    """Three blocks at full width (the dense prelude, the first and the
+    last MoE block), each through the kernels and through the plain
+    versions on the same input, for a 4 x 100 prefill (the block's input:
+    the embedding for the prelude, the prelude's plain output for the MoE
+    blocks) and for one decode step at position 100 against the plain
+    prefill's rows (a copy for each run): output within
+    LOGIT_REL_TOL of max |plain|. Block by block, because a router near-tie
+    at full depth can flip an expert between the two (compare rwkv_drift)."""
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as Tr
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s = DEEPSEEK_PREFILLS[0]
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
+    layers = list(Tr._layers(cfg, params))
+    picked = {"prelude": layers[0], "first_moe": layers[1], "last_moe": layers[-1]}
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
+    rope = Tr.rope_for(cfg, pos)
+    dpos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    drope = Tr.rope_for(cfg, dpos[:, None])
+    rows = []
+    with torch.inference_mode():
+        x0 = L.embed(params["embed"], toks[:, :s], dtype=cfg.dtype)
+        d0 = L.embed(params["embed"], toks[:, s:], dtype=cfg.dtype)
+        kind, bp, _ = picked["prelude"]
+        x1, _ = Tr.apply_block(kind, bp, x0, cfg, rope, kernels=PLAIN)
+        for tag, (kind, bp, _) in picked.items():
+            xin, din = (x0, d0) if tag == "prelude" else (x1, d1)
+            yk, _ = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=KERNELS)
+            yp, prefill_rows = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=PLAIN)
+            cache = {n: torch.nn.functional.pad(r, (0, 0, 0, 8))  # [B, S + 8, ...]
+                     for n, r in prefill_rows.items()}
+            dk, _ = Tr.apply_block(kind, bp, din, cfg, drope, kernels=KERNELS, pos=dpos,
+                                   cache={n: c.clone() for n, c in cache.items()})
+            dp, _ = Tr.apply_block(kind, bp, din, cfg, drope, kernels=PLAIN, pos=dpos,
+                                   cache={n: c.clone() for n, c in cache.items()})
+            if tag == "prelude":
+                d1 = dp
+            row = {"block": tag, "kind": f"{kind.mixer}+{kind.ffn}",
+                   "prefill_rel_err": ((yk.float() - yp.float()).abs().max()
+                                       / yp.float().abs().max()).item(),
+                   "decode_rel_err": ((dk.float() - dp.float()).abs().max()
+                                      / dp.float().abs().max()).item(),
+                   "finite": bool(torch.isfinite(yk).all() and torch.isfinite(dk).all())}
+            rows.append(row)
+    out = {"phase": "deepseek_blocks", "tol": LOGIT_REL_TOL, "prefill": [b, s], "blocks": rows}
+    report["deepseek_blocks"] = out
+    emit(out)
+    bad = [r for r in rows if not (r["finite"] and r["prefill_rel_err"] <= LOGIT_REL_TOL
+                                   and r["decode_rel_err"] <= LOGIT_REL_TOL)]
+    if bad:
+        fail(f"deepseek_blocks: kernels vs plain beyond the bar: {bad}")
+
+
+def deepseek_generate_phase(torch, cfg, params, report: dict) -> dict:
+    """Full-width generate, B = 4, a 100-token prompt, DEEPSEEK_STEPS
+    steps, through the kernels (counters reset just before, read just
+    after) and DEEPSEEK_PLAIN_STEPS through the plain versions (how many
+    streams agree over those steps is reported, not held: a near-tie in a
+    router or an argmax parts them);
+    then one decode step's launches, torch.profiler over three decode
+    steps, and the 1 x 1000 prefill's time and launches. Returns the launch
+    counts by run."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    prompts = generate_prompts(torch, cfg)
+    b, s = prompts.shape
+    res_k, counts, times_k = generate_run(torch, cfg, params, prompts, DEEPSEEK_STEPS,
+                                          K.KERNELS)
+    res_p, _, times_p = generate_run(torch, cfg, params, prompts, DEEPSEEK_PLAIN_STEPS,
+                                     K.PLAIN)
+    if (tuple(res_k.tokens.shape) != (b, DEEPSEEK_STEPS)
+            or not torch.isfinite(res_k.prefill_logits).all()):
+        fail("deepseek_generate: wrong token shape or non-finite logits")
+    with torch.inference_mode():
+        _, caches = E.prefill_bucketed(params, cfg, prompts, kernels=K.KERNELS)
+        caches = E.fit_caches(caches, cfg, s + 8)
+        tok = res_k.tokens[:, :1].to("cuda").long()
+        pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.KERNELS)
+        torch.cuda.synchronize()
+        step_counts = K.launch_counts()
+        prompt = torch.randint(0, cfg.vocab_size, DEEPSEEK_PREFILLS[1],
+                               generator=torch.Generator(device="cuda").manual_seed(1),
+                               device="cuda")
+        E.prefill_bucketed(params, cfg, prompt, kernels=K.KERNELS)  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        E.prefill_bucketed(params, cfg, prompt, kernels=K.KERNELS)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t) * 1e3
+        long_counts = K.launch_counts()
+    profile = profile_device(
+        torch, lambda: Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.KERNELS),
+        steps=3)
+    agree = [bool(torch.equal(a[:DEEPSEEK_PLAIN_STEPS], p))
+             for a, p in zip(res_k.tokens, res_p.tokens)]
+    nz = {n: c for n, c in counts.items() if c}
+    out = {"phase": "deepseek_generate", "model": cfg.name, "batch": b, "prompt": s,
+           "steps": DEEPSEEK_STEPS, "kernels": times_k, "plain": times_p,
+           "launch_counts": nz,
+           "decode_step_launch_counts": {n: c for n, c in step_counts.items() if c},
+           "prefill_1x1000_ms": long_ms,
+           "prefill_1x1000_launch_counts": {n: c for n, c in long_counts.items() if c},
+           "streams_equal_to_plain": sum(agree), "streams": len(agree),
+           "compared_steps": DEEPSEEK_PLAIN_STEPS,
+           "first_tokens_equal": bool(torch.equal(res_k.tokens[:, 0], res_p.tokens[:, 0])),
+           "decode_profile": profile}
+    report["deepseek_generate"] = out
+    emit(out)
+    missing = [n for n in DEEPSEEK_PATH if not counts[n]]
+    if missing:
+        fail(f"deepseek_generate: kernels never launched on the main path: {missing}")
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"deepseek_generate: {counts['flash_attention']} flash-attention launches, "
+             f"want one a layer ({cfg.n_layers})")
+    return {"generate": counts, "decode_step": step_counts, "prefill_1x1000": long_counts}
+
+
+def deepseek_engine_phase(torch, cfg, params, report: dict) -> dict:
+    """The full-width legacy ServingEngine (``prefill="auto"`` resolves to
+    it), 8 slots, max_len 1024, the ragged 16 prompts of the engine phase,
+    32 new tokens each, through the kernels: every request OK with its 32
+    tokens, one host transfer a tick; tokens/s and ms a tick."""
+    from repro_torch import kernels as K
+
+    prompts = _engine_prompts(cfg)
+    m, reqs, eng = engine_run(torch, cfg, params, K.KERNELS, prompts)
+    out = {"phase": "deepseek_engine", "prefill": eng.prefill,
+           **{k: m[k] for k in ("ticks", "host_transfers", "statuses", "wall_s", "tokens",
+                                "tokens_per_s", "decode_tick_ms_mean", "cache_bytes")},
+           "launch_counts": {n: c for n, c in m["launch_counts"].items() if c},
+           "first_token_ms": m["first_token_ms"]}
+    report["deepseek_engine"] = out
+    emit(out)
+    bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+    if bad or m["host_transfers"] != m["ticks"] or eng.prefill != "legacy":
+        fail(f"deepseek_engine: requests not OK with {ENGINE_NEW} tokens: {bad}; "
+             f"{m['host_transfers']} transfers for {m['ticks']} ticks; prefill {eng.prefill}")
+    return m["launch_counts"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
@@ -4305,6 +4645,38 @@ def main(argv=None) -> int:
         row["launches"] = rwkv_counts[row["name"]]
     emit({"phase": "rwkv_projections",
           "rows": [{k: r[k] for k in proj_keys} for r in report["rwkv_projection_shapes"]]})
+    del rwkv_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_smoke_phase(torch, report)
+    ds_cfg = get_config(DEEPSEEK)
+    ds_params = deepseek_params(torch, ds_cfg, report)
+    deepseek_blocks_phase(torch, ds_cfg, ds_params, report)
+    ds_counts = deepseek_generate_phase(torch, ds_cfg, ds_params, report)
+    ds_counts["engine"] = deepseek_engine_phase(torch, ds_cfg, ds_params, report)
+    del ds_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Row 17's MLA shapes with the launches of the runs that give them those
+    # shapes, and rows 3-4's launches in a DeepSeek decode step and prefill
+    mla_runs = {"mla 4x100": ("generate", "generate 4 x 100"),
+                "mla 1x1000": ("prefill_1x1000", "prefill 1 x 1000")}
+    ds_rows = []
+    for row in report["flash_attention_shapes"]:
+        if row["shape_tag"] in mla_runs:
+            run, what = mla_runs[row["shape_tag"]]
+            row["launches"], row["launches_run"] = ds_counts[run]["flash_attention"], what
+            ds_rows.append({k: row[k] for k in ("name", "shape_tag", "shape", "launches",
+                                                "launches_run", "max_abs_err", "ms",
+                                                "eager_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms", "over_library")})
+    for name in ("ternary_gemv", "ternary_matmul"):
+        ds_rows.append({"name": name, "launches_decode_step": ds_counts["decode_step"][name],
+                        "launches_prefill_1x1000": ds_counts["prefill_1x1000"][name],
+                        "launches_generate": ds_counts["generate"][name],
+                        "launches_engine": ds_counts["engine"][name]})
+    emit({"phase": "deepseek_rows", "rows": ds_rows})
     # The GEMV's and the SwiGLU's shapes, each with the launches of the run
     # that gives it that shape: generate (decode rows and its 4 x 128
     # prefill), the chunked engine (bf16 cache; its chunk step has 2048

@@ -31,7 +31,23 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
-    family: str = "dense"  # dense | ssm (RWKV-6)
+    family: str = "dense"  # dense | moe | mla_moe | ssm (RWKV-6)
+    # MoE: routed experts (top experts_per_tok of n_experts), shared experts,
+    # dense first layers, Arctic's dense residual, the capacity factor
+    n_experts: int = 0
+    experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    shared_expert_ff: int = 0
+    first_dense_layers: int = 0  # deepseek: layer 0 is dense
+    dense_ff: int = 0  # dense FFN width (first layers / arctic residual)
+    dense_residual: bool = False  # arctic: dense FFN parallel to MoE
+    moe_every: int = 1  # MoE every k-th layer (jamba: 2)
+    capacity_factor: float = 1.25
+    # MLA (deepseek): the latent rank and the query/key/value head dims
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     rwkv_head_dim: int = 64  # ssm: the WKV head size n (d_model // n heads)
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
     prefill_chunk_budget: int = 512  # chunk tokens appended per engine tick
@@ -121,7 +137,7 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
-    from . import rwkv6_3b, tellme_0p7b  # noqa: F401  (each registers itself)
+    from . import arctic_480b, deepseek_v2_lite_16b, rwkv6_3b, tellme_0p7b  # noqa: F401
 
     table = _SMOKE if smoke else _REGISTRY
     if name not in table:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import ternary
-from .packing import pack2
+from .packing import pack2, unpack2
 from .params import ParamSpec
 from .tl_matmul import GROUP as TL_GROUP
 from .tl_matmul import tl_indices
@@ -149,6 +149,14 @@ def swiglu(gate_params: dict, up_params: dict, xq: tuple, *, kernels,
     return kernels.ternary_swiglu(
         x_i8, x_scale, gate_params["wp"], gate_params["scale"],
         up_params["wp"], up_params["scale"], act_dtype=act_dtype)
+
+
+def material_weight(params: dict, *, dtype=torch.bfloat16) -> torch.Tensor:
+    """The effective float weight of a packed node, ``unpack2(wp) · scale``
+    in f32, then cast to ``dtype`` (``bitlinear.py:326-337``, packed mode):
+    for paths that need the matrix itself, MLA's weight-absorbed decode."""
+    w = unpack2(params["wp"]).to(torch.float32) * params["scale"].to(torch.float32)
+    return w.to(dtype)
 
 
 def dense_apply(params: dict, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:

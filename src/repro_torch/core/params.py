@@ -6,6 +6,9 @@ materialises it with the JAX package's distributions (``params.py:73-91``):
 are constants. The draws come from a ``torch.Generator`` seeded per leaf
 from ``(seed, path)``, so a tree is reproducible leaf by leaf; they are not
 the JAX package's numbers (tests bridge JAX weights through ``interop``).
+``init_packed_params`` makes the serving tree directly, one ternary leaf's
+f32 latent at a time, so the peak is one leaf, not the whole latent tree
+(DeepSeek-V2-Lite's latents are about 64 GB, its largest leaf 19 GB).
 """
 
 from __future__ import annotations
@@ -58,3 +61,28 @@ def init_params(tree, seed: int, device) -> dict:
     """Materialise a spec tree in f32 on ``device`` (deterministic in
     ``seed``)."""
     return map_specs(lambda p, s: _init_one(p, s, seed, device), tree)
+
+
+def init_packed_params(tree, seed: int, device, *, dtype=None,
+                       dense_leaves=frozenset()) -> dict:
+    """The packed serving tree of a spec tree, equal to ``pack_tree(
+    init_params(tree, seed, device), tree, dtype=dtype)``: each ternary
+    ``{"w"}`` node's f32 latent is drawn from its own per-path seed, packed
+    (``bitlinear.pack_params``) and freed before the next; every other leaf
+    is drawn as ``init_params`` draws it, and the ``dense_leaves`` (path
+    suffixes, e.g. ``("embed", "table")``) are cast to ``dtype``."""
+    from .bitlinear import pack_params
+
+    def rec(node, path, keys):
+        if isinstance(node, ParamSpec):
+            t = _init_one(path, node, seed, device)
+            return t.to(dtype) if dtype is not None and keys[-2:] in dense_leaves else t
+        w = node.get("w")
+        if set(node) == {"w"} and isinstance(w, ParamSpec) and w.quant == "ternary":
+            latent = _init_one(f"{path}/w", w, seed, device)
+            packed = pack_params(latent)
+            del latent
+            return packed
+        return {k: rec(v, f"{path}/{k}", keys + (k,)) for k, v in node.items()}
+
+    return rec(tree, "", ())

@@ -1,7 +1,10 @@
 """Bring the JAX package's packed parameters into the port.
 
 ``from_jax_params`` takes the JAX *packed* tree (``T.pack_tree(P.init_params
-(...))`` fetched to numpy) and returns the port's tree with the same keys.
+(...))`` fetched to numpy) and returns the port's tree with the same keys:
+the stacked period ``blocks/b{i}`` and the unstacked ``prelude_{i}``
+layers, the f32 MoE router ``[d, E]``, the 3-D (prelude) or 4-D (period)
+packed expert ``wp`` with their per-expert ``scale``, MLA's ``kv_norm``.
 The ``wp`` bytes and f32 ``scale``s cross as they are, so both packages run
 identical ternary weights; nothing is re-ternarized (``ternary_scale`` is an
 f32 mean whose summation order would differ). The embedding table and the

@@ -87,8 +87,8 @@ SIGNATURES = {
     # quant, dtype, stream
     "tm_prefill_append_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _F, _I, _I, _I, _P),
-    # q, k, v, out, b, h, hk, s, d, scale, causal_skip, dtype, stream
-    "tm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, out, b, h, hk, s, dqk, dv, scale, causal_skip, dtype, stream
+    "tm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # r, k, v, logw, u, y, s_out, bh, h, s, n, stride_b, stride_h, stride_s, dtype, stream
     "tm_wkv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
 }

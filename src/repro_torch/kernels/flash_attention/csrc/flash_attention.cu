@@ -3,9 +3,11 @@
 // Replaces: repro/kernels/flash_attention/kernel.py::flash_attention_kernel
 // (kernel.py:101, pallas_call at :126) around the body _kernel (:35-98).
 //
-// Computes, for q [B, H, S, D] and k/v [B, HK, S, D] (H % HK == 0; head hh
-// of slot b reads kv head b*HK + hh / G, G = H / HK, the TPU kernel's index
-// map at kernel.py:131-134): s = (q . k) * scale in f32, the -1e30 mask
+// Computes, for q, k [B, H|HK, S, DQK] and v [B, HK, S, DV] (H % HK == 0;
+// head hh of slot b reads kv head b*HK + hh / G, G = H / HK, the TPU
+// kernel's index map at kernel.py:131-134; DV may differ from DQK, as MLA's
+// decompressed heads have it: DQK = 192, DV = 128): out [B, H, S, DV],
+// s = (q . k) * scale in f32 (the caller's scale, kernel.py:111), the -1e30 mask
 // above the diagonal, online softmax with m and l in f32 and expf(s - m)
 // (as the plain version takes it), probabilities cast to T before P.V,
 // out = T(acc / max(l, 1e-30)).
@@ -45,7 +47,12 @@
 //
 // Both issue the query tiles last first: the tiles near the end of the
 // sequence walk the most kv tiles, so they start first and the short ones
-// fill the tail. D is a template argument (16, 32, 64, 96 or 128).
+// fill the tail. The head dims are template arguments (DQK, DV): (D, D) for
+// D = 16, 32, 64, 96 and 128, and (192, 128); the wrapper zero-pads any other
+// pair up to an instantiated one (zero columns add exact zeros to q . k and
+// give zero output columns, which it slices off). At (192, 128) the bf16
+// kernel's K/V ring is 84 KB of shared memory, above the 48 KB default, so
+// the launch raises the block's dynamic shared-memory limit first.
 
 #include <math.h>
 
@@ -88,14 +95,15 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src, int n, 
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, float* __restrict__ out, int h,
                                int hk, int s, float scale, int causal_skip) {
-  constexpr int kDp = D / kQuad;  // dims per thread
-  __shared__ __align__(16) float k_s[kTk * D];
-  __shared__ __align__(16) float v_s[kTk * D];
+  constexpr int kDq = DQK / kQuad;  // q . k dims per thread
+  constexpr int kDp = DV / kQuad;   // output dims per thread
+  __shared__ __align__(16) float k_s[kTk * DQK];
+  __shared__ __align__(16) float v_s[kTk * DV];
 
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int b = bh / h;
@@ -105,17 +113,16 @@ __global__ void __launch_bounds__(kThreads)
   const int row = r0 + tid / kQuad;
   const bool row_ok = row < s;
   const int qpos = row_ok ? row : s - 1;  // idle threads shadow the last row
-  const float* kb = k + (size_t)kvh * s * D;
-  const float* vb = v + (size_t)kvh * s * D;
+  const float* kb = k + (size_t)kvh * s * DQK;
+  const float* vb = v + (size_t)kvh * s * DV;
 
-  float qr[kDp], acc[kDp];
+  float qr[kDq], acc[kDp];
   {
-    const float* qp = q + ((size_t)bh * s + qpos) * D + part * kDp;
+    const float* qp = q + ((size_t)bh * s + qpos) * DQK + part * kDq;
 #pragma unroll
-    for (int e = 0; e < kDp; ++e) {
-      qr[e] = qp[e];
-      acc[e] = 0.0f;
-    }
+    for (int e = 0; e < kDq; ++e) qr[e] = qp[e];
+#pragma unroll
+    for (int e = 0; e < kDp; ++e) acc[e] = 0.0f;
   }
   float m_run = kNegInf, l_run = 0.0f;
 
@@ -126,10 +133,10 @@ __global__ void __launch_bounds__(kThreads)
     float tmax = kNegInf;
 #pragma unroll
     for (int j = 0; j < kTk; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(k_s + j * D + part * kDp);
+      const float4* kr = reinterpret_cast<const float4*>(k_s + j * DQK + part * kDq);
       float dot = 0.0f;
 #pragma unroll
-      for (int e = 0; e < kDp / 4; ++e) {
+      for (int e = 0; e < kDq / 4; ++e) {
         const float4 kv = kr[e];
         dot = fmaf(qr[4 * e], kv.x, dot);
         dot = fmaf(qr[4 * e + 1], kv.y, dot);
@@ -158,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kDp; ++e) acc[e] *= alpha;
 #pragma unroll
     for (int j = 0; j < kTk; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(v_s + j * D + part * kDp);
+      const float4* vr = reinterpret_cast<const float4*>(v_s + j * DV + part * kDp);
 #pragma unroll
       for (int e = 0; e < kDp / 4; ++e) {
         const float4 vv = vr[e];
@@ -176,14 +183,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int t0 = 0; t0 < hi; t0 += kTk) {
     const int n = min(kTk, s - t0);
     __syncthreads();  // the previous tile is consumed
-    load_tile<D>(kb + (size_t)t0 * D, n, k_s);
-    load_tile<D>(vb + (size_t)t0 * D, n, v_s);
+    load_tile<DQK>(kb + (size_t)t0 * DQK, n, k_s);
+    load_tile<DV>(vb + (size_t)t0 * DV, n, v_s);
     __syncthreads();
     update(t0, n);
   }
 
   if (row_ok) {
-    float* op = out + ((size_t)bh * s + row) * D + part * kDp;
+    float* op = out + ((size_t)bh * s + row) * DV + part * kDp;
     const float l = fmaxf(l_run, 1e-30f);
 #pragma unroll
     for (int e = 0; e < kDp; ++e) op[e] = acc[e] / l;
@@ -197,20 +204,20 @@ __global__ void __launch_bounds__(kThreads)
 namespace attn = rtk::attn;
 
 // Shared memory of one block: K and V, two stages each, padded rows.
-template <int D>
+template <int DQK, int DV>
 constexpr size_t tc_smem_bytes() {
-  return (size_t)4 * attn::Shape<D>::kTile * sizeof(bf16);
+  return (size_t)2 * (attn::Shape<DQK>::kTile + attn::Shape<DV>::kTile) * sizeof(bf16);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(attn::kThreads)
     flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, bf16* __restrict__ out, int h, int hk,
                               int s, float scale, int causal_skip) {
-  constexpr int kTile = attn::Shape<D>::kTile;
+  constexpr int kTileK = attn::Shape<DQK>::kTile, kTileV = attn::Shape<DV>::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);   // [2][kKeys][D + 8]
-  bf16* vs = ks + 2 * kTile;                  // [2][kKeys][D + 8]
+  bf16* ks = reinterpret_cast<bf16*>(smem);   // [2][kKeys][DQK + 8]
+  bf16* vs = ks + 2 * kTileK;                 // [2][kKeys][DV + 8]
 
   const int bh = blockIdx.x, b = bh / h;
   const int kvh = b * hk + (bh - b * h) / (h / hk);
@@ -218,8 +225,8 @@ __global__ void __launch_bounds__(attn::kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wrow = 16 * warp;               // the warp's first row in the block
   const int qrow = r0 + wrow + (lane >> 2);  // this lane's rows: qrow and qrow + 8
-  const bf16* kb = k + (size_t)kvh * s * D;
-  const bf16* vb = v + (size_t)kvh * s * D;
+  const bf16* kb = k + (size_t)kvh * s * DQK;
+  const bf16* vb = v + (size_t)kvh * s * DV;
   const int hi = causal_skip ? min(r0 + attn::kRows, s) : s;
   const int ntiles = (hi + attn::kKeys - 1) / attn::kKeys;
   // rows t0 .. t0 + 63 of a [S, D] matrix, zeros at rows >= s
@@ -230,65 +237,72 @@ __global__ void __launch_bounds__(attn::kThreads)
     };
   };
 
+  // K and V rows t0 .. t0 + 63 into stage st (one pass when the dims agree)
+  auto stage_kv = [&](int st, int t0) {
+    if constexpr (DQK == DV) {
+      attn::stage_kv_rows<DQK>(ks + st * kTileK, vs + st * kTileV, kb, vb, rows_from(t0));
+    } else {
+      attn::stage_rows<DQK>(ks + st * kTileK, kb, rows_from(t0));
+      attn::stage_rows<DV>(vs + st * kTileV, vb, rows_from(t0));
+    }
+  };
+
   // Q goes through stage 1's K buffer, into registers as A fragments.
-  attn::stage_rows<D>(ks + kTile, q + (size_t)bh * s * D, rows_from(r0));
-  attn::stage_kv_rows<D>(ks, vs, kb, vb, rows_from(0));
+  attn::stage_rows<DQK>(ks + kTileK, q + (size_t)bh * s * DQK, rows_from(r0));
+  stage_kv(0, 0);
   rtk::cp_async_commit();
   rtk::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[D / 16][4];
-  attn::load_q<D>(qf, ks + kTile, wrow);
+  uint32_t qf[DQK / 16][4];
+  attn::load_q<DQK>(qf, ks + kTileK, wrow);
   __syncthreads();  // stage 1 is free for tile 1
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+  for (int dt = 0; dt < DV / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
   float m_run[2] = {attn::kNegInf, attn::kNegInf}, l_run[2] = {0.0f, 0.0f};
 
   for (int it = 0; it < ntiles; ++it) {
     const int t0 = it * attn::kKeys;
-    if (it + 1 < ntiles) {
-      attn::stage_kv_rows<D>(ks + ((it + 1) & 1) * kTile, vs + ((it + 1) & 1) * kTile, kb, vb,
-                             rows_from(t0 + attn::kKeys));
-    }
+    if (it + 1 < ntiles) stage_kv((it + 1) & 1, t0 + attn::kKeys);
     rtk::cp_async_commit();
     rtk::cp_async_wait<1>();  // this tile has landed; the next may be in flight
     __syncthreads();
     float sc[attn::kKTiles][4];
-    attn::qk<D>(sc, qf, ks + (it & 1) * kTile);
+    attn::qk<DQK>(sc, qf, ks + (it & 1) * kTileK);
     // mask the tiles that reach past the warp's first row or past S
     const bool masked = t0 + attn::kKeys - 1 > r0 + wrow || t0 + attn::kKeys > s;
     attn::scale_mask(sc, scale, 0.0f, masked, [&](int col, int rr) {
       const int key = t0 + col;
       return !(key > qrow + 8 * rr || key >= s);
     });
-    attn::online_softmax<D>(sc, m_run, l_run, o);
-    attn::pv<D>(o, sc, vs + (it & 1) * kTile);
+    attn::online_softmax<DV>(sc, m_run, l_run, o);
+    attn::pv<DV>(o, sc, vs + (it & 1) * kTileV);
     __syncthreads();  // the stage is consumed before the next load refills it
   }
 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = qrow + 8 * rr;
-    if (row < s) attn::store_row<D>(out + ((size_t)bh * s + row) * D, o, rr, l_run[rr]);
+    if (row < s) attn::store_row<DV>(out + ((size_t)bh * s + row) * DV, o, rr, l_run[rr]);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* out, int b, int h, int hk,
              int s, float scale, int causal_skip, int dtype, cudaStream_t stream) {
   if (dtype == rtk::kF32) {
     const dim3 grid(b * h, (s + kRows - 1) / kRows);
-    flash_attention_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+    flash_attention_f32_kernel<DQK, DV><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), h, hk, s, scale, causal_skip);
     return (int)cudaGetLastError();
   }
-  const size_t smem = tc_smem_bytes<D>();
-  const cudaError_t err = rtk::allow_smem(flash_attention_tc_kernel<D>, smem);
+  const size_t smem = tc_smem_bytes<DQK, DV>();
+  const cudaError_t err = rtk::allow_smem(flash_attention_tc_kernel<DQK, DV>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(b * h, (s + attn::kRows - 1) / attn::kRows);
-  flash_attention_tc_kernel<D><<<grid, attn::kThreads, smem, stream>>>(
+  flash_attention_tc_kernel<DQK, DV><<<grid, attn::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), h, hk, s, scale, causal_skip);
   return (int)cudaGetLastError();
@@ -296,25 +310,24 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b, int 
 
 }  // namespace
 
-// q, out [B, H, S, D], k, v [B, HK, S, D], all of the activation dtype:
-// bf16 on the tensor cores, f32 on the CUDA cores.
+// q [B, H, S, DQK], k [B, HK, S, DQK], v [B, HK, S, DV], out [B, H, S, DV],
+// all of the activation dtype: bf16 on the tensor cores, f32 on the CUDA
+// cores. (DQK, DV) must be an instantiated pair.
 extern "C" int tm_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
-                                  int h, int hk, int s, int d, float scale, int causal_skip,
-                                  int dtype, void* stream) {
+                                  int h, int hk, int s, int dqk, int dv, float scale,
+                                  int causal_skip, int dtype, void* stream) {
   if (b == 0 || s == 0) return 0;
   if (dtype != rtk::kBF16 && dtype != rtk::kF32) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TM_FA_CASE(D) \
-  case D:             \
-    return launch_d<D>(q, k, v, out, b, h, hk, s, scale, causal_skip, dtype, st);
-  switch (d) {
-    TM_FA_CASE(16)
-    TM_FA_CASE(32)
-    TM_FA_CASE(64)
-    TM_FA_CASE(96)
-    TM_FA_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define TM_FA_CASE(DQK, DV)                                                                 \
+  if (dqk == DQK && dv == DV)                                                                \
+    return launch_d<DQK, DV>(q, k, v, out, b, h, hk, s, scale, causal_skip, dtype, st);
+  TM_FA_CASE(16, 16)
+  TM_FA_CASE(32, 32)
+  TM_FA_CASE(64, 64)
+  TM_FA_CASE(96, 96)
+  TM_FA_CASE(128, 128)
+  TM_FA_CASE(192, 128)
 #undef TM_FA_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -7,9 +7,10 @@ the ``max(l, 1e-30)`` finalize. The kernel's online softmax rescales block
 by block, so the two agree to rounding, not bit for bit. ``causal_skip``
 picks the kernel's schedule (skip the blocks above the diagonal, or visit
 and mask them, the paper's Table II ablation); both compute the same
-function, so here it is accepted and ignored. The JAX wrapper's optional
-sliding ``window`` and ``softcap`` are not ported: no model of the port
-sets them.
+function, so here it is accepted and ignored. v may have another head
+dim than q and k (MLA: 192 and 128), and ``scale`` replaces the default
+1/sqrt(Dqk) (``kernel.py:111``). The JAX wrapper's optional sliding
+``window`` and ``softcap`` are not ported: no model of the port sets them.
 """
 
 from __future__ import annotations
@@ -21,15 +22,18 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention(q, k, v, *, causal_skip: bool = True) -> torch.Tensor:
-    """q [B, H, S, D], k/v [B, HK, S, D] (GQA: H % HK == 0) -> [B, H, S, D]."""
+def flash_attention(q, k, v, *, scale: float | None = None,
+                    causal_skip: bool = True) -> torch.Tensor:
+    """q [B, H, S, D], k [B, HK, S, D], v [B, HK, S, Dv] (GQA: H % HK == 0)
+    -> [B, H, S, Dv]; scores times ``scale`` (default 1/sqrt(D))."""
     del causal_skip  # a schedule of the kernel, not part of the function
     b, h, s, d = q.shape
-    hk = k.shape[1]
+    hk, dv = k.shape[1], v.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     g = h // hk
     qg = q.reshape(b, hk, g, s, d).to(torch.float32)
     kf = k.to(torch.float32)[:, :, None]
-    sc = torch.matmul(qg, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B, HK, G, S, S]
+    sc = torch.matmul(qg, kf.transpose(-1, -2)) * scale  # [B, HK, G, S, S]
     idx = torch.arange(s, device=q.device)
     mask = idx[:, None] >= idx[None, :]
     sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
@@ -37,4 +41,4 @@ def flash_attention(q, k, v, *, causal_skip: bool = True) -> torch.Tensor:
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(q.dtype).to(torch.float32), v.to(torch.float32)[:, :, None])
     o = o / torch.clamp(l, min=1e-30)
-    return o.to(q.dtype).reshape(b, h, s, d)
+    return o.to(q.dtype).reshape(b, h, s, dv)

@@ -3,7 +3,9 @@ resilience envelope (``repro/launch/serve.py``).
 
 Builds packed weights (random, from ``--seed``) on the device and serves a
 batch of prompts through the ``ServingEngine``: chunked prefill in
-bucketed chunks while every decoding slot advances each tick, a bounded
+bucketed chunks while every decoding slot advances each tick (the dense
+family; the others, ``--arch deepseek-v2-lite-16b`` or ``rwkv6-3b``,
+prefill each request whole at admission), a bounded
 admission queue, per-request deadlines and priorities with preemption, and
 the numerics guards. Reports time to first token, throughput and every
 request's terminal status. Exit code 0 only if every admitted request ended
@@ -15,8 +17,8 @@ with no file, a synthetic batch shaped by --prompt-len/--ragged/--gen/--batch
 whose tokens numpy draws from ``--seed``.
 
 Only ``--mode packed`` is served: the eval and weight-quantized modes come
-with the other model families, and ``--ckpt`` with the checkpoint manager
-(neither is ported yet). For the streaming front door see
+with training, and ``--ckpt`` with the checkpoint manager (neither is
+ported yet). For the streaming front door see
 ``repro_torch.launch.server``.
 
 Usage:
@@ -81,8 +83,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=0,
                     help="cache length (default: the longest prompt + gen + 1)")
     ap.add_argument("--mode", default="packed", choices=["packed"],
-                    help="packed only: the eval and wq modes come with the other model "
-                         "families")
+                    help="packed only: the eval and wq modes come with training")
     ap.add_argument("--kv-cache-dtype", default="bf16", choices=["bf16", "int8"],
                     help="int8 = absmax-quantized KV cache with per-row f32 scales, "
                          "dequantized inside the attention kernels")

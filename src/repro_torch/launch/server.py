@@ -33,10 +33,11 @@ from ..serving.server import ServingServer
 
 
 def build_params(cfg, *, seed: int, device):
-    """Packed serving weights, random from ``seed``, on ``device``."""
-    specs = Tr.param_specs(cfg)
-    return Tr.pack_tree(PR.init_params(specs, seed=seed, device=device), specs,
-                        dtype=cfg.dtype)
+    """Packed serving weights, random from ``seed``, on ``device``, one
+    latent leaf at a time (``init_packed_params``: DeepSeek-V2-Lite's f32
+    latents would take about 64 GB at once)."""
+    return PR.init_packed_params(Tr.param_specs(cfg), seed, device, dtype=cfg.dtype,
+                                 dense_leaves=Tr.DENSE_LEAVES)
 
 
 def load_kernels(dev) -> None:

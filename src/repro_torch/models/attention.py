@@ -41,9 +41,10 @@ from ..core.ternary import quantize_kv
 from ..kernels.prefill_append.ref import append_kv_cache, append_kv_cache_quant  # noqa: F401
 
 
-def prefill_attention(q, k, v, *, kernels) -> torch.Tensor:
-    """q [B, H, S, D], k/v [B, HK, S, D] -> [B, H, S, D] (GQA grouped), causal."""
-    return kernels.flash_attention(q, k, v)
+def prefill_attention(q, k, v, *, kernels, scale: float | None = None) -> torch.Tensor:
+    """q [B, H, S, D], k [B, HK, S, D], v [B, HK, S, Dv] -> [B, H, S, Dv]
+    (GQA grouped), causal; scores times ``scale`` (default 1/sqrt(D))."""
+    return kernels.flash_attention(q, k, v, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, kernels, k_scale=None, v_scale=None):

@@ -1,13 +1,14 @@
 """Shared model layers (``repro/models/layers.py:29-175``): RMSNorm, the
 fused norm-quant prologue (with or without the TL tables), RoPE, embedding,
-LM head and the fused SwiGLU MLP."""
+LM head, the fused SwiGLU MLP and its unfused form."""
 
 from __future__ import annotations
 
 import torch
 
-from ..core import bitlinear
+from ..core import bitlinear, ternary
 from ..core.params import ParamSpec
+from ..kernels.ternary_matmul.ref import silu
 
 
 def rmsnorm_spec(dim: int) -> dict:
@@ -85,3 +86,16 @@ def mlp_fused(params: dict, xq: tuple, *, kernels, out_dtype, residual=None,
                           act_dtype=out_dtype, engine=engines.get("gate", "auto"))
     return bitlinear.apply(params["down"], hq, kernels=kernels, out_dtype=out_dtype,
                            residual=residual, engine=engines.get("down", "auto"))
+
+
+def mlp(params: dict, x: torch.Tensor, *, kernels) -> torch.Tensor:
+    """The unfused SwiGLU MLP (``layers.py:143-148``) on a float row: gate
+    and up each project ``quantize_act(x)`` (quantized once here, the same
+    codes JAX's two projections make), ``silu(g) · u`` in x's dtype at the
+    SwiGLU's rounding points, then the down projection quantizes its own
+    input. Equal to :func:`mlp_fused` of ``quantize_act(x)`` with the plain
+    versions: the fused SwiGLU computes the same ops."""
+    xq = ternary.quantize_act(x)
+    g = bitlinear.apply(params["gate"], xq, kernels=kernels, out_dtype=x.dtype)
+    u = bitlinear.apply(params["up"], xq, kernels=kernels, out_dtype=x.dtype)
+    return bitlinear.apply(params["down"], silu(g) * u, kernels=kernels)

@@ -1,24 +1,44 @@
 """The decoder stack on the packed serving path (``repro/models/transformer.py``)
-for two families: the dense transformer (fused attn+dense branch) and
+for four families: the dense transformer, ``moe`` (Arctic: attention, then
+a token-choice MoE beside a dense residual MLP), ``mla_moe`` (DeepSeek-V2:
+latent attention, a dense first layer, then MoE with shared experts) and
 ``ssm``, RWKV-6 (``transformer.py:393-414``).
 
-Parameters keep the JAX tree and layouts: the layer stack lives in
-``params["blocks"]["b0"]`` with a leading ``[L]`` axis on every leaf (the
-JAX tree's one-layer period: every layer of either family is the same),
-and the KV caches are ``[L, B, HK, M, D]`` (int8 cache: with f32 row scales
-``[L, B, HK, M]``), or, for the engine's paged layout, page pools
-``[L, P, HK, ps, D]`` (``[L, P, HK, ps]``) that ``decode_step`` and
-``prefill_chunk_step`` address through a ``page_table [B, NB]`` shared by
-every layer. The JAX package scans over the
-stacked layers; here a Python loop walks them. Every dense block runs the
-int8-resident pipeline of ``transformer.py:422-447``: norm-quant prologue,
+A model is a block plan (``transformer.py:38-77``): an unstacked prelude
+of layers (DeepSeek's dense first layer), then a period of layer kinds
+repeated ``n_periods`` times. Parameters keep the JAX tree and layouts:
+prelude layer ``i`` lives in ``params["prelude_{i}"]``, period layer ``i``
+in ``params["blocks"]["b{i}"]`` with a leading ``[n_periods]`` axis on
+every leaf. The dense and ssm families have a one-kind period and no
+prelude, so their trees are ``{"blocks": {"b0": ...}}``, as before. The
+JAX package scans over the stacked layers; here a Python loop walks them.
+
+A dense block (``attn`` + ``dense``) runs the int8-resident pipeline of
+``transformer.py:422-447`` unless ``fused=False``: norm-quant prologue,
 q/k/v projections on the int8 row, RoPE, attention, the o projection with
 the residual in its epilogue, norm-quant, fused SwiGLU, and the down
 projection with the residual in its epilogue. Each block resolves the
 matmul engine of its projections once (``cfg.matmul_engine``); where q
 (gate) resolves to the table-lookup engine, the first (second) prologue
 also emits the TL tables, which q, k and v (gate and up) consume; o and
-down quantize their own input.
+down quantize their own input. Every other kind, and a dense block with
+``fused=False``, runs the unfused branch (``transformer.py:449-475``):
+``rmsnorm``, the mixer on the float row (attention, or MLA's prefill or
+weight-absorbed decode, ``models/mla.py``), the residual add, ``rmsnorm``,
+then the FFN (the unfused SwiGLU, or ``models/moe.py``'s experts, with the
+shared or dense MLP added). Its projections quantize their own input and
+take the ``"auto"`` engine, as JAX's do. On the plain versions the two
+branches of a dense block are equal bit for bit.
+
+The KV caches are, per attention layer, ``[B, HK, M, D]`` (int8 cache:
+with f32 row scales ``[B, HK, M]``), or, for the engine's paged layout
+(dense family only), page pools ``[P, HK, ps, D]`` (``[P, HK, ps]``) that
+``decode_step`` and ``prefill_chunk_step`` address through a ``page_table
+[B, NB]`` shared by every layer; per MLA layer, the latent ``c_kv [B, M,
+R]`` and the shared rope key ``k_rope [B, M, rope]`` in the activation
+dtype (no int8 form: ``kv_cache_dtype`` leaves them as they are, as in
+JAX). Period leaves carry the ``[n_periods]`` axis in front.
+:func:`cache_layout` gives each leaf's batch and sequence axis.
 
 An RWKV block norms with plain ``rmsnorm``, its projections quantize their
 own lerped inputs, and its residual adds follow the projections, rounded
@@ -29,6 +49,8 @@ prefills from a zero state (the WKV through ``kernels.wkv``), ``decode_step``
 advances the state in place; a multi-token step against an existing state
 (``prefill_chunk_step``) raises, as the WKV kernel, like the TPU kernel,
 starts from zero, and the paged layout pages attention K/V only.
+``prefill_chunk_step`` serves the dense family only: widening the chunked
+engine to the other attention families is ROADMAP A13c.
 """
 
 from __future__ import annotations
@@ -37,14 +59,43 @@ import dataclasses
 
 import torch
 
-from ..core import bitlinear
+from ..core import bitlinear, ternary
 from ..core.params import ParamSpec
 from ..core.ternary import dequantize_kv, kv_page_rows, quantize_kv, update_kv_pages
 from . import attention as attn_ops
 from . import layers as L
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "mla_moe", "ssm")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    mixer: str  # attn | mla | rwkv
+    ffn: str  # dense | moe | moe_shared | moe_dense | rwkv_channel
+
+
+ATTN_DENSE = LayerKind("attn", "dense")  # the fused branch's kind
+
+
+def block_plan(cfg) -> tuple[list[LayerKind], list[LayerKind], int]:
+    """(prelude kinds, period kinds, n_periods) (``transformer.py:49-79``)."""
+    if cfg.family == "dense":
+        return [], [ATTN_DENSE], cfg.n_layers
+    if cfg.family == "moe":
+        return [], [LayerKind("attn", "moe_dense" if cfg.dense_residual else "moe")], cfg.n_layers
+    if cfg.family == "mla_moe":
+        prelude = [LayerKind("mla", "dense")] * cfg.first_dense_layers
+        period = [LayerKind("mla", "moe_shared" if cfg.n_shared_experts else "moe")]
+        return prelude, period, cfg.n_layers - cfg.first_dense_layers
+    if cfg.family == "ssm":
+        return [], [LayerKind("rwkv", "rwkv_channel")], cfg.n_layers
+    if cfg.family == "hybrid":
+        raise NotImplementedError("the hybrid family (mamba mixers, jamba) is not ported "
+                                  "yet: ROADMAP A13d")
+    raise ValueError(f"family must be one of {FAMILIES}, got {cfg.family!r}")
 
 
 def _attn_spec(cfg) -> dict:
@@ -57,18 +108,30 @@ def _attn_spec(cfg) -> dict:
     }
 
 
-def _layer_spec(cfg) -> dict:
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"family must be one of {FAMILIES}, got {cfg.family!r}")
-    if cfg.family == "ssm":
+def _ffn_spec(cfg, kind: LayerKind) -> dict:
+    """``transformer.py:97-113``: a dense layer of ``mla_moe`` is
+    ``dense_ff`` wide, of every other family ``d_ff``."""
+    if kind.ffn == "dense":
+        return L.mlp_spec(cfg.d_model, cfg.dense_ff if cfg.family == "mla_moe" else cfg.d_ff)
+    spec = {"moe": moe_mod.moe_spec(cfg.d_model, cfg.d_ff, cfg.n_experts)}
+    if kind.ffn == "moe_shared":
+        ff = (cfg.shared_expert_ff or cfg.d_ff) * cfg.n_shared_experts
+        spec["shared"] = L.mlp_spec(cfg.d_model, ff)
+    if kind.ffn == "moe_dense":
+        spec["dense"] = L.mlp_spec(cfg.d_model, cfg.dense_ff or cfg.d_ff)
+    return spec
+
+
+def layer_spec(cfg, kind: LayerKind) -> dict:
+    if kind.mixer == "rwkv":
         spec = rwkv_mod.rwkv_spec(cfg)
         return {"ln1": L.rmsnorm_spec(cfg.d_model), "ln2": L.rmsnorm_spec(cfg.d_model),
                 "time": spec["time"], "channel": spec["channel"]}
     return {
         "ln1": L.rmsnorm_spec(cfg.d_model),
         "ln2": L.rmsnorm_spec(cfg.d_model),
-        "attn": _attn_spec(cfg),
-        "ffn": L.mlp_spec(cfg.d_model, cfg.d_ff),
+        "attn": _attn_spec(cfg) if kind.mixer == "attn" else mla_mod.mla_spec(cfg),
+        "ffn": _ffn_spec(cfg, kind),
     }
 
 
@@ -79,12 +142,39 @@ def _stack(tree, n: int):
 
 
 def param_specs(cfg) -> dict:
-    return {
-        "embed": L.embedding_spec(cfg.padded_vocab, cfg.d_model),
-        "blocks": {"b0": _stack(_layer_spec(cfg), cfg.n_layers)},
-        "final_norm": L.rmsnorm_spec(cfg.d_model),
-        "lm_head": L.lm_head_spec(cfg.d_model, cfg.padded_vocab),
-    }
+    """``transformer.py:152-166``: prelude leaves unstacked, period leaves
+    with a leading ``[n_periods]`` axis."""
+    prelude, period, n_periods = block_plan(cfg)
+    specs = {"embed": L.embedding_spec(cfg.padded_vocab, cfg.d_model)}
+    for i, kind in enumerate(prelude):
+        specs[f"prelude_{i}"] = layer_spec(cfg, kind)
+    specs["blocks"] = {f"b{i}": _stack(layer_spec(cfg, kind), n_periods)
+                       for i, kind in enumerate(period)}
+    specs["final_norm"] = L.rmsnorm_spec(cfg.d_model)
+    specs["lm_head"] = L.lm_head_spec(cfg.d_model, cfg.padded_vocab)
+    return specs
+
+
+def packed_param_specs(cfg) -> dict:
+    """The serving tree's ``(shape, dtype)`` leaves (``transformer.py:169-190``):
+    every ternary ``{"w" [..., N, K]}`` node becomes ``{"wp": uint8 [..., N/4,
+    K], "scale": f32 [...]}``, one scale per stacked matrix; every other
+    leaf keeps its f32 shape (before :func:`pack_tree`'s cast of the
+    :data:`DENSE_LEAVES`)."""
+
+    def rec(node):
+        if isinstance(node, ParamSpec):
+            return node.shape, torch.float32
+        w = node.get("w")
+        if isinstance(w, ParamSpec) and w.quant == "ternary":
+            n_in, lead = w.shape[-2], w.shape[:-2]
+            if n_in % 4:
+                raise ValueError(f"contraction dim {n_in} not packable (need %4==0)")
+            return {"wp": (lead + (n_in // 4, w.shape[-1]), torch.uint8),
+                    "scale": (lead, torch.float32)}
+        return {k: rec(v) for k, v in node.items()}
+
+    return rec(param_specs(cfg))
 
 
 # Float matrices the serving path casts to the activation dtype.
@@ -115,7 +205,26 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
-# The projections of a block, by (sub-block, name).
+def _layers(cfg, params):
+    """Every layer in order, the prelude's then the period's: (kind, its
+    parameters (views), its place ``(key, period index or None)``)."""
+    prelude, period, n_periods = block_plan(cfg)
+    for i, kind in enumerate(prelude):
+        yield kind, params[f"prelude_{i}"], (f"prelude_{i}", None)
+    for p in range(n_periods):
+        for i, kind in enumerate(period):
+            yield kind, layer_slice(params["blocks"][f"b{i}"], p), (f"b{i}", p)
+
+
+def _cache_at(caches, place) -> dict:
+    """A layer's cache leaves (views into the stacked leaves) at its place."""
+    key, p = place
+    if p is None:
+        return caches[key]
+    return {n: leaf[p] for n, leaf in caches["blocks"][key].items()}
+
+
+# The projections of a dense block, by (sub-block, name).
 PROJECTIONS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
                ("ffn", "gate"), ("ffn", "down"))
 
@@ -124,8 +233,8 @@ _FIXED = {e: {name: e for _, name in PROJECTIONS} for e in ("tl", "packed")}
 
 
 def block_engines(bp, rows: int, engine: str) -> dict:
-    """The matmul engine of each projection of one block over ``rows`` rows
-    (``transformer.py:428-445``), resolved once per block: a forced or
+    """The matmul engine of each projection of one dense block over ``rows``
+    rows (``transformer.py:428-445``), resolved once per block: a forced or
     pinned engine is every projection's; ``"auto"`` asks each node."""
     if engine in _FIXED:
         return _FIXED[engine]
@@ -134,12 +243,13 @@ def block_engines(bp, rows: int, engine: str) -> dict:
 
 
 def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=None,
-                prefix_limit=0, page_table=None, page_rows=None):
+                prefix_limit=0, page_table=None, page_rows=None, residual: bool = True):
     """Attention sub-block on the int8 row ``xq`` (the prologue's pair, or
     its triple with TL tables); ``engines`` maps q, k, v and o to their
     matmul engine (:func:`block_engines`; alone, each resolves
     ``cfg.matmul_engine``). Returns (x + attn(x), the
-    cache rows of this call). ``cache`` is this layer's cache leaves
+    cache rows of this call); with ``residual=False`` (the unfused block),
+    attn(x) alone, x then only giving the shape and dtype. ``cache`` is this layer's cache leaves
     ``{"k", "v"[, "k_scale", "v_scale"]}`` (views, updated in place): for a
     decode step (one row, written at ``pos``) or a prefill chunk (rows
     appended at the offsets ``pos``); with ``page_table`` they are page
@@ -206,20 +316,68 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=
             q[:, :, 0], cache["k"], cache["v"], pos, kernels=kernels,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))[:, :, None]
     out = out.transpose(1, 2).reshape(b, s, h * hd)
-    x = bitlinear.apply(bp["o"], out, kernels=kernels, out_dtype=x.dtype, residual=x,
-                        engine=engines["o"])
+    x = bitlinear.apply(bp["o"], out, kernels=kernels, out_dtype=x.dtype,
+                        residual=x if residual else None, engine=engines["o"])
     return x, new
 
 
-def apply_block(bp, x, cfg, rope, *, kernels, cache=None, pos=None, prefix_limit=0,
-                page_table=None, page_rows=None):
-    """The fused attn+dense block (``transformer.py:422-447``). Returns
+def _apply_ffn(fp, x, cfg, kind: LayerKind, *, kernels) -> torch.Tensor:
+    """The unfused FFN (``transformer.py:356-371``) on the normed row: the
+    SwiGLU MLP, or the routed experts (``group_size`` 1024, the serving
+    path's) with the shared or the dense MLP added in x's dtype."""
+    if kind.ffn == "dense":
+        return L.mlp(fp, x, kernels=kernels)
+    out, _ = moe_mod.moe_ffn(fp["moe"], x, top_k=cfg.experts_per_tok, kernels=kernels,
+                             capacity_factor=cfg.capacity_factor)
+    if kind.ffn == "moe_shared":
+        out = out + L.mlp(fp["shared"], x, kernels=kernels)
+    if kind.ffn == "moe_dense":
+        out = out + L.mlp(fp["dense"], x, kernels=kernels)
+    return out
+
+
+def _apply_unfused(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, pos=None,
+                   prefix_limit=0, page_table=None, page_rows=None):
+    """``transformer.py:449-475``. Returns (x, the cache rows of a one-shot
+    prefill or None)."""
+    h = L.rmsnorm(bp["ln1"], x, eps=cfg.norm_eps)
+    if kind.mixer == "attn":
+        y, new = _apply_attn(bp["attn"], h, ternary.quantize_act(h), cfg, rope["attn"],
+                             kernels=kernels, engines=dict.fromkeys("qkvo", "auto"),
+                             cache=cache, pos=pos, prefix_limit=prefix_limit,
+                             page_table=page_table, page_rows=page_rows, residual=False)
+    elif cache is None:
+        y, new = mla_mod.mla_prefill(bp["attn"], h, cfg, rope["mla"], kernels=kernels)
+    elif x.shape[1] == 1:
+        y, new = mla_mod.mla_decode(bp["attn"], h, cfg, cache, pos, rope["mla"],
+                                    kernels=kernels), None
+    else:
+        raise NotImplementedError("a multi-token step against an MLA cache is not ported "
+                                  "(ROADMAP A13c); the family prefills whole "
+                                  "(ServingEngine prefill='legacy')")
+    x = x + y
+    h2 = L.rmsnorm(bp["ln2"], x, eps=cfg.norm_eps)
+    return x + _apply_ffn(bp["ffn"], h2, cfg, kind, kernels=kernels), new
+
+
+def apply_block(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, pos=None,
+                prefix_limit=0, page_table=None, page_rows=None, fused=None):
+    """One layer of kind ``kind`` (``transformer.py:374-475``); ``rope`` is
+    :func:`rope_for`'s per-mixer tables. A dense block takes the fused
+    int8-resident branch (``transformer.py:422-447``) unless ``fused`` is
+    False; every other kind the unfused one; an RWKV block its own. Returns
     (x, the cache rows of a one-shot prefill or None)."""
+    if kind.mixer == "rwkv":
+        return apply_rwkv_block(bp, x, cfg, kernels=kernels, state=cache)
+    if fused is False or kind != ATTN_DENSE:
+        return _apply_unfused(kind, bp, x, cfg, rope, kernels=kernels, cache=cache, pos=pos,
+                              prefix_limit=prefix_limit, page_table=page_table,
+                              page_rows=page_rows)
     engines = block_engines(bp, x.shape[0] * x.shape[1], cfg.matmul_engine)
     hq = L.norm_quant(bp["ln1"], x, kernels=kernels, eps=cfg.norm_eps,
                       tables=engines["q"] == "tl")
-    x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope, kernels=kernels, engines=engines,
-                        cache=cache, pos=pos, prefix_limit=prefix_limit,
+    x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope["attn"], kernels=kernels,
+                        engines=engines, cache=cache, pos=pos, prefix_limit=prefix_limit,
                         page_table=page_table, page_rows=page_rows)
     h2q = L.norm_quant(bp["ln2"], x, kernels=kernels, eps=cfg.norm_eps,
                        tables=engines["gate"] == "tl")
@@ -260,9 +418,18 @@ def apply_rwkv_block(bp, x, cfg, *, kernels, state=None):
     return x, None
 
 
-def rope_for(cfg, positions):
-    """The step's RoPE tables, shared by every layer."""
-    return {"attn": L.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)}
+def rope_for(cfg, positions) -> dict:
+    """The step's RoPE tables, shared by every layer, per mixer
+    (``transformer.py:483-495``): ``attn`` at ``head_dim``, ``mla`` at
+    ``qk_rope_head_dim``."""
+    prelude, period, _ = block_plan(cfg)
+    mixers = {k.mixer for k in prelude + period}
+    tables = {}
+    if "attn" in mixers:
+        tables["attn"] = L.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
+    if "mla" in mixers:
+        tables["mla"] = L.rope_tables(positions, cfg.qk_rope_head_dim, theta=cfg.rope_theta)
+    return tables
 
 
 def _head(params, x, cfg):
@@ -270,64 +437,58 @@ def _head(params, x, cfg):
     return L.lm_head(params["lm_head"], x)
 
 
-def _layer_cache(caches, li: int) -> dict:
-    """Layer ``li``'s cache leaves (views into the stacked [L, ...] leaves)."""
-    return {n: leaf[li] for n, leaf in caches["blocks"]["b0"].items()}
-
-
-def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool = False):
+def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool = False,
+            fused=None):
     """Full-sequence pass over ``tokens [B, S]``. Returns (logits [B, S, V]
-    f32, caches | None) with caches ``{"blocks": {"b0": {...}}}`` of
-    :func:`cache_specs` layout at length S."""
+    f32, caches | None) with caches of :func:`cache_specs` layout at length
+    S. ``fused=False`` runs dense blocks through the unfused branch."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, s = tokens.shape
     caches = cache_zeros(cfg, b, s, x.device) if collect_cache else None
-    if cfg.family == "ssm":
-        def block(bp, x):
-            return apply_rwkv_block(bp, x, cfg, kernels=kernels)
-    else:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-        rope = rope_for(cfg, positions)["attn"]
-
-        def block(bp, x):
-            return apply_block(bp, x, cfg, rope, kernels=kernels)
-    for li in range(cfg.n_layers):
-        x, new = block(layer_slice(params["blocks"]["b0"], li), x)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    rope = rope_for(cfg, positions)
+    for kind, bp, place in _layers(cfg, params):
+        x, new = apply_block(kind, bp, x, cfg, rope, kernels=kernels, fused=fused)
         if collect_cache:
+            leaves = _cache_at(caches, place)
             for n, rows in new.items():
-                caches["blocks"]["b0"][n][li] = rows
+                leaves[n].copy_(rows)
     return _head(params, x, cfg), caches
 
 
-def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *, kernels,
-                page_table=None):
-    """One autoregressive step: ``tokens [B, 1]`` at per-slot positions
-    ``pos [B]`` int32. Writes each layer's new K/V into ``caches`` in place
-    and returns (logits [B, V], caches). ``page_table [B, NB]`` int32 makes
-    ``caches`` page pools (:func:`cache_specs` with ``kv_pages``). The ssm
-    family advances its state leaves in place and reads no position."""
-    x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
+def _refuse_paged(cfg):
     if cfg.family == "ssm":
-        if page_table is not None:
-            raise NotImplementedError("the paged layout pages attention K/V; the ssm family "
-                                      "has none")
-        for li in range(cfg.n_layers):
-            x, _ = apply_rwkv_block(layer_slice(params["blocks"]["b0"], li), x, cfg,
-                                    kernels=kernels, state=_layer_cache(caches, li))
-        return _head(params, x, cfg)[:, 0], caches
-    rope = rope_for(cfg, pos[:, None])["attn"]
+        raise NotImplementedError("the paged layout pages attention K/V; the ssm family "
+                                  "has none")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the paged layout serves the dense family only; the "
+                                  f"{cfg.family!r} family's is ROADMAP A13c")
+
+
+def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *, kernels,
+                page_table=None, fused=None):
+    """One autoregressive step: ``tokens [B, 1]`` at per-slot positions
+    ``pos [B]`` int32. Writes each layer's new K/V (MLA: latent row) into
+    ``caches`` in place and returns (logits [B, V], caches). ``page_table
+    [B, NB]`` int32 makes ``caches`` page pools (:func:`cache_specs` with
+    ``kv_pages``, dense family only). The ssm family advances its state
+    leaves in place and reads no position."""
+    x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     page_rows = None
     if page_table is not None:  # the frontier rows' pool addresses, shared by all layers
+        _refuse_paged(cfg)
         page_rows = kv_page_rows(page_table, pos, caches["blocks"]["b0"]["k"].shape[3])
-    for li in range(cfg.n_layers):
-        bp = layer_slice(params["blocks"]["b0"], li)
-        x, _ = apply_block(bp, x, cfg, rope, kernels=kernels, cache=_layer_cache(caches, li),
-                           pos=pos, page_table=page_table, page_rows=page_rows)
+    rope = rope_for(cfg, pos[:, None])
+    for kind, bp, place in _layers(cfg, params):
+        x, _ = apply_block(kind, bp, x, cfg, rope, kernels=kernels,
+                           cache=_cache_at(caches, place), pos=pos, page_table=page_table,
+                           page_rows=page_rows, fused=fused)
     return _head(params, x, cfg)[:, 0], caches
 
 
 def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
-                       kernels, last_row=None, prefix_limit: int = 0, page_table=None):
+                       kernels, last_row=None, prefix_limit: int = 0, page_table=None,
+                       fused=None):
     """One chunked-prefill step (``transformer.py:608-666``): ``tokens
     [B, C]`` at positions ``offset[b] + [0, C)`` (``offset [B]`` int32, any
     offset with ``offset + C`` within the cache) attend to each slot's cache
@@ -337,21 +498,22 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
     logits [B, C, V], or with ``last_row [B]`` only each slot's row, gathered
     before the final norm and the LM head, [B, V]. ``page_table`` as in
     :func:`decode_step`. The dense family only: an RWKV chunk against an
-    existing state raises ``NotImplementedError``."""
+    existing state, and the MoE families' chunks (ROADMAP A13c), raise
+    ``NotImplementedError``."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"prefill_chunk_step is the attention mixer's; the {cfg.family!r} family's "
-            "recurrent state is prefilled whole, from zero (ServingEngine prefill='legacy')")
+            f"prefill_chunk_step is the dense family's; the {cfg.family!r} family is "
+            "prefilled whole (ServingEngine prefill='legacy'); widening the chunked path "
+            "is ROADMAP A13c")
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, c = tokens.shape
     positions = offset.to(torch.int32)[:, None] + torch.arange(
         c, dtype=torch.int32, device=x.device)[None, :]
-    rope = rope_for(cfg, positions)["attn"]
-    for li in range(cfg.n_layers):
-        bp = layer_slice(params["blocks"]["b0"], li)
-        x, _ = apply_block(bp, x, cfg, rope, kernels=kernels,
-                           cache=_layer_cache(caches, li), pos=offset,
-                           prefix_limit=prefix_limit, page_table=page_table)
+    rope = rope_for(cfg, positions)
+    for kind, bp, place in _layers(cfg, params):
+        x, _ = apply_block(kind, bp, x, cfg, rope, kernels=kernels,
+                           cache=_cache_at(caches, place), pos=offset,
+                           prefix_limit=prefix_limit, page_table=page_table, fused=fused)
     if last_row is not None:
         idx = last_row.to(torch.int64)[:, None, None].expand(b, 1, x.shape[-1])
         return _head(params, x.gather(1, idx), cfg)[:, 0], caches
@@ -359,7 +521,7 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
 
 
 def verify_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
-                      kernels, prefix_limit: int = 0, page_table=None):
+                      kernels, prefix_limit: int = 0, page_table=None, fused=None):
     """The speculative verify step (``transformer.py:669-703``): the chunk
     ``tokens [B, C]`` = [current token, C - 1 drafts] at each slot's decode
     frontier ``offset [B]`` (anywhere, not a multiple of C), through
@@ -371,57 +533,106 @@ def verify_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor
     port's prefill-append kernel runs here at any frontier, where JAX pins
     its XLA form."""
     return prefill_chunk_step(params, tokens, caches, offset, cfg, kernels=kernels,
-                              prefix_limit=prefix_limit, page_table=page_table)
+                              prefix_limit=prefix_limit, page_table=page_table, fused=fused)
+
+
+def _kind_cache_spec(cfg, kind: LayerKind, batch: int, seq: int, kv_pages) -> dict:
+    """One layer's cache leaves ``{name: (shape, dtype)}``, unstacked
+    (``transformer.py:711-790``)."""
+    if kind.mixer == "rwkv":
+        n, d = cfg.rwkv_head_dim, cfg.d_model
+        carry = ((batch, 1, d), cfg.dtype)
+        return {"wkv": ((batch, d // n, n, n), torch.float32), "x_time": carry,
+                "x_chan": carry}
+    if kind.mixer == "mla":
+        return {"c_kv": ((batch, seq, cfg.kv_lora_rank), cfg.dtype),
+                "k_rope": ((batch, seq, cfg.qk_rope_head_dim), cfg.dtype)}
+    if kv_pages is not None:
+        shape = (kv_pages, cfg.n_kv_heads, cfg.kv_page_size, cfg.head_dim)
+    else:
+        shape = (batch, cfg.n_kv_heads, seq, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        scales = (shape[:-1], torch.float32)
+        return {"k": (shape, torch.int8), "k_scale": scales,
+                "v": (shape, torch.int8), "v_scale": scales}
+    return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
 
 
 def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> dict:
-    """Shape and dtype of every cache leaf: ``{"blocks": {"b0": {"k":
-    (shape, dtype), "v": ...}}}`` with k/v [L, B, HK, seq, D] in ``cfg.dtype``;
-    with ``cfg.kv_cache_dtype == "int8"``, k/v int8 and ``k_scale``/``v_scale``
-    [L, B, HK, seq] f32 row scales. ``kv_pages`` switches to the paged
-    layout (``transformer.py:711-741``): one pool shared by every slot, k/v
-    [L, kv_pages, HK, cfg.kv_page_size, D] (and scales [L, kv_pages, HK,
-    cfg.kv_page_size]); ``batch`` and ``seq`` then go unused. It is an
-    explicit opt-in: only the engine pages. The ssm family's leaves are its
-    recurrent state, with no sequence axis (``transformer.py:779-789``):
+    """Shape and dtype of every cache leaf (``transformer.py:793-834``):
+    ``{"prelude_{i}": {...}, "blocks": {"b{i}": {...}}}``, period leaves
+    stacked ``[n_periods, ...]``. An attention layer's k/v are [B, HK, seq,
+    D] in ``cfg.dtype``; with ``cfg.kv_cache_dtype == "int8"``, k/v int8 and
+    ``k_scale``/``v_scale`` [B, HK, seq] f32 row scales. An MLA layer's are
+    ``c_kv [B, seq, R]`` and ``k_rope [B, seq, rope]`` in ``cfg.dtype``
+    under either cache dtype. ``kv_pages`` switches the dense family to the
+    paged layout (``transformer.py:711-741``): one pool shared by every
+    slot, k/v [L, kv_pages, HK, cfg.kv_page_size, D] (and scales [L,
+    kv_pages, HK, cfg.kv_page_size]); ``batch`` and ``seq`` then go unused.
+    It is an explicit opt-in: only the engine pages. The ssm family's leaves
+    are its recurrent state, with no sequence axis (``transformer.py:779-789``):
     ``wkv [L, batch, H, n, n]`` f32 and ``x_time``, ``x_chan [L, batch, 1,
-    d]`` in ``cfg.dtype``; ``seq`` goes unused, and it has no paged layout."""
+    d]`` in ``cfg.dtype``; ``seq`` goes unused."""
     if cfg.kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got "
                          f"{cfg.kv_cache_dtype!r}")
-    if cfg.family == "ssm":
-        if kv_pages is not None:
-            raise NotImplementedError("the paged layout pages attention K/V; the ssm family "
-                                      "has none")
-        n, d = cfg.rwkv_head_dim, cfg.d_model
-        carry = ((cfg.n_layers, batch, 1, d), cfg.dtype)
-        return {"blocks": {"b0": {
-            "wkv": ((cfg.n_layers, batch, d // n, n, n), torch.float32),
-            "x_time": carry, "x_chan": carry}}}
     if kv_pages is not None:
-        shape = (cfg.n_layers, kv_pages, cfg.n_kv_heads, cfg.kv_page_size, cfg.head_dim)
-    else:
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.head_dim)
-    if cfg.kv_cache_dtype == "int8":
-        scales = (shape[:-1], torch.float32)
-        leaves = {"k": (shape, torch.int8), "k_scale": scales,
-                  "v": (shape, torch.int8), "v_scale": scales}
-    else:
-        leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
-    return {"blocks": {"b0": leaves}}
+        _refuse_paged(cfg)
+    prelude, period, n_periods = block_plan(cfg)
+    out = {f"prelude_{i}": _kind_cache_spec(cfg, kind, batch, seq, kv_pages)
+           for i, kind in enumerate(prelude)}
+    out["blocks"] = {
+        f"b{i}": {n: ((n_periods,) + shape, dt) for n, (shape, dt) in
+                  _kind_cache_spec(cfg, kind, batch, seq, kv_pages).items()}
+        for i, kind in enumerate(period)}
+    return out
 
 
-def seq_leaves(cfg) -> frozenset:
-    """The cache leaves with a sequence axis (axis 3, the one the engine
-    grows and crops): every leaf of the dense family, none of the ssm
-    family's state (JAX: the leaves whose axes hold ``act_kv_seq``)."""
-    if cfg.family == "ssm":
-        return frozenset()
-    return frozenset(cache_specs(cfg, 1, 1)["blocks"]["b0"])
+def cache_layout(cfg) -> dict:
+    """Every leaf of a contiguous cache tree: ``{path: (batch axis, sequence
+    axis or None)}``, ``path`` the tuple of keys. Period leaves: attention
+    k/v and scales (1, 3), MLA latents (1, 2), RWKV state (1, None);
+    prelude leaves have no layer axis, so one less (MLA: (0, 1)). JAX keys
+    the same choice on the ``act_kv_seq`` axis name (``engine.py:158-197``)."""
+    prelude, period, _ = block_plan(cfg)
+    seq_axis = {"attn": 2, "mla": 1, "rwkv": None}
+    out = {}
+    for kinds, key, stacked in ((prelude, "prelude_{}", 0), (period, "blocks/b{}", 1)):
+        for i, kind in enumerate(kinds):
+            s = seq_axis[kind.mixer]
+            for name in _kind_cache_spec(cfg, kind, 1, 1, None):
+                path = tuple(key.format(i).split("/")) + (name,)
+                out[path] = (stacked, None if s is None else s + stacked)
+    return out
+
+
+def tree_leaves(tree, path: tuple = ()):
+    """(path, leaf) of every leaf of a nested dict, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def tree_get(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_set(tree: dict, path: tuple, value) -> None:
+    """Set the leaf at ``path``, making the dicts on the way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
 
 
 def cache_zeros(cfg, batch: int, seq: int, device, *, kv_pages: int | None = None) -> dict:
-    specs = cache_specs(cfg, batch, seq, kv_pages=kv_pages)
-    return {"blocks": {b: {n: torch.zeros(shape, dtype=dt, device=device)
-                           for n, (shape, dt) in leaves.items()}
-                       for b, leaves in specs["blocks"].items()}}
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        shape, dt = node
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return rec(cache_specs(cfg, batch, seq, kv_pages=kv_pages))

@@ -45,8 +45,12 @@ difference from JAX there: JAX first flips a sticky kernel-to-XLA
 attention fallback and retries the tick; the port has no second
 implementation to fall back to, neither the plain versions nor the CPU, so
 it goes straight to JAX's last resort. A page pool that runs dry fails the
-request that needed the page (``FAILED``, ``page_pool_exhausted``). Not
-ported yet: the other model families.
+request that needed the page (``FAILED``, ``page_pool_exhausted``). The
+``moe`` and ``mla_moe`` families are served like the ssm family, by the
+legacy prefill on the contiguous layout (their chunked and paged paths are
+ROADMAP A13c); their idle slots decode what JAX's do, since they share the
+routed experts' capacity with the live ones. Not ported yet: the hybrid
+family (A13d).
 """
 
 from __future__ import annotations
@@ -109,35 +113,36 @@ def init_caches(cfg, batch: int, max_len: int, *, device=None,
 
 def cache_nbytes(caches) -> int:
     """Bytes resident in a cache tree, int8 scale leaves included."""
-    return sum(t.numel() * t.element_size()
-               for leaves in caches["blocks"].values() for t in leaves.values())
+    return sum(t.numel() * t.element_size() for _, t in Tr.tree_leaves(caches))
+
+
+def _checked_leaves(caches, cfg) -> dict:
+    """``{path: (leaf, batch axis, sequence axis or None)}`` of a contiguous
+    cache tree (``transformer.cache_layout``); a tree whose leaves disagree
+    with ``cfg`` (another ``kv_cache_dtype``, another family) is rejected."""
+    layout = Tr.cache_layout(cfg)
+    leaves = dict(Tr.tree_leaves(caches))
+    if set(leaves) != set(layout):
+        raise ValueError(f"cache layout mismatch: cache has leaves {sorted(leaves)} but "
+                         f"kv_cache_dtype={cfg.kv_cache_dtype!r} expects {sorted(layout)}")
+    return {path: (leaf, *layout[path]) for path, leaf in leaves.items()}
 
 
 def _resize_caches(caches, cfg, max_len: int, *, crop: bool) -> dict:
     """Pad (and, with ``crop``, slice) the sequence axis of every leaf that
-    has one (``transformer.seq_leaves``) to ``max_len``: axis 3 of k/v
-    [L, B, HK, M, D] and of the int8 scales [L, B, HK, M]. Leaves without
-    one, the ssm family's recurrent state, pass through unchanged
+    has one (``transformer.cache_layout``) to ``max_len``: k/v and the int8
+    scales of attention layers, MLA's ``c_kv`` and ``k_rope``. Leaves
+    without one, the ssm family's recurrent state, pass through unchanged
     (``engine.py:158-197``). A cache whose leaves disagree with
     ``cfg.kv_cache_dtype`` is rejected."""
-    want = set(Tr.cache_specs(cfg, 1, 1)["blocks"]["b0"])
-    seq = Tr.seq_leaves(cfg)
-
-    def fit(name, c):
-        if name not in seq:
-            return c
-        n = c.shape[3]
-        if n > max_len and crop:
-            return c[:, :, :, :max_len].contiguous()
-        return C.pad_to(c, 3, max_len) if n < max_len else c
-
     out = {}
-    for b, leaves in caches["blocks"].items():
-        if set(leaves) != want:
-            raise ValueError(f"cache layout mismatch: cache has keys {sorted(leaves)} but "
-                             f"kv_cache_dtype={cfg.kv_cache_dtype!r} expects {sorted(want)}")
-        out[b] = {k: fit(k, v) for k, v in leaves.items()}
-    return {"blocks": out}
+    for path, (leaf, _, seq) in _checked_leaves(caches, cfg).items():
+        if seq is not None and leaf.shape[seq] > max_len and crop:
+            leaf = leaf.narrow(seq, 0, max_len).contiguous()
+        elif seq is not None and leaf.shape[seq] < max_len:
+            leaf = C.pad_to(leaf, seq, max_len)
+        Tr.tree_set(out, path, leaf)
+    return out
 
 
 def grow_caches(caches, cfg, max_len: int) -> dict:
@@ -155,14 +160,16 @@ def fit_caches(caches, cfg, max_len: int) -> dict:
 
 def live_cache_state(caches, cfg, frontier) -> dict:
     """The live view of a contiguous cache tree for state comparisons
-    (``engine.py:1586-1605``): every row of a sequence leaf (axis 3, slots
-    on axis 1, int8 scales included) at or past the slot's ``frontier [B]``
-    is zeroed. Rows past a frontier are dead, so two engine states are the
-    same when their live views are."""
-    seq = Tr.seq_leaves(cfg)
-    return {"blocks": {b: {n: (mask_past_frontier(leaf, frontier, seq_axis=3, batch_axis=1)
-                               if n in seq else leaf) for n, leaf in leaves.items()}
-                       for b, leaves in caches["blocks"].items()}}
+    (``engine.py:1586-1605``): every row of a sequence leaf (int8 scales
+    included) at or past the slot's ``frontier [B]`` is zeroed. Rows past a
+    frontier are dead, so two engine states are the same when their live
+    views are."""
+    out = {}
+    for path, (leaf, batch, seq) in _checked_leaves(caches, cfg).items():
+        if seq is not None:
+            leaf = mask_past_frontier(leaf, frontier, seq_axis=seq, batch_axis=batch)
+        Tr.tree_set(out, path, leaf)
+    return out
 
 
 def engine_params(params, cfg):
@@ -592,11 +599,12 @@ class ServingEngine:
         if prefill not in ("chunked", "legacy"):
             raise ValueError(f"prefill must be 'auto', 'chunked' or 'legacy', got {prefill!r}")
         if cfg.family != "dense" and (prefill == "chunked" or cfg.kv_layout == "paged"):
+            why = ("its recurrent state has no rows to append a chunk to or to page, and "
+                   "the WKV kernel starts from a zero state" if cfg.family == "ssm" else
+                   "the chunked and paged paths of its mixer are ROADMAP A13c")
             raise ValueError(
                 f"the {cfg.family!r} family runs prefill='legacy' on the contiguous layout "
-                f"only (got prefill={prefill!r}, kv_layout={cfg.kv_layout!r}): its recurrent "
-                "state has no rows to append a chunk to or to page, and the WKV kernel "
-                "starts from a zero state")
+                f"only (got prefill={prefill!r}, kv_layout={cfg.kv_layout!r}): {why}")
         self.prefill = prefill
         sizes = tuple(sorted(cfg.prefill_chunk_sizes)) or (64, 128, 256)
         # chunk sizes no admissible prompt (len < max_len) can fill are dropped
@@ -917,9 +925,9 @@ class ServingEngine:
             logits, caches = prefill_bucketed(self.params, self.cfg, tokens,
                                               kernels=self.kernels)
             caches = fit_caches(caches, self.cfg, self.cache_len)
-            for b, leaves in caches["blocks"].items():
-                for name, leaf in leaves.items():  # [L, 1, ...] into the slot's [L, B, ...]
-                    self.caches["blocks"][b][name][:, slot] = leaf[:, 0]
+            for path, (leaf, batch, _) in _checked_leaves(caches, self.cfg).items():
+                # the request's one slot into this slot, on the batch axis
+                Tr.tree_get(self.caches, path).select(batch, slot).copy_(leaf.select(batch, 0))
             first = torch.argmax(logits[0]).to(torch.int32)
             self.pos[slot] = plen
             self.cur_tok[slot] = first
@@ -1028,9 +1036,8 @@ class ServingEngine:
         for i, (s, d) in enumerate(pairs):
             src[i], dst[i] = s, d
         src, dst = self._to_device(src), self._to_device(dst)
-        for leaves in self.caches["blocks"].values():
-            for leaf in leaves.values():  # [L, P, ...]: pages on axis 1
-                leaf[:, dst] = leaf[:, src]
+        for _, leaf in Tr.tree_leaves(self.caches):  # [L, P, ...]: pages on axis 1
+            leaf[:, dst] = leaf[:, src]
 
     def _cow_prepare(self, writes: list) -> list[int]:
         """Make the blocks this tick writes exclusive (``writes``: (slot,
@@ -1245,8 +1252,14 @@ class ServingEngine:
         active = self._to_device(active_np)
         # idle slots write and read row cache_len - 1, as in the fused tick: a
         # retired slot's position may stand at max_len, which is cache_len
-        # under the legacy prefill
-        dpos = torch.where(active, self.pos, torch.full_like(self.pos, self.cache_len - 1))
+        # under the legacy prefill. Under MoE the idle rows share expert
+        # capacity with the live ones, so they decode what JAX's do: their
+        # last token at their own position (engine.py:539-545). MLA's row
+        # write skips a position past the cache, as JAX's one-hot does; the
+        # attention kernels take none, so the moe family's is clamped into it
+        idle = {"mla_moe": self.pos, "moe": self.pos.clamp(max=self.cache_len - 1)}.get(
+            self.cfg.family, torch.full_like(self.pos, self.cache_len - 1))
+        dpos = torch.where(active, self.pos, idle)
         logits, _ = Tr.decode_step(self.params, self.cur_tok[:, None].to(torch.int64),
                                    self.caches, dpos, self.cfg, kernels=self.kernels,
                                    page_table=page_table)

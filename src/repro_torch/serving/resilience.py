@@ -27,6 +27,8 @@ import enum
 import numpy as np
 import torch
 
+from ..models.transformer import tree_leaves
+
 
 class Status(enum.Enum):
     """Request lifecycle states. The last six are terminal."""
@@ -72,8 +74,10 @@ def scale_guard(caches, rows: torch.Tensor, valid: torch.Tensor, *,
                 paged: bool = False) -> torch.Tensor:
     """Per-slot bool: any non-finite scale among this tick's written cache
     rows. ``rows`` [B, R] int seq indices, ``valid`` [B, R] the rows written
-    live this tick. Only the int8 layout's ``*_scale`` leaves [L, B, HK, M]
-    are judged, so a bf16 cache gives all False. With ``paged`` (the caches
+    live this tick. Only the int8 layout's attention ``*_scale`` leaves
+    [L, B, HK, M] are judged, wherever they sit in the tree, so a bf16
+    cache, and an MLA layer's latents under either cache dtype, give all
+    False. With ``paged`` (the caches
     are page pools) nothing is judged: ``repro/serving/resilience.py:118``
     judges only scale leaves whose axes carry ``act_kv_seq``, and the paged
     pools' scale leaves carry ``("kv_pages", "act_kv_heads",
@@ -83,15 +87,15 @@ def scale_guard(caches, rows: torch.Tensor, valid: torch.Tensor, *,
     bad = torch.zeros((b,), dtype=torch.bool, device=rows.device)
     if paged:
         return bad
-    for leaves in caches["blocks"].values():
-        for name, leaf in leaves.items():
-            if not name.endswith("_scale"):
-                continue
-            idx = rows.to(torch.int64).clamp(0, leaf.shape[-1] - 1)
-            taken = leaf.gather(-1, idx[None, :, None, :].expand(
-                leaf.shape[0], b, leaf.shape[2], r))  # [L, B, HK, R]
-            nf = (~torch.isfinite(taken)).any(dim=2).any(dim=0)  # [B, R]
-            bad |= (nf & valid).any(dim=1)
+    for path, leaf in tree_leaves(caches):
+        if not path[-1].endswith("_scale"):
+            continue
+        leaf = leaf.reshape((-1,) + tuple(leaf.shape[-3:]))  # [L, B, HK, M], L = 1 unstacked
+        idx = rows.to(torch.int64).clamp(0, leaf.shape[-1] - 1)
+        taken = leaf.gather(-1, idx[None, :, None, :].expand(
+            leaf.shape[0], b, leaf.shape[2], r))  # [L, B, HK, R]
+        nf = (~torch.isfinite(taken)).any(dim=2).any(dim=0)  # [B, R]
+        bad |= (nf & valid).any(dim=1)
     return bad
 
 

@@ -58,7 +58,11 @@ output row): P is rounded to bf16 against the kernel's running maximum and
 the plain version's row maximum, which moves an output by a small share of
 its row's scale, and the output's own rounding can differ by one bf16 ulp
 (2^-7 of |want| at most). The dense schedule gives the causal-skip
-schedule's output bit for bit. The GEMV (M <= 16, the cluster-split
+schedule's output bit for bit; with v of another head dim and an
+explicit scale (DeepSeek's (192, 128), the smoke's (24, 16) zero-padded to
+(32, 32)) at the same bars. One period block of each MoE family's smoke
+config (MLA or attention, routed experts, the shared or dense MLP) through
+the kernels is within 1e-4 of the plain versions, prefill and decode. The GEMV (M <= 16, the cluster-split
 kernel) and the tiled matmul (the tensor-core kernel) are held bit for bit
 at M = 1 to 2048 and at rwkv6-3b's projections, and with x and the packed
 weights off their 16-byte alignment. The SwiGLU (the GEMV's pass 1 at
@@ -1077,6 +1081,69 @@ def test_flash_attention(cuda, b, h, hk, s, d, dtype):
     assert torch.equal(dense, got)  # masked tiles add exact zeros
 
 
+# (B, H, HK, S, Dqk, Dv, dtype): DeepSeek-V2-Lite's MLA prefill (192, 128),
+# instantiated, and the smoke config's (24, 16), zero-padded to (32, 32)
+FLASH_DV_CASES = [(4, 16, 16, 100, 192, 128, "bfloat16"), (1, 16, 16, 1000, 192, 128, "bfloat16"),
+                  (2, 4, 4, 129, 192, 128, "float32"), (3, 4, 4, 13, 24, 16, "float32"),
+                  (2, 4, 4, 65, 24, 16, "bfloat16"), (1, 4, 2, 77, 192, 128, "bfloat16")]
+
+
+@pytest.mark.parametrize("b,h,hk,s,d,dv,dtype", FLASH_DV_CASES)
+def test_flash_attention_dv_and_scale(cuda, b, h, hk, s, d, dv, dtype):
+    """v of another head dim than q and k, and an explicit scale (MLA's
+    1/sqrt(Dqk)), against the plain version at the same bars."""
+    rng = np.random.default_rng(s + d + dv)
+    td = TORCH_DT[dtype]
+    q = _t(rng.standard_normal((b, h, s, d)).astype(np.float32), cuda, td)
+    k = _t(rng.standard_normal((b, hk, s, d)).astype(np.float32), cuda, td)
+    v = _t(rng.standard_normal((b, hk, s, dv)).astype(np.float32), cuda, td)
+    scale = 1.0 / np.sqrt(d + 5)
+    got = fa_ops.flash_attention(q, k, v, scale=scale)
+    dense = fa_ops.flash_attention(q, k, v, scale=scale, causal_skip=False)
+    want = fa_ref.flash_attention(q, k, v, scale=scale).float()
+    torch.cuda.synchronize()
+    assert got.dtype == td and got.shape == (b, h, s, dv)
+    if td is torch.float32:
+        torch.testing.assert_close(got, want, atol=FLASH_TOL_F32, rtol=FLASH_TOL_F32)
+    else:
+        rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        worst = ((got.float() - want).abs() / (want.abs() + rms)).max().item()
+        assert worst <= FLASH_TOL_BF16, worst
+    assert torch.equal(dense, got)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
+def test_moe_block_kernels_vs_plain(cuda, arch):
+    """One period block of each MoE family's smoke config in f32 (MLA or
+    attention, routed experts with the shared or the dense MLP): through
+    the kernels on the card and the plain versions on the same weights,
+    prefill and one decode step, within 1e-4 of max |plain| (the projections
+    are exact; attention rounds in another order); every expert projection
+    a launch of its own."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    params = PR.init_packed_params(TT.param_specs(cfg), 0, cuda, dense_leaves=TT.DENSE_LEAVES)
+    kind, bp, _ = list(TT._layers(cfg, params))[-1]
+    x = torch.randn((2, 13, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    rope = TT.rope_for(cfg, torch.arange(13, device=cuda)[None].expand(2, 13))
+    reset_launch_counts()
+    yk, rows = TT.apply_block(kind, bp, x, cfg, rope, kernels=KERNELS)
+    counts = launch_counts()
+    yp, _ = TT.apply_block(kind, bp, x, cfg, rope, kernels=PLAIN)
+    assert (yk - yp).abs().max() <= 1e-4 * yp.abs().max()
+    projections = counts["ternary_gemv"] + counts["ternary_matmul"]
+    assert projections >= 3 * cfg.n_experts and counts["flash_attention"] == 1
+    pos = torch.tensor([13, 5], dtype=torch.int32, device=cuda)
+    x1 = x[:, :1].clone()
+    cache = {n: torch.nn.functional.pad(r, (0, 0, 0, 3)) for n, r in rows.items()}  # S + 3
+    drope = TT.rope_for(cfg, pos[:, None])
+    dk, _ = TT.apply_block(kind, bp, x1, cfg, drope, kernels=KERNELS, pos=pos,
+                           cache={n: c.clone() for n, c in cache.items()})
+    dp, _ = TT.apply_block(kind, bp, x1, cfg, drope, kernels=PLAIN, pos=pos,
+                           cache={n: c.clone() for n, c in cache.items()})
+    assert (dk - dp).abs().max() <= 1e-4 * dp.abs().max()
+
+
 def test_flash_attention_counts_and_checks(cuda):
     """A CUDA tensor launches the kernel (the count goes up, through the
     kernel set too) and never takes the plain version; bad inputs raise."""
@@ -1087,9 +1154,9 @@ def test_flash_attention_counts_and_checks(cuda):
     KERNELS.flash_attention(q, k, k.clone(), causal_skip=False)
     TA.prefill_attention(q, k, k.clone(), kernels=KERNELS)
     assert launch_counts()["flash_attention"] == 3
-    with pytest.raises(ValueError, match="head_dim"):
-        fa_ops.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
-                               k[..., :24].contiguous())
+    with pytest.raises(ValueError, match="head dims"):  # no instantiated pair holds 256
+        fa_ops.flash_attention(torch.randn((1, 4, 64, 256), device=cuda),
+                               torch.randn((1, 2, 64, 256), device=cuda), k.clone())
     with pytest.raises(TypeError):
         fa_ops.flash_attention(q, k.to(torch.bfloat16), k.to(torch.bfloat16))
     with pytest.raises(ValueError):

@@ -321,7 +321,7 @@ def test_fit_caches_passes_the_state_through(f32):
     _, tcfg, _, tp = f32
     _, caches = TE.prefill_bucketed(tp, tcfg, torch.from_numpy(_tokens(2, 13, 4)).long(),
                                     kernels=PLAIN)
-    assert TT.seq_leaves(tcfg) == frozenset()
+    assert all(seq is None for _, seq in TT.cache_layout(tcfg).values())
     for max_len in (5, 13, 300):
         for fn in (TE.fit_caches, TE.grow_caches):
             out = fn(caches, tcfg, max_len)
