@@ -9,13 +9,19 @@ pool and behind the HTTP/SSE front door; then RWKV-6 3B (rwkv6-3b, the ssm
 family) at full width and depth through ``generate``, the one-shot prefill
 and the per-request engine; then the MoE families at smoke size, and
 DeepSeek-V2-Lite 16B (the mla_moe family) at full width and depth through
-``generate`` and the per-request engine.
+``generate`` and the per-request engine; then Gemma-2 27B (local layers
+with a 4096-token sliding window beside global ones, softcaps) at full
+width and depth through ``generate`` and the chunked engine, with
+prompts past the window.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
 
 Phases (each prints one JSON line; any failed bar exits non-zero):
-  build     nvcc builds the eight kernel sources (timed); the line carries
+  Every phase's line carries ``phase_wall_s``, the wall seconds since the
+  line before it.
+  build     nvcc builds the eight kernel sources (timed, each source's
+            compile seconds in ``compile_s``); the line carries
             ptxas's registers, static shared memory and spills of the three
             tensor-core kernels (flash attention and prefill-append in bf16,
             the packed matmul), of the packed GEMV and of the three WKV
@@ -93,9 +99,10 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             streams, statuses, details and event kinds (straggler events
             dropped); step() never raised; every fault left its event.
   generate  full-width tellme-0.7b (24 layers, random weights from seed 0),
-            B = 4, prompt 100 (bucket 128), 64 greedy steps, once through
-            the kernels (launch counters reset just before, read just after)
-            and once through the plain versions on the card; then eight
+            B = 4, prompt 100 (bucket 128), 64 greedy steps through the
+            kernels (launch counters reset just before, read just after)
+            and 16 through the plain versions on the card (the streams
+            compared over those); then eight
             decode steps from shared caches both ways (logits held to a
             bar at each, argmax equal at the first), the per-layer drift
             between the two prefills, and torch.profiler over three
@@ -103,10 +110,11 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
   engine    full-width ServingEngine, slots = 8, max_len = 1024, 16 requests
             (prompts of 16-900 tokens, 32 new tokens each), for each cache
             dtype through the kernels (counters reset just before, read just
-            after) and through the plain versions: every request OK with 32
-            tokens, one host transfer per tick, 24 attention launches per
-            tick that runs them; tick times, tokens/s, time to first token,
-            cache bytes, stream agreement with the plain run.
+            after) and through the plain versions (8 new tokens each): every
+            request OK with 32 tokens, one host transfer per tick, 24
+            attention launches per tick that runs them; tick times,
+            tokens/s, time to first token, cache bytes, stream agreement
+            with the plain run over its 8 tokens.
   chunk_step  one full-width prefill_chunk_step per cache dtype from shared
             caches (4 slots, chunk 128 at offset 256 after a 256-chunk):
             last-row logits of kernels vs plain versions to a bar, and the
@@ -211,8 +219,9 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             and the engine (prefill="auto", which is legacy): equal streams
             and statuses.
   rwkv_generate  full-width rwkv6-3b (32 layers, random weights from seed
-            0), B = 4, a 100-token prompt, 64 greedy steps, kernels and
-            plain versions: 32 wkv launches per prefill and no attention or
+            0), B = 4, a 100-token prompt, 64 greedy steps through the
+            kernels, 16 through the plain versions (the streams compared
+            over those): 32 wkv launches per prefill and no attention or
             norm-quant launch (counters reset just before, read just
             after); the prefill held block by block, each block and the
             last-token logits from the same input within the logits bar
@@ -234,8 +243,9 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             held bit for bit on the same inputs: each admitted slot's state
             equal to prefill_bucketed of its prompt alone, the other slots
             untouched; each tick's logits and all eight slots' new state
-            equal to decode_step from a copy taken just before. Each stream
-            beside generate of that prompt alone, a parting reported with
+            equal to decode_step from a copy taken just before. The first
+            four streams beside generate of their prompt alone, a parting
+            reported with
             the gap of its two tokens in the engine's own logits; the first
             two requests through a one-slot engine, streams equal to
             generate's; one decode step batched against one by one.
@@ -256,7 +266,7 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             input, a 4 x 100 prefill and one decode step: within the
             logits bar of max |plain|.
   deepseek_generate  B = 4, a 100-token prompt, 32 steps through the
-            kernels, 8 through the plain versions (2 s a step): decode ms a
+            kernels, 4 through the plain versions (2 s a step): decode ms a
             step and tokens/s, the launches of
             the run and of one decode step, the 1 x 1000 prefill, the
             device busy share (torch.profiler over three decode steps), how
@@ -271,6 +281,39 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             128, bf16) with their launches, and rows 3-4's launches in a
             DeepSeek decode step, the 1 x 1000 prefill, generate and the
             engine.
+  gemma2_smoke  gemma2-27b's smoke config (window 16) in f32, card
+            (kernels) vs CPU (plain versions), on prompts past the window:
+            forward logits, generate streams, and the chunked engine
+            (chunks of 32 and 64, pages of 32) on the contiguous bf16 and
+            int8 caches, paged and speculative: equal streams and
+            statuses. Then Arctic's smoke config (moe) through the chunked
+            engine, contiguous, paged and speculative: equal statuses,
+            streams equal or parting at a near-tie, the chunk attention
+            launched under expert routing.
+  gemma2_init  full-width gemma2-27b (46 layers, d_model 4608, vocab
+            256000, random weights from seed 0) packed leaf by leaf on the
+            card: seconds, bytes resident, peak beyond what was resident.
+  gemma2_blocks  the first local and the first global block, kernels vs
+            plain versions on the same input: a 1 x 4352 prefill and a
+            decode step at position 4400 (the window masks rows), within
+            the logits bar; two norm-quant launches a block (the fused
+            branch).
+  gemma2_generate  B = 4 with a 100-token prompt and B = 1 with a
+            4200-token prompt (decode past the window), 32 steps each:
+            prefill ms, decode ms a step, tokens/s, launches a step and a
+            prefill, busy share; the 4 x 100 prefill's logits held against
+            the plain versions.
+  gemma2_engine  the chunked engine, 8 slots, max_len 6144 (a 19.3 GB
+            bf16 cache), 12 ragged prompts and 4 of 4200-5000 tokens, 32
+            new each: every request OK, one host transfer a tick;
+            tokens/s, fused and decode tick ms, first-token ms. Then the
+            ``gemma2_rows`` line: the kernels phase's gemma2 shapes of rows
+            1, 3-6, 10 and 17 (norm-quant, GEMV, tiled matmul and SwiGLU at
+            d 4608 and d_ff 36864; decode attention and prefill-append
+            with window 4096 and softcap 50 at the engine's shapes; flash
+            attention at 1 x 4352 and 4 x 128 with and without them, its
+            bound over the live pairs under the window, its library call
+            SDPA with a boolean mask) with their launches in these runs.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -303,6 +346,9 @@ SMOKE_LOGIT_TOL = 1e-3  # f32 smoke prefill logits, card vs CPU
 WKV_TOL = 1e-4  # wkv's y and state, f32, of each head's max |plain| (wkv_rows)
 
 STEPS = 64  # greedy steps of the full-width run
+# greedy steps of the plain versions' full-width generate (tellme-0.7b,
+# rwkv6-3b); the streams are compared over them
+PLAIN_STEPS = 16
 MLA_ATTENTION = (16, 192, 128)  # deepseek-v2-lite-16b's prefill attention: heads, Dqk, Dv
 DECODE_CHECK_STEPS = 8  # decode steps held against the plain versions from shared caches
 
@@ -317,6 +363,7 @@ TL_REPLACED = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu")
 # The full-width engine run (and the kernel shapes taken from its ticks)
 ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_REQUESTS, ENGINE_NEW = 8, 1024, 16, 32
 ENGINE_PROMPT_RANGE = (16, 900)  # prompt lengths, uniform, numpy default_rng(0)
+ENGINE_PLAIN_NEW = 8  # new tokens a request in the plain versions' engine run
 CHUNK_ROWS = 256  # the engine's largest prefill chunk: its chunk step has 8 x 256 rows
 PAGE_SIZE = 64  # kv_page_size of the paged layout (the config's default)
 # The shared-prefix workload: a 576-token system prompt (9 pages) and
@@ -331,6 +378,9 @@ VERIFY_C, VERIFY_FRONTIERS = 5, (163, 700, 517, 900, 301, 1000, 99, 62)
 PREFILL_SHAPES = ((4, 100), (1, 1000), (1, 4000))  # (batch, prompt): buckets 128, 1024, 4096
 RWKV_PREFILL_SHAPES = ((1, 1000), (1, 4000))  # (batch, prompt), exact length
 ONE_SLOT_REQUESTS = 2  # the rwkv engine's requests also served through one slot
+# the rwkv engine's requests set beside generate of their prompt alone (4 s
+# each)
+ALONE_REQUESTS = 4
 REPEAT_REQUESTS, REPEAT_NEW = 8, 64  # the speculative engine's repetitive workload
 # the fault phases' plans: ticks and slots where the engine phase's schedule
 # (and the smoke engine's) has the targeted slots live
@@ -348,7 +398,16 @@ POOL_CRASH = dict(kind="replica_crash", tick=10, replica=0)
 POOL_HANG = dict(kind="replica_hang", tick=10, replica=1, duration_s=2.5)
 
 
+_LAST_LINE = [time.perf_counter()]  # when the previous line was printed
+
+
 def emit(obj) -> None:
+    """Print one JSON line. A phase's line gains ``phase_wall_s``: the wall
+    seconds since the previous line, which is what that phase took."""
+    now = time.perf_counter()
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "phase_wall_s": now - _LAST_LINE[0]}
+    _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -552,7 +611,8 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     report["norm_quant_shapes"] = nq_rows
 
     # --- ternary projections: GEMV (decode) and tiled matmul (prefill) ----
-    def projection_row(name, fn, ref_fn, m, n, k, residual: bool, replaces, shape_tag):
+    def projection_row(name, fn, ref_fn, m, n, k, residual: bool, replaces, shape_tag,
+                       plain_iters: int = 100):
         wp = packed(n, k)
         ws = torch.tensor(0.02, device=dev)
         x, xs = int8(m, n), randn(m, 1).abs() * 1e-3 + 1e-4
@@ -579,7 +639,8 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
                "max_abs_err": err,
                "ms": time_ms(torch, lambda *a: fn(*a, **kw), sets),
                "eager_ms": eager_ms(torch, lambda *a: fn(*a, **kw), sets),
-               "plain_ms": time_ms(torch, lambda *a: ref_fn(*a, **kw), sets),
+               "plain_ms": time_ms(torch, lambda *a: ref_fn(*a, **kw), sets,
+                                   iters=plain_iters),
                "bound_ms": bms, "bound_by": bby,
                "library_ms": time_ms(torch, torch.matmul, lib_sets)}
         row["over_library"] = row["ms"] / row["library_ms"]
@@ -727,6 +788,8 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     wkv = wkv_rows(torch, checks)
     rows += [r for r in wkv if r["shape_tag"] == "generate"]
     report["wkv_shapes"] = wkv
+    report["gemma2_kernel_shapes"] = gemma2_kernel_rows(torch, randn, int8, packed, quant_close,
+                                                        projection_row, checks)
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
     return rows
@@ -1807,7 +1870,7 @@ def layer_drift(torch, params, cfg, tokens) -> list[dict]:
     x_p = x_k.clone()
     pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     rope = Tr.rope_for(cfg, pos)
-    kind = Tr.ATTN_DENSE
+    kind = Tr.LayerKind("attn", "dense")
     out = []
     with torch.inference_mode():
         for li in range(cfg.n_layers):
@@ -1929,10 +1992,11 @@ def generate_phase(torch, cfg, params, steps: int, report: dict):
     prompts = generate_prompts(torch, cfg)
     b, s = prompts.shape
     res_k, counts, times_k = generate_run(torch, cfg, params, prompts, steps, K.KERNELS)
-    res_p, _, times_p = generate_run(torch, cfg, params, prompts, steps, K.PLAIN)
+    res_p, _, times_p = generate_run(torch, cfg, params, prompts, PLAIN_STEPS, K.PLAIN)
     toks_k, toks_p = res_k.tokens, res_p.tokens
     if tuple(toks_k.shape) != (b, steps) or not torch.isfinite(res_k.prefill_logits).all():
         fail("generate: wrong token shape or non-finite logits")
+    toks_k = toks_k[:, :PLAIN_STEPS]  # compared over the plain run's steps
     diff = (toks_k != toks_p).any(dim=0).nonzero()
     first_div = int(diff[0].item()) if len(diff) else None
     lk, lp = res_k.prefill_logits.float(), res_p.prefill_logits.float()
@@ -1964,7 +2028,7 @@ def generate_phase(torch, cfg, params, steps: int, report: dict):
     out = {"phase": "generate", "model": cfg.name, "batch": b, "prompt": s,
            "bucket": E.bucket_length(s, cfg.prefill_chunk_sizes), "steps": steps,
            "kernels": times_k, "plain": times_p,
-           "launch_counts": counts,
+           "launch_counts": counts, "compared_steps": PLAIN_STEPS,
            "first_tokens_equal": bool(torch.equal(toks_k[:, 0], toks_p[:, 0])),
            "first_divergence_step": first_div,
            "stream_agreement": (toks_k == toks_p).float().mean().item(),
@@ -1990,7 +2054,7 @@ def generate_phase(torch, cfg, params, steps: int, report: dict):
     tl = {n: counts[n] for n in TL_PATH + ("tl_gemv",) if counts[n]}
     if tl:
         fail(f"generate: the default engine launched TL kernels: {tl}")
-    return counts, toks_k
+    return counts, res_k.tokens
 
 
 # ---------------------------------------------------------------------------
@@ -2058,8 +2122,8 @@ def _engine_prompts(cfg):
 
 def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
                prefill: str = "auto", slots: int = ENGINE_SLOTS, speculative: bool = False,
-               max_new: int = ENGINE_NEW, engine_kw: dict | None = None
-               ) -> tuple[dict, list, object]:
+               max_new: int = ENGINE_NEW, engine_kw: dict | None = None,
+               max_len: int = ENGINE_MAX_LEN) -> tuple[dict, list, object]:
     """Serve ``prompts`` to the end; returns (measurements, requests, the
     engine). With ``first_alone`` the first request is served to its end
     before the others are submitted. The launch counters are reset just
@@ -2075,7 +2139,7 @@ def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
     from repro_torch.serving import engine as E
 
     plan = (engine_kw or {}).get("fault_plan")
-    eng = E.ServingEngine(params, cfg, slots=slots, max_len=ENGINE_MAX_LEN,
+    eng = E.ServingEngine(params, cfg, slots=slots, max_len=max_len,
                           kernels=kset, eos_id=-1, prefill=prefill, speculative=speculative,
                           **(engine_kw or {}))
     contained = []
@@ -2153,8 +2217,9 @@ def engine_run(torch, cfg, params, kset, prompts, first_alone: bool = False,
 
 def engine_phase(torch, cfg, params, report: dict) -> tuple[dict, dict]:
     """The full-width ServingEngine for each cache dtype, through the kernels
-    and through the plain versions; returns the kernels' launch counts of
-    each run and their streams, by cache dtype."""
+    and through the plain versions (ENGINE_PLAIN_NEW tokens a request, the
+    streams' agreement counted over them); returns the kernels' launch
+    counts of each run and their streams, by cache dtype."""
     import dataclasses
 
     from repro_torch import kernels as K
@@ -2169,8 +2234,9 @@ def engine_phase(torch, cfg, params, report: dict) -> tuple[dict, dict]:
             c = dataclasses.replace(cfg, kv_cache_dtype=kv)
             got, reqs, _ = engine_run(torch, c, params, K.KERNELS, prompts)
             streams_by_kv[kv] = [r.generated for r in reqs]
-            plain, preqs, _ = engine_run(torch, c, params, K.PLAIN, prompts)
-            agree = [sum(a == b for a, b in zip(r.generated, p.generated)) / ENGINE_NEW
+            plain, preqs, _ = engine_run(torch, c, params, K.PLAIN, prompts,
+                                         max_new=ENGINE_PLAIN_NEW)
+            agree = [sum(a == b for a, b in zip(r.generated, p.generated)) / ENGINE_PLAIN_NEW
                      for r, p in zip(reqs, preqs)]
             got["plain"] = {k: plain[k] for k in ("wall_s", "tokens_per_s",
                                                    "fused_tick_ms_mean", "decode_tick_ms_mean")}
@@ -3805,8 +3871,9 @@ def _drift_problems(drift) -> list[str]:
 
 def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
     """Full-width rwkv6-3b generate, B = 4, a 100-token prompt (the exact
-    length, no bucket), 64 greedy steps, through the kernels (counters
-    reset just before, read just after) and through the plain versions:
+    length, no bucket), 64 greedy steps through the kernels (counters
+    reset just before, read just after) and PLAIN_STEPS through the plain
+    versions (the streams compared over those):
     32 wkv launches (one prefill), no attention and no norm-quant launch.
     The prefill is held block by block (``rwkv_drift``): each block's
     kernels against its plain version on the same input, and the
@@ -3829,8 +3896,11 @@ def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
     prompts = generate_prompts(torch, cfg)
     b, s = prompts.shape
     res_k, counts, times_k = generate_run(torch, cfg, params, prompts, STEPS, K.KERNELS)
-    res_p, _, times_p = generate_run(torch, cfg, params, prompts, STEPS, K.PLAIN)
+    res_p, _, times_p = generate_run(torch, cfg, params, prompts, PLAIN_STEPS, K.PLAIN)
     toks_k, toks_p = res_k.tokens, res_p.tokens
+    if tuple(toks_k.shape) != (b, STEPS):
+        fail("rwkv_generate: wrong token shape")
+    toks_k = toks_k[:, :PLAIN_STEPS]  # compared over the plain run's steps
     lk, lp = res_k.prefill_logits.float(), res_p.prefill_logits.float()
     scale = lp.abs().max().item()
     first_gap = (lp.max(-1).values - lp.gather(1, lk.argmax(-1, keepdim=True))[:, 0]).max()
@@ -3852,7 +3922,7 @@ def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
     weight_bytes = rwkv_weight_bytes(params)
     decode_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     out = {"phase": "rwkv_generate", "model": cfg.name, "batch": b, "prompt": s,
-           "steps": STEPS, "kernels": times_k, "plain": times_p,
+           "steps": STEPS, "compared_steps": PLAIN_STEPS, "kernels": times_k, "plain": times_p,
            "launch_counts": {n: c for n, c in counts.items() if c},
            "first_tokens_equal": bool(torch.equal(toks_k[:, 0], toks_p[:, 0])),
            "first_token_plain_gap_rel": first_gap.item() / scale,
@@ -3867,8 +3937,8 @@ def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
     report["rwkv_generate"] = out
     emit(out)
     problems = _rwkv_count_problems(counts, cfg.n_layers) + _drift_problems(out["prefill_drift"])
-    if tuple(toks_k.shape) != (b, STEPS) or not torch.isfinite(lk).all():
-        problems.append("wrong token shape or non-finite logits")
+    if not torch.isfinite(lk).all():
+        problems.append("non-finite logits")
     for i, c in enumerate(step_checks):
         if c["logit_max_abs_err"] > LOGIT_REL_TOL * c["logit_max_abs"]:
             problems.append(f"decode step {i} logits differ by {c['logit_max_abs_err']}")
@@ -3879,7 +3949,8 @@ def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
 
 def rwkv_prefill_phase(torch, cfg, params, report: dict) -> None:
     """prefill_bucketed (the exact length) at 1 x 1000 and 1 x 4000 tokens
-    through the kernels and the plain versions: ms per prefill, the peak
+    through the kernels (after a warm-up) and the plain versions (cold):
+    ms per prefill, the peak
     memory it adds, 32 wkv launches a prefill (counters reset just before
     the timed prefill, read just after); the blocks and the last-token
     logits held from the same inputs (``rwkv_drift``), the end-to-end
@@ -3896,7 +3967,8 @@ def rwkv_prefill_phase(torch, cfg, params, report: dict) -> None:
             run = {"batch": b, "prompt": s}
             logits = {}
             for name, kset in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
-                E.prefill_bucketed(params, cfg, prompts, kernels=kset)  # warm-up
+                if kset is K.KERNELS:  # the plain versions' 3 s prefill runs cold
+                    E.prefill_bucketed(params, cfg, prompts, kernels=kset)  # warm-up
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 resident = torch.cuda.memory_allocated()
@@ -3942,8 +4014,9 @@ def rwkv_engine_phase(torch, cfg, params, report: dict) -> None:
     state bit-equal to ``prefill_bucketed`` of that prompt alone and the
     other slots untouched, each tick's logits and the new state of all
     eight slots bit-equal to ``decode_step`` from a copy of the states
-    taken just before it. Each stream is set beside the port's own
-    generate of that prompt alone (B = 1), a parting reported with the gap
+    taken just before it. The first ALONE_REQUESTS streams are set beside
+    the port's own generate of that prompt alone (B = 1), a parting
+    reported with the gap
     of its two tokens in the engine's own logits of that step: the engine
     decodes 8 slots a step where generate decodes one, and the plain torch
     ops of the RWKV step (the norms' reductions, the decay LoRA and r.S
@@ -3966,10 +4039,12 @@ def rwkv_engine_phase(torch, cfg, params, report: dict) -> None:
         checked["streams_equal_to_timed_run"] = sum(
             r.generated == x for r, x in zip(reqs, streams))
         alone = [E.generate(params, cfg, torch.as_tensor(p, device="cuda")[None],
-                            steps=ENGINE_NEW).tokens[0].tolist() for p in prompts]
+                            steps=ENGINE_NEW).tokens[0].tolist()
+                 for p in prompts[:ALONE_REQUESTS]]
         parted = [i for i, (a, w) in enumerate(zip(streams, alone)) if a != w]
         got["checked"] = checked
-        got["streams_equal_to_generate"] = ENGINE_REQUESTS - len(parted)
+        got["streams_compared_to_generate"] = len(alone)
+        got["streams_equal_to_generate"] = len(alone) - len(parted)
         got["partings"] = [_engine_parting(step_logits, i, streams[i], alone[i])
                            for i in parted]
         one, one_reqs, _ = engine_run(torch, cfg, params, K.KERNELS,
@@ -4274,7 +4349,7 @@ MOE_SMOKE_ARCHS = (DEEPSEEK, "arctic-480b")
 # against JAX (tests/test_torch_families.py), an ulp can move one int8 code
 MOE_SMOKE_LOGIT_TOL = 2e-2
 DEEPSEEK_STEPS = 32
-DEEPSEEK_PLAIN_STEPS = 8  # the plain versions' run (2 s a step), the streams' prefix compared
+DEEPSEEK_PLAIN_STEPS = 4  # the plain versions' run (2 s a step), the streams' prefix compared
 DEEPSEEK_PREFILLS = ((4, 100), (1, 1000))  # (batch, prompt), exact length
 # the kernels the DeepSeek runs launch: the packed projections (GEMV and
 # tiled matmul) and MLA's one-shot attention; its blocks are unfused
@@ -4559,6 +4634,611 @@ def deepseek_engine_phase(torch, cfg, params, report: dict) -> dict:
     return m["launch_counts"]
 
 
+# ---------------------------------------------------------------------------
+# gemma2-27b: local/global layers, the sliding window, the softcaps; and the
+# moe family's chunked, paged and speculative engine (smoke)
+# ---------------------------------------------------------------------------
+
+GEMMA2 = "gemma2-27b"
+GEMMA2_STEPS = 32
+# (batch, prompt): decode before the window acts, and past it (4200 > 4096)
+GEMMA2_GENERATES = ((4, 100), (1, 4200))
+GEMMA2_BLOCK_PREFILL, GEMMA2_BLOCK_DECODE_POS = 4352, 4400
+GEMMA2_MAX_LEN = 6144  # the engine's: cache 6144 + 256 rows a slot, 376,832 bytes a row
+GEMMA2_LONG = (4, (4200, 5000))  # long prompts (count, length range) beside 12 ragged ones
+GEMMA2_SHORT = 12
+# the chunked engine of the smoke configs: chunks of 32 and 64, pages of 32
+# (the paged prefill-append kernel takes pages of a multiple of 32 rows)
+SMOKE_ENGINE_FIELDS = dict(prefill_chunk_sizes=(32, 64), kv_page_size=32)
+GEMMA2_SMOKE_PROMPTS = ((20, 12), (45, 8), (60, 10), (33, 1), (25, 12))  # (length, max_new)
+# the kernels the gemma2 runs launch (bf16 cache, packed engine)
+GEMMA2_PATH = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
+               "decode_attention", "flash_attention")
+
+
+def _window_mask(qpos, kpos, window: int):
+    """Keys a query may see: causal, and within ``window`` when it is > 0."""
+    mask = kpos <= qpos
+    return mask & (qpos - kpos < window) if window > 0 else mask
+
+
+def _flash_live_pairs(b, h, s, window: int) -> int:
+    """(query, key) pairs a causal attention with ``window`` computes."""
+    if window <= 0 or window >= s:
+        return b * h * s * (s + 1) // 2
+    return b * h * (window * (window + 1) // 2 + (s - window) * window)
+
+
+def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
+                       checks) -> list[dict]:
+    """Rows 1, 3-6, 10 and 17 at gemma2-27b's shapes (d 4608, d_ff 36864,
+    32 heads on 16 kv heads of 128, window 4096, softcaps 50): norm-quant
+    (the loop form past 4096 elements), the GEMV and the tiled matmul
+    (q and down + residual), the SwiGLU at M = 4 and 512; decode attention
+    at the engine's 8 slots against 6400 rows with frontiers on both sides
+    of 4096; prefill-append at the engine's tick (8 slots, C = 256, live
+    slots whose chunks cross the window foot, four write-only); flash
+    attention at 1 x 4352 and 4 x 128, each with and without the window and
+    the softcap. Each held against its plain version at the bars of its
+    kernel's rows above and timed beside its bound, the plain version and
+    the library call (SDPA with a boolean mask for a window; it has no
+    softcap)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.fused_norm_quant import ops as nq_ops
+    from repro_torch.kernels.fused_norm_quant import ref as nq_ref
+    from repro_torch.kernels.prefill_append import ops as pa_ops
+    from repro_torch.kernels.prefill_append import ref as pa_ref
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.ternary_matmul import ref as tm_ref
+
+    cfg = get_config(GEMMA2)
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, ff, h, hk, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w, cap = cfg.sliding_window, cfg.attn_logit_softcap
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+
+    def tagged(row, tag):
+        return {**row, "shape_tag": f"gemma2 {tag}"}
+
+    # --- rows 1, 3-5 ---------------------------------------------------------
+    for tag, m in (("decode", 4), ("prefill", 512)):
+        gamma, x = randn(d), randn(m, d, dtype=bf16)
+        err = quant_close(f"norm_quant[gemma2 {tag}]", nq_ops.norm_quant(x, gamma),
+                          nq_ref.norm_quant(x, gamma))
+        checks.append({"kernel": "norm_quant", "shape": f"gemma2 {tag}", "max_abs_err": err})
+        args = [(x, gamma)]
+        bms, bby = bound_ms(_nbytes(x, gamma) + x.numel() + m * 4, 5 * x.numel(), "f32")
+        rows.append({"name": "norm_quant", "route": "cuda", "shape_tag": f"gemma2 {tag}",
+                     "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
+                     "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:74",
+                     "shape": f"x[{m},{d}] bf16 (loop form)", "max_abs_err": err,
+                     "ms": time_ms(torch, nq_ops.norm_quant, args),
+                     "eager_ms": eager_ms(torch, nq_ops.norm_quant, args),
+                     "plain_ms": time_ms(torch, nq_ref.norm_quant, args),
+                     "bound_ms": bms, "bound_by": bby, "library_ms": None})
+    for name, fn, ref_fn, m, line in (
+            ("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv, 4, 109),
+            ("ternary_matmul", tm_ops.ternary_matmul, tm_ref.ternary_matmul, 512, 147)):
+        phase = "decode" if m == 4 else "prefill"
+        rows.append(tagged(projection_row(name, fn, ref_fn, m, d, h * hd, False,
+                                          f"src/repro/kernels/ternary_matmul/kernel.py:{line}",
+                                          "q", plain_iters=5), f"{phase} q"))
+        rows.append(tagged(projection_row(name, fn, ref_fn, m, ff, d, True,
+                                          f"src/repro/kernels/ternary_matmul/kernel.py:{line}",
+                                          "down+res", plain_iters=3), f"{phase} down+res"))
+    wg, wu = packed(d, ff), packed(d, ff)
+    sg, su = torch.tensor(0.03, device=dev), torch.tensor(0.025, device=dev)
+    for tag, m in (("decode", 4), ("prefill", 512)):
+        x, xs = int8(m, d), randn(m, 1).abs() * 1e-3 + 1e-4
+        err = quant_close(f"ternary_swiglu[gemma2 {tag}]",
+                          tm_ops.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=bf16),
+                          tm_ref.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=bf16))
+        checks.append({"kernel": "ternary_swiglu", "shape": f"gemma2 {tag}",
+                       "max_abs_err": err})
+        sets = [(x, xs, wg, sg, wu, su)]
+        kw = {"act_dtype": bf16}
+        bms, bby = bound_ms(_nbytes(x, xs, wg, wu, sg, su) + m * ff + m * 4, 4 * m * d * ff,
+                            "int8")
+        rows.append({"name": "ternary_swiglu", "route": "cuda", "shape_tag": f"gemma2 {tag}",
+                     "source": "src/repro_torch/kernels/ternary_matmul/csrc/ternary_swiglu.cu",
+                     "replaces": "src/repro/kernels/ternary_matmul/kernel.py:177",
+                     "shape": f"x[{m},{d}] x 2 wp[{d // 4},{ff}]", "max_abs_err": err,
+                     "ms": time_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw), sets,
+                                   iters=20),
+                     "eager_ms": eager_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw),
+                                          sets, iters=50),
+                     "plain_ms": time_ms(torch, lambda *a: tm_ref.ternary_swiglu(*a, **kw),
+                                         sets, iters=3),
+                     "bound_ms": bms, "bound_by": bby, "library_ms": None})
+
+    # --- row 6: decode attention, window and softcap --------------------------
+    b, m = ENGINE_SLOTS, GEMMA2_MAX_LEN + CHUNK_ROWS
+    pos = torch.tensor([100, w - 1, w, w + 1, 5000, m - 1, m - 1, 4300], dtype=torch.int32,
+                       device=dev)
+    q = randn(b, h, hd, dtype=bf16)
+    k, v = randn(b, hk, m, hd, dtype=bf16), randn(b, hk, m, hd, dtype=bf16)
+    kw = {"window": w, "softcap": cap}
+    for dtype, tol in ((bf16, ATTN_TOL_BF16), (f32, ATTN_TOL_F32)):
+        args = (q.to(dtype), k.to(dtype), v.to(dtype), pos)
+        got = da_ops.decode_attention(*args, **kw).float()
+        want = da_ref.decode_attention(*args, **kw).float()
+        err = (got - want).abs().max().item()
+        checks.append({"kernel": "decode_attention", "shape": f"gemma2 engine {dtype}",
+                       "max_abs_err": err, "tol": tol})
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            fail(f"decode_attention[gemma2, {dtype}]: max |kernel - plain| = {err}, bar {tol}")
+        if dtype is bf16:
+            dec_err = err
+    rows_read = (torch.clamp(pos.to(torch.int64) + 1, max=w)).sum().item() * hk
+    bms, bby = bound_ms(2 * _nbytes(q) + _nbytes(pos) + rows_read * 2 * hd * 2,
+                        4 * rows_read * (h // hk) * hd, "bf16")
+    kpos = torch.arange(m, device=dev)[None, :]
+    mask = _window_mask(pos[:, None].to(torch.int64), kpos, w)[:, None, None]
+    kr, vr = k.repeat_interleave(h // hk, dim=1), v.repeat_interleave(h // hk, dim=1)
+    sets = [(q, k, v, pos)]
+    row = {"name": "decode_attention", "route": "cuda", "shape_tag": "gemma2 engine",
+           "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention/kernel.py:305",
+           "shape": f"q[{b},{h},{hd}] cache[{b},{hk},{m},{hd}] bf16, pos {pos.tolist()}, "
+                    f"window {w}, softcap {cap}",
+           "max_abs_err": dec_err,
+           "ms": time_ms(torch, lambda *a: da_ops.decode_attention(*a, **kw), sets),
+           "eager_ms": eager_ms(torch, lambda *a: da_ops.decode_attention(*a, **kw), sets),
+           "plain_ms": time_ms(torch, lambda *a: da_ref.decode_attention(*a, **kw), sets,
+                               iters=5),
+           "bound_ms": bms, "bound_by": bby,
+           "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a),
+                                 [(q[:, :, None], kr, vr, mask)]),
+           "library_note": "SDPA with the window's boolean mask, k/v repeated to H heads, "
+                           "no softcap"}
+    row["over_library"] = row["ms"] / row["library_ms"]
+    rows.append(row)
+    del k, v, kr, vr
+
+    # --- row 10: prefill-append at the engine's tick, window and softcap -----
+    c, limit = CHUNK_ROWS, GEMMA2_MAX_LEN
+    offs = [0, 3840, 4096, 4608] + [limit] * 4
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    q = randn(b, h, c, hd)
+    kn, vn = randn(b, hk, c, hd), randn(b, hk, c, hd) * 0.25
+    kc, vc = randn(b, hk, m, hd), randn(b, hk, m, hd) * 0.25
+    kw = {"window": w, "softcap": cap, "prefix_limit": limit}
+    for dtype, tol in ((bf16, ATTN_TOL_BF16), (f32, ATTN_TOL_F32)):
+        cast = [t.to(dtype) for t in (q, kn, vn)]
+        mine, plain = [kc.to(dtype), vc.to(dtype)], [kc.to(dtype), vc.to(dtype)]
+        got = pa_ops.prefill_append(*cast, *mine, off, **kw).float()
+        want = pa_ref.prefill_append(*cast, *plain, off, **kw).float()
+        err = (got - want).abs().max().item()
+        same = all(torch.equal(a, p) for a, p in zip(mine, plain))
+        checks.append({"kernel": "prefill_append", "shape": f"gemma2 tick {dtype}",
+                       "max_abs_err": err, "tol": tol, "cache_equal": same})
+        if not (torch.allclose(got, want, atol=tol, rtol=tol) and same):
+            fail(f"prefill_append[gemma2, {dtype}]: max |kernel - plain| = {err}, bar {tol}, "
+                 f"cache equal {same}")
+        if dtype is bf16:
+            pa_err = err
+        del mine, plain
+    live = [i for i, o in enumerate(offs) if o < limit]
+    qpos = off[live, None].to(torch.int64) + torch.arange(c, device=dev)[None, :]
+    pairs = int(torch.clamp(qpos + 1, max=w).sum().item()) * h
+    prefix_rows = sum(min(offs[i], w - 1) for i in live) * hk
+    qb, knb, vnb, kcb, vcb = (t.to(bf16) for t in (q, kn, vn, kc, vc))
+    del kc, vc
+    nb = (_nbytes(qb) * len(live) // b + _nbytes(qb) + 2 * _nbytes(knb)
+          + prefix_rows * 2 * hd * 2 + b * c * hk * 2 * hd * 2 + _nbytes(off))
+    bms, bby = bound_ms(nb, 4 * hd * pairs, "bf16")
+    end = max(offs[i] for i in live) + c
+    kd, vd = kcb.clone(), vcb.clone()
+    for i, o in enumerate(offs):
+        kd[i, :, o:o + c], vd[i, :, o:o + c] = knb[i], vnb[i]
+    mask = _window_mask(qpos[:, :, None], torch.arange(end, device=dev)[None, None], w)
+    lib = [(qb[live].contiguous(), kd[live, :, :end].repeat_interleave(h // hk, dim=1),
+            vd[live, :, :end].repeat_interleave(h // hk, dim=1), mask[:, None])]
+    del kd, vd
+    sets = [(qb, knb, vnb, kcb, vcb)]
+    row = {"name": "prefill_append", "route": "cuda", "shape_tag": "gemma2 tick",
+           "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append.cu",
+           "replaces": "src/repro/kernels/prefill_append/kernel.py:532",
+           "shape": f"q[{b},{h},{c},{hd}] offsets {offs} prefix_limit {limit} cache "
+                    f"[{b},{hk},{m},{hd}] bf16, window {w}, softcap {cap}",
+           "max_abs_err": pa_err,
+           "ms": time_ms(torch, lambda *a: pa_ops.prefill_append(*a, off, **kw), sets,
+                         iters=20),
+           "eager_ms": eager_ms(torch, lambda *a: pa_ops.prefill_append(*a, off, **kw), sets,
+                                iters=20),
+           "plain_ms": time_ms(torch, lambda *a: pa_ref.prefill_append(*a, off, **kw), sets,
+                               iters=2),
+           "bound_ms": bms, "bound_by": bby,
+           "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib, iters=20),
+           "library_note": "SDPA of the live slots with the offset-causal window mask over "
+                           "their cache rows up to the chunk's end, k/v repeated to H heads, "
+                           "no softcap; the append not timed"}
+    row["over_library"] = row["ms"] / row["library_ms"]
+    rows.append(row)
+    del sets, lib, kcb, vcb
+
+    # --- row 17: flash attention, with and without the window and softcap ----
+    for tag, (fb, s) in (("1x4352", (1, GEMMA2_BLOCK_PREFILL)), ("4x128", (4, 128))):
+        q = randn(fb, h, s, hd, dtype=bf16)
+        k, v = randn(fb, hk, s, hd, dtype=bf16), randn(fb, hk, s, hd, dtype=bf16)
+        kl, vl = k.repeat_interleave(h // hk, dim=1), v.repeat_interleave(h // hk, dim=1)
+        for local in (True, False):
+            kw = {"window": w, "softcap": cap} if local else {}
+            got = fa_ops.flash_attention(q, k, v, **kw)
+            want = fa_ref.flash_attention(q, k, v, **kw).float()
+            rms_row = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+            scaled = ((got.float() - want).abs()
+                      / (want.abs() + rms_row).clamp_min(1e-30)).max().item()
+            dense_same = bool(torch.equal(fa_ops.flash_attention(q, k, v, causal_skip=False,
+                                                                 **kw), got))
+            err = (got.float() - want).abs().max().item()
+            kind = "local" if local else "plain"
+            checks.append({"kernel": "flash_attention", "shape": f"gemma2 {tag} {kind}",
+                           "max_err_over_abs_plus_row_rms": scaled,
+                           "tol_of_abs_plus_row_rms": FLASH_TOL_BF16,
+                           "dense_schedule_equal": dense_same})
+            if scaled > FLASH_TOL_BF16 or not dense_same:
+                fail(f"flash_attention[gemma2 {tag} {kind}]: {checks[-1]}")
+            del want, rms_row
+            pairs = _flash_live_pairs(fb, h, s, w if local else 0)
+            bms, bby = bound_ms(_nbytes(q, k, v) + _nbytes(q), 2 * (hd + hd) * pairs, "bf16")
+            iters = 100 if s <= 256 else 20
+            if local and w < s:
+                idx = torch.arange(s, device=dev)
+                mask = _window_mask(idx[:, None], idx[None, :], w)
+                lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, attn_mask=mask),
+                                 [(q, kl, vl)], iters=iters)
+                note = "SDPA with the window's boolean mask, k/v repeated to H heads, no softcap"
+            else:
+                lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, is_causal=True),
+                                 [(q, kl, vl)], iters=iters)
+                note = "SDPA, is_causal=True, k/v repeated to H heads" + (
+                    ", no softcap" if local else "")
+            sets = [(q, k, v)]
+            row = {"name": "flash_attention", "route": "cuda",
+                   "shape_tag": f"gemma2 {tag}" + (" window+softcap" if local else ""),
+                   "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+                   "shape": f"q[{fb},{h},{s},{hd}] k/v[{fb},{hk},{s},{hd}] bf16"
+                            + (f", window {w}, softcap {cap}" if local else ""),
+                   "max_err_over_abs_plus_row_rms": scaled, "max_abs_err": err,
+                   "ms": time_ms(torch, lambda *a: fa_ops.flash_attention(*a, **kw), sets,
+                                 iters=iters),
+                   "eager_ms": eager_ms(torch, lambda *a: fa_ops.flash_attention(*a, **kw),
+                                        sets, iters=2 * iters),
+                   "plain_ms": time_ms(torch, lambda *a: fa_ref.flash_attention(*a, **kw),
+                                       sets, iters=2 if s > 256 else 5),
+                   "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
+                   "library_note": note, "live_pairs": pairs}
+            row["over_library"] = row["ms"] / lib_ms
+            rows.append(row)
+        del q, k, v, kl, vl
+    return rows
+
+
+def _smoke_engine(torch, cfg, params, kset, device, prompts, speculative: bool):
+    """Serve the smoke engine's prompts to the end: ([(tokens, status)],
+    stats, launch counts of the run)."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    eng = E.ServingEngine(params, cfg, slots=2, max_len=96, kernels=kset, device=device,
+                          prefill="chunked", speculative=speculative)
+    reqs = [E.Request(rid=i, prompt=p, max_new=n) for i, (p, n) in enumerate(prompts)]
+    K.reset_launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return [(r.generated, r.status.name) for r in reqs], eng.stats(), K.launch_counts()
+
+
+def gemma2_smoke_phase(torch, report: dict) -> None:
+    """gemma2-27b's smoke config (window 16, softcaps 50 and 30) in f32, on
+    the card (kernels) against the same weights on the CPU (plain
+    versions), on prompts longer than the window: forward logits within
+    SMOKE_LOGIT_TOL, generate (B = 3, 40-token prompts, 12 steps) equal
+    streams; the chunked engine (SMOKE_ENGINE_FIELDS, two slots,
+    GEMMA2_SMOKE_PROMPTS) on the contiguous bf16 and int8 caches, the paged
+    layout and with speculative decoding: equal streams and statuses, one
+    host transfer a tick, the path's attention kernels launched. Then
+    Arctic's smoke config through the chunked engine (contiguous, paged,
+    speculative): equal statuses, one transfer a tick, the chunk attention
+    kernel launched under expert routing, each stream equal to the CPU's or
+    parting at a near-tie, as moe_smoke holds the legacy engine."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    out = {"phase": "gemma2_smoke"}
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(0, 256, n), m) for n, m in GEMMA2_SMOKE_PROMPTS]
+    for arch in (GEMMA2, "arctic-480b"):
+        base = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32,
+                                   **SMOKE_ENGINE_FIELDS)
+        cpu_params = PR.init_packed_params(Tr.param_specs(base), 0, "cpu",
+                                           dense_leaves=Tr.DENSE_LEAVES)
+        cuda_params = _to_cuda(cpu_params)
+        res = {}
+        if arch == GEMMA2:
+            toks = torch.randint(0, base.vocab_size, (3, 40),
+                                 generator=torch.Generator().manual_seed(7))
+            with torch.inference_mode():
+                lk, _ = Tr.forward(cuda_params, toks.to("cuda"), base, kernels=K.KERNELS)
+                lp, _ = Tr.forward(cpu_params, toks, base, kernels=K.PLAIN)
+            err = (lk.cpu() - lp).abs().max().item()
+            on_card = E.generate(cuda_params, base, toks, steps=12, kernels=K.KERNELS)
+            on_cpu = E.generate(cpu_params, base, toks, steps=12, kernels=K.PLAIN, device="cpu")
+            res["forward_logit_max_abs_err"] = err
+            res["generate_streams_equal"] = bool(torch.equal(on_card.tokens, on_cpu.tokens))
+            if err > SMOKE_LOGIT_TOL or not res["generate_streams_equal"]:
+                emit(out | {arch: res})
+                fail(f"gemma2_smoke: forward err {err}, generate streams equal "
+                     f"{res['generate_streams_equal']}")
+            runs = (("bf16", "contiguous", False), ("int8", "contiguous", False),
+                    ("bf16", "paged", False), ("bf16", "contiguous", True))
+        else:
+            runs = (("bf16", "contiguous", False), ("bf16", "paged", False),
+                    ("bf16", "contiguous", True))
+        for kv, layout, spec in runs:
+            cfg = dataclasses.replace(base, kv_cache_dtype=kv, kv_layout=layout)
+            got, st, counts = _smoke_engine(torch, cfg, cuda_params, K.KERNELS, None, prompts,
+                                            spec)
+            want, _, _ = _smoke_engine(torch, cfg, cpu_params, K.PLAIN, "cpu", prompts, spec)
+            sfx = ("_paged" if layout == "paged" else "") + ("_quant" if kv == "int8" else "")
+            chunk_kernel = "prefill_append" + sfx
+            partings = {}
+            if arch != GEMMA2:
+                partings = {i: _decode_parting(torch, cfg, cuda_params, cpu_params,
+                                               prompts[i][0], g[0], w[0])
+                            for i, (g, w) in enumerate(zip(got, want)) if g[0] != w[0]}
+            run = {"streams_equal": got == want, "partings": partings,
+                   "statuses": [x[1] for x in got], "ticks": st["ticks"],
+                   "host_transfers": st["host_transfers"], "spec_ticks": st["spec_ticks"],
+                   chunk_kernel: counts[chunk_kernel],
+                   "decode_attention" + sfx: counts["decode_attention" + sfx]}
+            res[f"{kv} {layout}" + (" speculative" if spec else "")] = run
+            near_ties = all(p["plain_gap"] <= p["kernel_vs_plain"]
+                            <= MOE_SMOKE_LOGIT_TOL * p["max_abs_logit"]
+                            for p in partings.values())
+            ok = (got == want if arch == GEMMA2 else near_ties)
+            if not (ok and [x[1] for x in got] == [x[1] for x in want]
+                    and all(x[1] == "OK" for x in got) and counts[chunk_kernel] > 0
+                    and st["host_transfers"] == st["ticks"]
+                    and (st["spec_ticks"] > 0) == spec):
+                emit(out | {arch: res})
+                fail(f"gemma2_smoke[{arch}, {kv} {layout} speculative={spec}]: {run}")
+        out[arch] = res
+    report["gemma2_smoke"] = out
+    emit(out)
+
+
+def gemma2_params(torch, cfg, report: dict):
+    """Full-width gemma2-27b weights, random from seed 0, packed leaf by leaf
+    on the card: seconds, bytes resident, and the peak the leaf-by-leaf
+    init reached beyond what was resident before it (the largest f32
+    latent, blocks/b0/ffn/gate [23, 4608, 36864], is 15.6 GB)."""
+    from repro_torch.models import transformer as Tr
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = full_params(torch, cfg)
+    secs = time.perf_counter() - t
+    nbytes = sum(x.numel() * x.element_size() for _, x in Tr.tree_leaves(params))
+    report["gemma2_init"] = {"init_and_pack_s": secs, "param_bytes": nbytes,
+                             "memory_allocated": torch.cuda.memory_allocated(),
+                             "peak_bytes_beyond_resident":
+                                 torch.cuda.max_memory_allocated() - before,
+                             "layers": cfg.n_layers, "d_model": cfg.d_model,
+                             "vocab": cfg.vocab_size}
+    emit({"phase": "gemma2_init", **report["gemma2_init"]})
+    return params
+
+
+def gemma2_blocks_phase(torch, cfg, params, report: dict) -> None:
+    """The first local and the first global block at full width, each
+    through the kernels and through the plain versions on the same input:
+    a 1 x 4352 prefill (the embedding into the local block, its plain output
+    into the global one) and one decode step at position 4400 against the
+    plain prefill's rows padded with zero rows to 4416, where the local
+    block's window masks the rows below 305; output within LOGIT_REL_TOL
+    of max |plain|; the kernels' prefill through the fused branch (two
+    norm-quant launches, one flash-attention launch a block)."""
+    from repro_torch import kernels as K
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as Tr
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    s, p = GEMMA2_BLOCK_PREFILL, GEMMA2_BLOCK_DECODE_POS
+    toks = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen, device="cuda")
+    layers = list(Tr._layers(cfg, params))
+    picked = {"local": layers[0], "global": layers[1]}
+    rope = Tr.rope_for(cfg, torch.arange(s, dtype=torch.int32, device="cuda")[None])
+    dpos = torch.full((1,), p, dtype=torch.int32, device="cuda")
+    drope = Tr.rope_for(cfg, dpos[:, None])
+    rows = []
+    with torch.inference_mode():
+        xin = L.embed(params["embed"], toks[:, :s], dtype=cfg.dtype)
+        din = L.embed(params["embed"], toks[:, s:], dtype=cfg.dtype)
+        for tag, (kind, bp, _) in picked.items():
+            if kind.local != (tag == "local"):
+                fail(f"gemma2_blocks: layer kinds out of order: {kind}")
+            K.reset_launch_counts()
+            yk, _ = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=K.KERNELS)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            yp, prefill_rows = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=K.PLAIN)
+            cache = {n: torch.nn.functional.pad(r, (0, 0, 0, p + 16 - s))
+                     for n, r in prefill_rows.items()}
+            dk, _ = Tr.apply_block(kind, bp, din, cfg, drope, kernels=K.KERNELS, pos=dpos,
+                                   cache={n: c.clone() for n, c in cache.items()})
+            dp, _ = Tr.apply_block(kind, bp, din, cfg, drope, kernels=K.PLAIN, pos=dpos,
+                                   cache={n: c.clone() for n, c in cache.items()})
+            rows.append({
+                "block": tag, "window": cfg.sliding_window if kind.local else 0,
+                "prefill_rel_err": ((yk.float() - yp.float()).abs().max()
+                                    / yp.float().abs().max()).item(),
+                "decode_rel_err": ((dk.float() - dp.float()).abs().max()
+                                   / dp.float().abs().max()).item(),
+                "finite": bool(torch.isfinite(yk).all() and torch.isfinite(dk).all()),
+                "prefill_launches": {n: c for n, c in counts.items() if c}})
+            xin, din = yp, dp
+            del cache, prefill_rows, yk
+    out = {"phase": "gemma2_blocks", "tol": LOGIT_REL_TOL, "prefill": [1, s],
+           "decode_pos": p, "blocks": rows}
+    report["gemma2_blocks"] = out
+    emit(out)
+    bad = [r for r in rows if not (r["finite"] and r["prefill_rel_err"] <= LOGIT_REL_TOL
+                                   and r["decode_rel_err"] <= LOGIT_REL_TOL
+                                   and r["prefill_launches"].get("norm_quant") == 2
+                                   and r["prefill_launches"].get("flash_attention") == 1)]
+    if bad:
+        fail(f"gemma2_blocks: kernels vs plain beyond the bar or off the fused branch: {bad}")
+
+
+def gemma2_generate_phase(torch, cfg, params, report: dict) -> dict:
+    """Full-width generate through the kernels: B = 4 with a 100-token
+    prompt and B = 1 with a 4200-token prompt (decode past the window),
+    GEMMA2_STEPS steps each (counters reset just before, read just after):
+    prefill ms, decode ms a step and tokens/s, the launches of one decode
+    step and of each prefill, the device busy share over three decode steps
+    (torch.profiler); the 4 x 100 prefill's logits within LOGIT_REL_TOL of
+    the plain versions', every logit within the final softcap. Returns the
+    launch counts by run."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    runs, counts_by = [], {}
+    for b, s in GEMMA2_GENERATES:
+        prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+        res, counts, times = generate_run(torch, cfg, params, prompts, GEMMA2_STEPS, K.KERNELS)
+        if (tuple(res.tokens.shape) != (b, GEMMA2_STEPS)
+                or not torch.isfinite(res.prefill_logits).all()
+                or res.prefill_logits.abs().max().item() > cfg.final_logit_softcap):
+            fail(f"gemma2_generate[{b}x{s}]: wrong token shape, or logits not finite or "
+                 "beyond the final softcap")
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            _, caches = E.prefill_bucketed(params, cfg, prompts, kernels=K.KERNELS)
+            torch.cuda.synchronize()
+            prefill_counts = K.launch_counts()
+            caches = E.fit_caches(caches, cfg, s + 8)
+            tok = res.tokens[:, :1].to("cuda").long()
+            pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+            K.reset_launch_counts()
+            Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.KERNELS)
+            torch.cuda.synchronize()
+            step_counts = K.launch_counts()
+        profile = profile_device(
+            torch, lambda: Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.KERNELS),
+            steps=3)
+        run = {"batch": b, "prompt": s, "steps": GEMMA2_STEPS,
+               "bucket": E.bucket_length(s, cfg.prefill_chunk_sizes), **times,
+               "decode_launches_per_step": sum(step_counts.values()),
+               "decode_step_launch_counts": {n: c for n, c in step_counts.items() if c},
+               "prefill_launch_counts": {n: c for n, c in prefill_counts.items() if c},
+               "launch_counts": {n: c for n, c in counts.items() if c},
+               "decode_profile": profile}
+        if (b, s) == GEMMA2_GENERATES[0]:
+            with torch.inference_mode():
+                lp, _ = E.prefill_bucketed(params, cfg, prompts, kernels=K.PLAIN)
+            err = (res.prefill_logits.float() - lp.float()).abs().max().item()
+            run["prefill_logit_max_abs_err"] = err
+            run["prefill_logit_max_abs"] = lp.float().abs().max().item()
+            run["first_tokens_equal_plain"] = bool(torch.equal(
+                res.prefill_logits.argmax(-1), lp.argmax(-1)))
+            if err > LOGIT_REL_TOL * run["prefill_logit_max_abs"]:
+                emit({"phase": "gemma2_generate", "runs": runs + [run]})
+                fail(f"gemma2_generate: prefill logits kernels vs plain differ by {err}")
+        missing = [n for n in GEMMA2_PATH if not counts[n]]
+        if missing:
+            fail(f"gemma2_generate[{b}x{s}]: kernels never launched: {missing}")
+        runs.append(run)
+        counts_by[f"{b}x{s}"] = {"generate": counts, "decode_step": step_counts,
+                                 "prefill": prefill_counts}
+        del caches
+    out = {"phase": "gemma2_generate", "model": cfg.name, "runs": runs}
+    report["gemma2_generate"] = out
+    emit(out)
+    return counts_by
+
+
+def gemma2_engine_phase(torch, cfg, params, report: dict) -> dict:
+    """The full-width chunked ServingEngine, 8 slots, max_len 6144 (a 19.3
+    GB bf16 cache), 12 ragged prompts in ENGINE_PROMPT_RANGE and 4 of
+    4200-5000 tokens, whose chunks cross the window foot, 32 new tokens
+    each, through the kernels: every request OK with its 32 tokens, one
+    host transfer a tick; tokens/s, ms a fused and a decode tick, first
+    token ms. Returns the run's launch counts."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+
+    rng = np.random.default_rng(0)
+    lo, hi = ENGINE_PROMPT_RANGE
+    n_long, (llo, lhi) = GEMMA2_LONG
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, GEMMA2_SHORT)]
+    lengths += [int(n) for n in rng.integers(llo, lhi + 1, n_long)]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    m, reqs, eng = engine_run(torch, cfg, params, K.KERNELS, prompts, max_len=GEMMA2_MAX_LEN)
+    out = {"phase": "gemma2_engine", "prefill": eng.prefill, "prompt_lengths": lengths,
+           **{k: m[k] for k in ("ticks", "fused_ticks", "host_transfers", "statuses",
+                                "wall_s", "tokens", "tokens_per_s", "fused_tick_ms_mean",
+                                "decode_tick_ms_mean", "cache_bytes")},
+           "launch_counts": {n: c for n, c in m["launch_counts"].items() if c},
+           "first_token_ms": m["first_token_ms"]}
+    report["gemma2_engine"] = out
+    emit(out)
+    bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+    missing = [n for n in GEMMA2_PATH + ("prefill_append",)
+               if n != "flash_attention" and not m["launch_counts"][n]]
+    if bad or m["host_transfers"] != m["ticks"] or eng.prefill != "chunked" or missing:
+        fail(f"gemma2_engine: requests not OK with {ENGINE_NEW} tokens: {bad}; "
+             f"{m['host_transfers']} transfers for {m['ticks']} ticks; prefill "
+             f"{eng.prefill}; kernels never launched: {missing}")
+    return m["launch_counts"]
+
+
+def gemma2_rows(report: dict, gen_counts: dict, eng_counts: dict) -> dict:
+    """The gemma2 shapes of rows 1, 3-6, 10 and 17 with the launches of the
+    run that gives each its shape."""
+    small, long = (f"{b}x{s}" for b, s in GEMMA2_GENERATES)
+    runs = {"decode": (gen_counts[small]["decode_step"], "one decode step, B = 4"),
+            "prefill": (gen_counts[small]["prefill"], f"prefill {small} (bucket 128)"),
+            "engine": (eng_counts, "gemma2_engine run"),
+            "tick": (eng_counts, "gemma2_engine run"),
+            "1x4352": (gen_counts[long]["prefill"], f"prefill {long} (bucket 4352)"),
+            "4x128": (gen_counts[small]["prefill"], f"prefill {small} (bucket 128)")}
+    keys = ("name", "shape_tag", "shape", "launches", "launches_run", "max_abs_err", "ms",
+            "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "over_library")
+    rows = []
+    for row in report["gemma2_kernel_shapes"]:
+        tag = row["shape_tag"].split()[1]
+        counts, what = runs[tag]
+        row["launches"], row["launches_run"] = counts.get(row["name"], 0), what
+        if row["name"] == "flash_attention":  # the local layers' half, or the global's
+            row["launches"] //= 2
+            row["launches_run"] += (", local layers" if "window" in row["shape_tag"]
+                                    else ", global layers")
+        rows.append({k: row[k] for k in keys if k in row})
+    return {"phase": "gemma2_rows", "rows": rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
@@ -4576,6 +5256,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
+    _LAST_LINE[0] = time.perf_counter()
     report: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
                     "tf32_matmul": torch.backends.cuda.matmul.allow_tf32}
     smi = nvidia_smi_line()
@@ -4586,6 +5267,8 @@ def main(argv=None) -> int:
     _build.library()
     build = {"phase": "build", "seconds": time.perf_counter() - t0, "library": str(lib_path)}
     report["build_log"] = (lib_path.parent / "build.log").read_text()
+    build["compile_s"] = {name: float(sec) for name, sec in re.findall(
+        r"== (\S+) \(rc \d+, ([\d.]+) s\)", report["build_log"])}  # each source's nvcc
     build["tensor_core_kernels"] = ptxas_usage(report["build_log"])
     build["wkv_kernels"] = ptxas_usage(report["build_log"], _WKV_KERNELS)
     if not build["tensor_core_kernels"] or not build["wkv_kernels"]:
@@ -4677,6 +5360,17 @@ def main(argv=None) -> int:
                         "launches_generate": ds_counts["generate"][name],
                         "launches_engine": ds_counts["engine"][name]})
     emit({"phase": "deepseek_rows", "rows": ds_rows})
+
+    gemma2_smoke_phase(torch, report)
+    g2_cfg = get_config(GEMMA2)
+    g2_params = gemma2_params(torch, g2_cfg, report)
+    gemma2_blocks_phase(torch, g2_cfg, g2_params, report)
+    g2_counts = gemma2_generate_phase(torch, g2_cfg, g2_params, report)
+    g2_engine_counts = gemma2_engine_phase(torch, g2_cfg, g2_params, report)
+    del g2_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(gemma2_rows(report, g2_counts, g2_engine_counts))
     # The GEMV's and the SwiGLU's shapes, each with the launches of the run
     # that gives it that shape: generate (decode rows and its 4 x 128
     # prefill), the chunked engine (bf16 cache; its chunk step has 2048

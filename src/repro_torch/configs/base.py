@@ -3,10 +3,10 @@
 Counterpart of ``repro/configs/base.py``, holding only the fields the
 port's ``generate`` and ``ServingEngine`` paths read (the JAX module imports
 JAX, so the port keeps its own copy). Field names and defaults match the JAX config, so a
-test can hold each shared field against it. Two families are ported: the
-dense transformer and ``ssm`` (RWKV-6). The options of other architectures
-(softcaps, sliding windows, local/global layers, MoE, MLA, hybrids) come
-with the slice that ports a config using them. ``sub_quadratic`` is left
+test can hold each shared field against it. Four families are ported: the
+dense transformer (with gemma2's softcaps, sliding window and local/global
+layers, ``base.py:45-49``), ``moe``, ``mla_moe`` and ``ssm`` (RWKV-6). The
+hybrid family's fields come with the slice that ports it. ``sub_quadratic`` is left
 out: only the JAX package's dry-run reads it. The serving knobs of the
 replica pool and the HTTP/SSE front door (``serving/pool.py``,
 ``serving/server.py``) and :func:`resolve_slo` are JAX's
@@ -48,6 +48,12 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    # gemma2: the attention-logit and final-logit softcaps (0 = none), the
+    # local layers' sliding window and the local/global period (0 = none)
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    sliding_window: int = 0
+    local_global_period: int = 0  # alternate local/global attention every k
     rwkv_head_dim: int = 64  # ssm: the WKV head size n (d_model // n heads)
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
     prefill_chunk_budget: int = 512  # chunk tokens appended per engine tick
@@ -137,7 +143,8 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
-    from . import arctic_480b, deepseek_v2_lite_16b, rwkv6_3b, tellme_0p7b  # noqa: F401
+    from . import (arctic_480b, deepseek_v2_lite_16b, gemma2_27b, rwkv6_3b,  # noqa: F401
+                   tellme_0p7b)
 
     table = _SMOKE if smoke else _REGISTRY
     if name not in table:

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -87,8 +88,8 @@ SIGNATURES = {
     # quant, dtype, stream
     "tm_prefill_append_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _F, _I, _I, _I, _P),
-    # q, k, v, out, b, h, hk, s, dqk, dv, scale, causal_skip, dtype, stream
-    "tm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, out, b, h, hk, s, dqk, dv, scale, window, softcap, causal_skip, dtype, stream
+    "tm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P),
     # r, k, v, logw, u, y, s_out, bh, h, s, n, stride_b, stride_h, stride_s, dtype, stream
     "tm_wkv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
 }
@@ -127,17 +128,26 @@ def _build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
-    objs, procs = [], []
+    objs, procs, outs = [], [], []
+    t0 = time.perf_counter()
     for src in SOURCES:
         obj = out_dir / (src.stem + ".o")
         objs.append(obj)
-        procs.append(subprocess.Popen(
-            [exe, *FLAGS, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs.append(out_dir / (src.stem + ".log"))  # a file, so no pipe fills and stalls
+        with open(outs[-1], "w") as f:
+            procs.append(subprocess.Popen([exe, *FLAGS, "-c", str(src), "-o", str(obj)],
+                                          stdout=f, stderr=subprocess.STDOUT))
+    # each compile's wall seconds, read as it ends (all run at once)
+    done: dict[int, float] = {}
+    while len(done) < len(procs):
+        for i, proc in enumerate(procs):
+            if i not in done and proc.poll() is not None:
+                done[i] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs, failed = [], []
-    for src, proc in zip(SOURCES, procs):
-        text, _ = proc.communicate()
-        logs.append(f"== {src.name} (rc {proc.returncode})\n{text}")
+    for i, (src, proc) in enumerate(zip(SOURCES, procs)):
+        logs.append(f"== {src.name} (rc {proc.returncode}, {done[i]:.1f} s)\n"
+                    f"{outs[i].read_text()}")
         if proc.returncode:
             failed.append(src.name)
     (out_dir / "build.log").write_text("\n".join(logs))

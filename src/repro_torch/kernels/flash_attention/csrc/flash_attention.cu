@@ -7,21 +7,27 @@
 // head hh of slot b reads kv head b*HK + hh / G, G = H / HK, the TPU
 // kernel's index map at kernel.py:131-134; DV may differ from DQK, as MLA's
 // decompressed heads have it: DQK = 192, DV = 128): out [B, H, S, DV],
-// s = (q . k) * scale in f32 (the caller's scale, kernel.py:111), the -1e30 mask
-// above the diagonal, online softmax with m and l in f32 and expf(s - m)
-// (as the plain version takes it), probabilities cast to T before P.V,
-// out = T(acc / max(l, 1e-30)).
-// causal_skip = 1 visits only the kv tiles up to the block's causal
-// frontier, the paper's causal-skip schedule (Table II); 0 visits every
-// tile and masks each element, the dense ablation: the same output bit for
-// bit (a fully masked tile adds exact zeros with alpha = 1), about twice
-// the work. Any S: a ragged last tile is masked, nothing is padded.
+// s = (q . k) * scale in f32 (the caller's scale, kernel.py:111), capped as
+// softcap * tanh(s / softcap) when softcap > 0, then the -1e30 mask above the
+// diagonal and, with a sliding window > 0, at qpos - kpos >= window
+// (kernel.py:68-75: the softcap before the mask), online softmax with m and
+// l in f32 and expf(s - m) (as the plain version takes it), probabilities
+// cast to T before P.V, out = T(acc / max(l, 1e-30)).
+// causal_skip = 1 visits only the kv tiles from the tile that holds the
+// block's window foot, max(r0 - window + 1, 0) (0 without a window), up to
+// the block's causal frontier: the paper's causal-skip schedule (Table II)
+// and the TPU kernel's window skip (kernel.py:49-54); the tiles at the foot
+// and on the diagonal are masked element by element. 0 visits every tile
+// and masks each element, the dense ablation: the same output bit for bit
+// (a fully masked tile adds exact zeros with alpha = 1), about twice the
+// work. Any S: a ragged last tile is masked, nothing is padded.
 //
 // Bound on the H100: at S = 4096, D = 96, 16 heads, the live causal pairs
 // are 16 * 4096 * 4097 / 2 = 134 M, 4 * D flops each: 51.6 GFLOP, 52 us on
 // the bf16 tensor cores (989 TFLOP/s); q, k, v and out are 50 MB, 15 us.
 // Long prompts are bound by operations, short ones (S = 128) by bytes and
-// launch.
+// launch. With a window W < S the live pairs fall to about S * W a head
+// (gemma2's local layers: W = 4096), and so does the walk.
 //
 // bf16 runs on the tensor cores (flash_attention_tc_kernel): one block of
 // 4 warps per (b * H + head, tile of 64 query rows), each warp 16 rows
@@ -33,7 +39,8 @@
 // the accumulator fragments (a row's max and sum over the quad of lanes
 // that share it); P is rounded to bf16 in registers and is the A operand
 // of P.V as it lies, V read with ldmatrix.trans. Only the tiles that reach
-// past a warp's first row, or past S, are masked elementwise. The warp-level
+// past a warp's first row, past S, or below its last row's window foot are
+// masked elementwise. The warp-level
 // walk (fragments, mask, online softmax, P.V, finalize) is attn_mma.cuh's,
 // shared with the chunked prefill-append.
 //
@@ -99,7 +106,8 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, float* __restrict__ out, int h,
-                               int hk, int s, float scale, int causal_skip) {
+                               int hk, int s, float scale, int window, float softcap,
+                               int causal_skip) {
   constexpr int kDq = DQK / kQuad;  // q . k dims per thread
   constexpr int kDp = DV / kQuad;   // output dims per thread
   __shared__ __align__(16) float k_s[kTk * DQK];
@@ -146,7 +154,10 @@ __global__ void __launch_bounds__(kThreads)
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kpos = kpos0 + j;
-      sc[j] = j < n && kpos <= qpos ? dot * scale : kNegInf;
+      float x = dot * scale;
+      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+      const bool live = j < n && kpos <= qpos && (window <= 0 || qpos - kpos < window);
+      sc[j] = live ? x : kNegInf;
       tmax = fmaxf(tmax, sc[j]);
     }
     const float m_new = fmaxf(m_run, tmax);
@@ -177,10 +188,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  // kv rows up to the block's last query row, or every row for the dense
-  // schedule
+  // kv rows from the tile of the block's window foot up to its last query
+  // row, or every row for the dense schedule
+  const int lo = causal_skip && window > 0 ? max(r0 - window + 1, 0) / kTk * kTk : 0;
   const int hi = causal_skip ? min(r0 + kRows, s) : s;
-  for (int t0 = 0; t0 < hi; t0 += kTk) {
+  for (int t0 = lo; t0 < hi; t0 += kTk) {
     const int n = min(kTk, s - t0);
     __syncthreads();  // the previous tile is consumed
     load_tile<DQK>(kb + (size_t)t0 * DQK, n, k_s);
@@ -213,7 +225,7 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(attn::kThreads)
     flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, bf16* __restrict__ out, int h, int hk,
-                              int s, float scale, int causal_skip) {
+                              int s, float scale, int window, float softcap, int causal_skip) {
   constexpr int kTileK = attn::Shape<DQK>::kTile, kTileV = attn::Shape<DV>::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);   // [2][kKeys][DQK + 8]
@@ -227,8 +239,12 @@ __global__ void __launch_bounds__(attn::kThreads)
   const int qrow = r0 + wrow + (lane >> 2);  // this lane's rows: qrow and qrow + 8
   const bf16* kb = k + (size_t)kvh * s * DQK;
   const bf16* vb = v + (size_t)kvh * s * DV;
+  // kv tiles from the one that holds the block's window foot (tile 0
+  // without a window, or for the dense schedule) up to the causal frontier
+  const int it0 = causal_skip && window > 0 ? max(r0 - window + 1, 0) / attn::kKeys : 0;
   const int hi = causal_skip ? min(r0 + attn::kRows, s) : s;
   const int ntiles = (hi + attn::kKeys - 1) / attn::kKeys;
+  const int wlast = r0 + wrow + 15;  // the warp's last row
   // rows t0 .. t0 + 63 of a [S, D] matrix, zeros at rows >= s
   auto rows_from = [s](int t0) {
     return [s, t0](int r, bool& ok) -> size_t {
@@ -249,7 +265,7 @@ __global__ void __launch_bounds__(attn::kThreads)
 
   // Q goes through stage 1's K buffer, into registers as A fragments.
   attn::stage_rows<DQK>(ks + kTileK, q + (size_t)bh * s * DQK, rows_from(r0));
-  stage_kv(0, 0);
+  stage_kv(0, it0 * attn::kKeys);
   rtk::cp_async_commit();
   rtk::cp_async_wait<0>();
   __syncthreads();
@@ -262,22 +278,24 @@ __global__ void __launch_bounds__(attn::kThreads)
   for (int dt = 0; dt < DV / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
   float m_run[2] = {attn::kNegInf, attn::kNegInf}, l_run[2] = {0.0f, 0.0f};
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int t0 = it * attn::kKeys;
-    if (it + 1 < ntiles) stage_kv((it + 1) & 1, t0 + attn::kKeys);
+  for (int it = it0; it < ntiles; ++it) {
+    const int t0 = it * attn::kKeys, st = (it - it0) & 1;
+    if (it + 1 < ntiles) stage_kv(st ^ 1, t0 + attn::kKeys);
     rtk::cp_async_commit();
     rtk::cp_async_wait<1>();  // this tile has landed; the next may be in flight
     __syncthreads();
     float sc[attn::kKTiles][4];
-    attn::qk<DQK>(sc, qf, ks + (it & 1) * kTileK);
-    // mask the tiles that reach past the warp's first row or past S
-    const bool masked = t0 + attn::kKeys - 1 > r0 + wrow || t0 + attn::kKeys > s;
-    attn::scale_mask(sc, scale, 0.0f, masked, [&](int col, int rr) {
-      const int key = t0 + col;
-      return !(key > qrow + 8 * rr || key >= s);
+    attn::qk<DQK>(sc, qf, ks + st * kTileK);
+    // mask the tiles that reach past the warp's first row or past S, and
+    // those that reach below its last row's window foot
+    const bool masked = t0 + attn::kKeys - 1 > r0 + wrow || t0 + attn::kKeys > s ||
+                        (window > 0 && wlast - t0 >= window);
+    attn::scale_mask(sc, scale, softcap, masked, [&](int col, int rr) {
+      const int key = t0 + col, row = qrow + 8 * rr;
+      return key <= row && key < s && (window <= 0 || row - key < window);
     });
     attn::online_softmax<DV>(sc, m_run, l_run, o);
-    attn::pv<DV>(o, sc, vs + (it & 1) * kTileV);
+    attn::pv<DV>(o, sc, vs + st * kTileV);
     __syncthreads();  // the stage is consumed before the next load refills it
   }
 
@@ -290,12 +308,14 @@ __global__ void __launch_bounds__(attn::kThreads)
 
 template <int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* out, int b, int h, int hk,
-             int s, float scale, int causal_skip, int dtype, cudaStream_t stream) {
+             int s, float scale, int window, float softcap, int causal_skip, int dtype,
+             cudaStream_t stream) {
   if (dtype == rtk::kF32) {
     const dim3 grid(b * h, (s + kRows - 1) / kRows);
     flash_attention_f32_kernel<DQK, DV><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), h, hk, s, scale, causal_skip);
+        static_cast<const float*>(v), static_cast<float*>(out), h, hk, s, scale, window, softcap,
+        causal_skip);
     return (int)cudaGetLastError();
   }
   const size_t smem = tc_smem_bytes<DQK, DV>();
@@ -304,7 +324,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b, int 
   const dim3 grid(b * h, (s + attn::kRows - 1) / attn::kRows);
   flash_attention_tc_kernel<DQK, DV><<<grid, attn::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), h, hk, s, scale, causal_skip);
+      static_cast<bf16*>(out), h, hk, s, scale, window, softcap, causal_skip);
   return (int)cudaGetLastError();
 }
 
@@ -312,16 +332,18 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b, int 
 
 // q [B, H, S, DQK], k [B, HK, S, DQK], v [B, HK, S, DV], out [B, H, S, DV],
 // all of the activation dtype: bf16 on the tensor cores, f32 on the CUDA
-// cores. (DQK, DV) must be an instantiated pair.
+// cores. (DQK, DV) must be an instantiated pair. window (0 = none) and
+// softcap (0 = none) as above.
 extern "C" int tm_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
-                                  int h, int hk, int s, int dqk, int dv, float scale,
-                                  int causal_skip, int dtype, void* stream) {
+                                  int h, int hk, int s, int dqk, int dv, float scale, int window,
+                                  float softcap, int causal_skip, int dtype, void* stream) {
   if (b == 0 || s == 0) return 0;
   if (dtype != rtk::kBF16 && dtype != rtk::kF32) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define TM_FA_CASE(DQK, DV)                                                                 \
   if (dqk == DQK && dv == DV)                                                                \
-    return launch_d<DQK, DV>(q, k, v, out, b, h, hk, s, scale, causal_skip, dtype, st);
+    return launch_d<DQK, DV>(q, k, v, out, b, h, hk, s, scale, window, softcap, causal_skip, \
+                             dtype, st);
   TM_FA_CASE(16, 16)
   TM_FA_CASE(32, 32)
   TM_FA_CASE(64, 64)

@@ -28,16 +28,20 @@ def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
     return t if t.shape[-1] == n else torch.nn.functional.pad(t, (0, n - t.shape[-1]))
 
 
-def flash_attention(q, k, v, *, scale: float | None = None, causal_skip: bool = True):
+def flash_attention(q, k, v, *, scale: float | None = None, window: int = 0,
+                    softcap: float = 0.0, causal_skip: bool = True):
     """q [B, H, S, Dqk], k [B, HK, S, Dqk], v [B, HK, S, Dv] (H % HK == 0),
     one dtype (f32 or bf16) -> [B, H, S, Dv], causal, scores times
-    ``scale`` (default 1/sqrt(Dqk)). A (Dqk, Dv) pair without an
+    ``scale`` (default 1/sqrt(Dqk)), capped as ``softcap * tanh(s /
+    softcap)`` when ``softcap > 0``, and, with a sliding ``window > 0``,
+    masked at ``qpos - kpos >= window``. A (Dqk, Dv) pair without an
     instantiation runs zero-padded up to the next one that holds it (zero
     columns add exact zeros to q.k and give zero output columns, sliced
     off). ``causal_skip=False`` runs the dense schedule (every kv tile
     visited and masked: the same output, the paper's Table II ablation)."""
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, scale=scale, causal_skip=causal_skip)
+        return ref.flash_attention(q, k, v, scale=scale, window=window, softcap=softcap,
+                                   causal_skip=causal_skip)
     name = "flash_attention"
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     B.require_cuda(name, q=q, k=k, v=v)
@@ -46,6 +50,8 @@ def flash_attention(q, k, v, *, scale: float | None = None, causal_skip: bool = 
         B.require_dtype(name, t, q.dtype, what)
     b, h, s, dqk = q.shape
     hk, dv = k.shape[1], v.shape[-1]
+    if window < 0 or softcap < 0:
+        raise ValueError(f"{name}: window {window} and softcap {softcap} must be >= 0")
     if (k.shape != (b, hk, s, dqk) or v.shape != (b, hk, s, dv) or hk == 0 or h % hk):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit")
@@ -58,7 +64,7 @@ def flash_attention(q, k, v, *, scale: float | None = None, causal_skip: bool = 
     scale = 1.0 / math.sqrt(dqk) if scale is None else float(scale)
     rc = B.library().tm_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hk, s, pq, pv,
-        scale, int(bool(causal_skip)), code, B.stream(q.device))
+        scale, int(window), float(softcap), int(bool(causal_skip)), code, B.stream(q.device))
     B.check(rc, name)
     flash_attention.launches += 1
     return out if pv == dv else out[..., :dv]

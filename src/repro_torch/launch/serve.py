@@ -4,8 +4,9 @@ resilience envelope (``repro/launch/serve.py``).
 Builds packed weights (random, from ``--seed``) on the device and serves a
 batch of prompts through the ``ServingEngine``: chunked prefill in
 bucketed chunks while every decoding slot advances each tick (the dense
-family; the others, ``--arch deepseek-v2-lite-16b`` or ``rwkv6-3b``,
-prefill each request whole at admission), a bounded
+family, ``--arch gemma2-27b``'s sliding-window local layers included, and
+``--arch arctic-480b`` with ``--prefill chunked``; ``deepseek-v2-lite-16b``
+and ``rwkv6-3b`` prefill each request whole at admission), a bounded
 admission queue, per-request deadlines and priorities with preemption, and
 the numerics guards. Reports time to first token, throughput and every
 request's terminal status. Exit code 0 only if every admitted request ended
@@ -25,6 +26,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tellme-0.7b --smoke \\
       --prompt-len 64 --gen 32 --batch 4 [--device cpu] [--speculative] \\
       [--queue-cap N] [--deadline-s S] [--json]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --smoke \\
+      --device cpu --prompt-len 40 --gen 16 --batch 2 --ragged
 """
 
 from __future__ import annotations
@@ -68,7 +71,10 @@ def _load_requests(path, cfg, args) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="tellme-0.7b")
+    ap.add_argument("--arch", default="tellme-0.7b",
+                    help="tellme-0.7b, gemma2-27b (local/global layers, window, softcaps), "
+                         "rwkv6-3b, deepseek-v2-lite-16b, or arctic-480b (its full width "
+                         "does not fit one card: --smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the plain "

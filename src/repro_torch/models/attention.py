@@ -31,6 +31,11 @@ layouts.
 An int8 cache carries ``k_scale``/``v_scale`` [B, HK, M] f32 (paged: scale
 pools [P, HK, ps]) beside its int8 ``k``/``v``; passing them selects the
 int8 path.
+
+Every form takes gemma2's two options (``attention.py:46-47``): a sliding
+``window`` (> 0: a query at qpos attends to keys with qpos - kpos < window)
+and a ``softcap`` (> 0: scores become softcap * tanh(s / softcap), before
+the mask); 0 leaves either off.
 """
 
 from __future__ import annotations
@@ -41,20 +46,23 @@ from ..core.ternary import quantize_kv
 from ..kernels.prefill_append.ref import append_kv_cache, append_kv_cache_quant  # noqa: F401
 
 
-def prefill_attention(q, k, v, *, kernels, scale: float | None = None) -> torch.Tensor:
+def prefill_attention(q, k, v, *, kernels, scale: float | None = None, window: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, S, D], k [B, HK, S, D], v [B, HK, S, Dv] -> [B, H, S, Dv]
     (GQA grouped), causal; scores times ``scale`` (default 1/sqrt(D))."""
-    return kernels.flash_attention(q, k, v, scale=scale)
+    return kernels.flash_attention(q, k, v, scale=scale, window=window, softcap=softcap)
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, kernels, k_scale=None, v_scale=None):
+def decode_attention(q, k_cache, v_cache, pos, *, kernels, k_scale=None, v_scale=None,
+                     window: int = 0, softcap: float = 0.0):
     """q [B, H, D] against k/v cache [B, HK, M, D], attending to <= pos[b]."""
     return kernels.decode_attention(q, k_cache, v_cache, pos, k_scale=k_scale,
-                                    v_scale=v_scale)
+                                    v_scale=v_scale, window=window, softcap=softcap)
 
 
 def prefill_append_attention(q, k_new, v_new, k_cache, v_cache, offset, *, kernels,
-                             k_scale=None, v_scale=None, prefix_limit: int = 0):
+                             k_scale=None, v_scale=None, prefix_limit: int = 0,
+                             window: int = 0, softcap: float = 0.0):
     """A chunk ``q [B, H, C, D]`` at positions ``offset[b] + [0, C)`` attends
     to the slot's cache prefix and causally to itself; its K/V
     ``[B, HK, C, D]`` are appended at ``[offset, offset + C)`` in place, at
@@ -62,28 +70,31 @@ def prefill_append_attention(q, k_new, v_new, k_cache, v_cache, offset, *, kerne
     ``prefix_limit > 0`` are write-only (the engine's trash-diverted
     slots)."""
     return kernels.prefill_append(q, k_new, v_new, k_cache, v_cache, offset,
-                                  k_scale=k_scale, v_scale=v_scale,
-                                  prefix_limit=prefix_limit)
+                                  k_scale=k_scale, v_scale=v_scale, window=window,
+                                  softcap=softcap, prefix_limit=prefix_limit)
 
 
 def decode_attention_paged(q, k_pool, v_pool, page_table, pos, *, kernels, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, window: int = 0, softcap: float = 0.0):
     """Page-indirect twin of :func:`decode_attention`: q [B, H, D] against
     k/v pools [P, HK, ps, D] through ``page_table [B, NB]``. The frontier
     row is already in the pools (``update_kv_pages``)."""
     return kernels.decode_attention_paged(q, k_pool, v_pool, page_table, pos,
-                                          k_scale=k_scale, v_scale=v_scale)
+                                          k_scale=k_scale, v_scale=v_scale, window=window,
+                                          softcap=softcap)
 
 
 def prefill_append_attention_paged(q, k_new, v_new, k_pool, v_pool, page_table, offset, *,
                                    kernels, k_scale=None, v_scale=None,
-                                   prefix_limit: int = 0):
+                                   prefix_limit: int = 0, window: int = 0,
+                                   softcap: float = 0.0):
     """Page-indirect twin of :func:`prefill_append_attention`: row r of the
     chunk lands in pool page ``page_table[b, (offset + r) // ps]`` in place,
     which the engine has made exclusive to the slot (``ensure_writable``);
     a chunk may start anywhere in a page and straddle the next."""
     return kernels.prefill_append_paged(q, k_new, v_new, k_pool, v_pool, page_table,
                                         offset, k_scale=k_scale, v_scale=v_scale,
+                                        window=window, softcap=softcap,
                                         prefix_limit=prefix_limit)
 
 

@@ -64,8 +64,13 @@ def lm_head_spec(dim: int, vocab: int) -> dict:
     return bitlinear.dense_spec(dim, vocab)
 
 
-def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return bitlinear.dense_apply(params, x, out_dtype=torch.float32)
+def lm_head(params: dict, x: torch.Tensor, *, softcap: float = 0.0) -> torch.Tensor:
+    """f32 logits; with ``softcap`` > 0 capped as ``softcap * tanh(logits /
+    softcap)`` in f32 (``layers.py:123-126``, gemma2's final softcap)."""
+    logits = bitlinear.dense_apply(params, x, out_dtype=torch.float32)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
 
 
 def mlp_spec(dim: int, hidden: int) -> dict:

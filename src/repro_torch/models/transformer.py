@@ -9,11 +9,17 @@ of layers (DeepSeek's dense first layer), then a period of layer kinds
 repeated ``n_periods`` times. Parameters keep the JAX tree and layouts:
 prelude layer ``i`` lives in ``params["prelude_{i}"]``, period layer ``i``
 in ``params["blocks"]["b{i}"]`` with a leading ``[n_periods]`` axis on
-every leaf. The dense and ssm families have a one-kind period and no
-prelude, so their trees are ``{"blocks": {"b0": ...}}``, as before. The
+every leaf. The ssm family and a dense config without ``local_global_period``
+have a one-kind period and no prelude, so their trees are ``{"blocks":
+{"b0": ...}}``; gemma2's period is ``[local, global]`` attention
+(``transformer.py:51-60``), ``{"blocks": {"b0": local, "b1": global}}``.
+A local layer masks keys at ``qpos - kpos >= cfg.sliding_window`` in every
+attention form; every attention layer scores ``softcap * tanh(s /
+softcap)`` with ``cfg.attn_logit_softcap``, and the LM head caps its logits
+with ``cfg.final_logit_softcap`` (0 = none, for both). The
 JAX package scans over the stacked layers; here a Python loop walks them.
 
-A dense block (``attn`` + ``dense``) runs the int8-resident pipeline of
+An attention block with a dense FFN (local or global) runs the int8-resident pipeline of
 ``transformer.py:422-447`` unless ``fused=False``: norm-quant prologue,
 q/k/v projections on the int8 row, RoPE, attention, the o projection with
 the residual in its epilogue, norm-quant, fused SwiGLU, and the down
@@ -32,7 +38,7 @@ branches of a dense block are equal bit for bit.
 
 The KV caches are, per attention layer, ``[B, HK, M, D]`` (int8 cache:
 with f32 row scales ``[B, HK, M]``), or, for the engine's paged layout
-(dense family only), page pools ``[P, HK, ps, D]`` (``[P, HK, ps]``) that
+(the dense and moe families), page pools ``[P, HK, ps, D]`` (``[P, HK, ps]``) that
 ``decode_step`` and ``prefill_chunk_step`` address through a ``page_table
 [B, NB]`` shared by every layer; per MLA layer, the latent ``c_kv [B, M,
 R]`` and the shared rope key ``k_rope [B, M, rope]`` in the activation
@@ -49,8 +55,10 @@ prefills from a zero state (the WKV through ``kernels.wkv``), ``decode_step``
 advances the state in place; a multi-token step against an existing state
 (``prefill_chunk_step``) raises, as the WKV kernel, like the TPU kernel,
 starts from zero, and the paged layout pages attention K/V only.
-``prefill_chunk_step`` serves the dense family only: widening the chunked
-engine to the other attention families is ROADMAP A13c.
+``prefill_chunk_step`` and the paged layout serve the families whose
+layers are all attention mixers (dense and moe). An MLA layer refuses a
+chunk against its latent cache and a page table, as JAX's ``apply_block``
+does (``transformer.py:389-392, 417-421``).
 """
 
 from __future__ import annotations
@@ -75,15 +83,21 @@ FAMILIES = ("dense", "moe", "mla_moe", "ssm")
 class LayerKind:
     mixer: str  # attn | mla | rwkv
     ffn: str  # dense | moe | moe_shared | moe_dense | rwkv_channel
-
-
-ATTN_DENSE = LayerKind("attn", "dense")  # the fused branch's kind
+    local: bool = False  # sliding-window attention (gemma2's local layers)
 
 
 def block_plan(cfg) -> tuple[list[LayerKind], list[LayerKind], int]:
     """(prelude kinds, period kinds, n_periods) (``transformer.py:49-79``)."""
     if cfg.family == "dense":
-        return [], [ATTN_DENSE], cfg.n_layers
+        if cfg.local_global_period:
+            period = [LayerKind("attn", "dense", local=i % cfg.local_global_period == 0)
+                      for i in range(cfg.local_global_period)]
+        else:
+            period = [LayerKind("attn", "dense")]
+        if cfg.n_layers % len(period):
+            raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of the period "
+                             f"{len(period)}")
+        return [], period, cfg.n_layers // len(period)
     if cfg.family == "moe":
         return [], [LayerKind("attn", "moe_dense" if cfg.dense_residual else "moe")], cfg.n_layers
     if cfg.family == "mla_moe":
@@ -242,10 +256,13 @@ def block_engines(bp, rows: int, engine: str) -> dict:
             for sub, name in PROJECTIONS}
 
 
-def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=None,
-                prefix_limit=0, page_table=None, page_rows=None, residual: bool = True):
+def _apply_attn(bp, x, xq, cfg, rope, *, kernels, kind: LayerKind | None = None,
+                engines=None, cache=None, pos=None, prefix_limit=0, page_table=None,
+                page_rows=None, residual: bool = True):
     """Attention sub-block on the int8 row ``xq`` (the prologue's pair, or
-    its triple with TL tables); ``engines`` maps q, k, v and o to their
+    its triple with TL tables), with the sliding window of a local ``kind``
+    (None: a global layer) and ``cfg``'s attention softcap in every form;
+    ``engines`` maps q, k, v and o to their
     matmul engine (:func:`block_engines`; alone, each resolves
     ``cfg.matmul_engine``). Returns (x + attn(x), the
     cache rows of this call); with ``residual=False`` (the unfused block),
@@ -261,6 +278,9 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     engines = engines or dict.fromkeys(("q", "k", "v", "o"), cfg.matmul_engine)
+    # transformer.py:226: the local layers' window, every layer's softcap
+    mask = {"window": cfg.sliding_window if kind is not None and kind.local else 0,
+            "softcap": cfg.attn_logit_softcap}
 
     def proj(name, heads):
         y = bitlinear.apply(bp[name], xq, kernels=kernels, out_dtype=x.dtype,
@@ -281,17 +301,17 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=
             new = {"k": k_i8, "k_scale": ks, "v": v_i8, "v_scale": vs}
         else:
             new = {"k": k, "v": v}
-        out = attn_ops.prefill_attention(q, k, v, kernels=kernels)
+        out = attn_ops.prefill_attention(q, k, v, kernels=kernels, **mask)
     elif s > 1 and page_table is not None:  # a chunk, through the page table
         out = attn_ops.prefill_append_attention_paged(
             q, k, v, cache["k"], cache["v"], page_table, pos, kernels=kernels,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-            prefix_limit=prefix_limit)
+            prefix_limit=prefix_limit, **mask)
     elif s > 1:  # a prefill chunk against the cache prefix
         out = attn_ops.prefill_append_attention(
             q, k, v, cache["k"], cache["v"], pos, kernels=kernels,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-            prefix_limit=prefix_limit)
+            prefix_limit=prefix_limit, **mask)
     elif page_table is not None:  # a decode row, through the page table
         ps = cache["k"].shape[2]
         if "k_scale" in cache:
@@ -305,7 +325,7 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=
             update_kv_pages(cache["v"], page_table, v[:, :, 0], pos, ps, rows=page_rows)
         out = attn_ops.decode_attention_paged(
             q[:, :, 0], cache["k"], cache["v"], page_table, pos, kernels=kernels,
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))[:, :, None]
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"), **mask)[:, :, None]
     else:
         if "k_scale" in cache:
             attn_ops.update_kv_cache_quant(cache["k"], cache["v"], cache["k_scale"],
@@ -314,7 +334,7 @@ def _apply_attn(bp, x, xq, cfg, rope, *, kernels, engines=None, cache=None, pos=
             attn_ops.update_kv_cache(cache["k"], cache["v"], k[:, :, 0], v[:, :, 0], pos)
         out = attn_ops.decode_attention(
             q[:, :, 0], cache["k"], cache["v"], pos, kernels=kernels,
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))[:, :, None]
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"), **mask)[:, :, None]
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     x = bitlinear.apply(bp["o"], out, kernels=kernels, out_dtype=x.dtype,
                         residual=x if residual else None, engine=engines["o"])
@@ -343,7 +363,7 @@ def _apply_unfused(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, po
     h = L.rmsnorm(bp["ln1"], x, eps=cfg.norm_eps)
     if kind.mixer == "attn":
         y, new = _apply_attn(bp["attn"], h, ternary.quantize_act(h), cfg, rope["attn"],
-                             kernels=kernels, engines=dict.fromkeys("qkvo", "auto"),
+                             kernels=kernels, kind=kind, engines=dict.fromkeys("qkvo", "auto"),
                              cache=cache, pos=pos, prefix_limit=prefix_limit,
                              page_table=page_table, page_rows=page_rows, residual=False)
     elif cache is None:
@@ -352,9 +372,7 @@ def _apply_unfused(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, po
         y, new = mla_mod.mla_decode(bp["attn"], h, cfg, cache, pos, rope["mla"],
                                     kernels=kernels), None
     else:
-        raise NotImplementedError("a multi-token step against an MLA cache is not ported "
-                                  "(ROADMAP A13c); the family prefills whole "
-                                  "(ServingEngine prefill='legacy')")
+        raise NotImplementedError(_MLA_CHUNK)
     x = x + y
     h2 = L.rmsnorm(bp["ln2"], x, eps=cfg.norm_eps)
     return x + _apply_ffn(bp["ffn"], h2, cfg, kind, kernels=kernels), new
@@ -363,20 +381,21 @@ def _apply_unfused(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, po
 def apply_block(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, pos=None,
                 prefix_limit=0, page_table=None, page_rows=None, fused=None):
     """One layer of kind ``kind`` (``transformer.py:374-475``); ``rope`` is
-    :func:`rope_for`'s per-mixer tables. A dense block takes the fused
-    int8-resident branch (``transformer.py:422-447``) unless ``fused`` is
-    False; every other kind the unfused one; an RWKV block its own. Returns
-    (x, the cache rows of a one-shot prefill or None)."""
+    :func:`rope_for`'s per-mixer tables. An attention block with a dense
+    FFN, local or global, takes the fused int8-resident branch
+    (``transformer.py:422-447``) unless ``fused`` is False; every other
+    kind the unfused one; an RWKV block its own. Returns (x, the cache rows
+    of a one-shot prefill or None)."""
     if kind.mixer == "rwkv":
         return apply_rwkv_block(bp, x, cfg, kernels=kernels, state=cache)
-    if fused is False or kind != ATTN_DENSE:
+    if fused is False or not (kind.mixer == "attn" and kind.ffn == "dense"):
         return _apply_unfused(kind, bp, x, cfg, rope, kernels=kernels, cache=cache, pos=pos,
                               prefix_limit=prefix_limit, page_table=page_table,
                               page_rows=page_rows)
     engines = block_engines(bp, x.shape[0] * x.shape[1], cfg.matmul_engine)
     hq = L.norm_quant(bp["ln1"], x, kernels=kernels, eps=cfg.norm_eps,
                       tables=engines["q"] == "tl")
-    x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope["attn"], kernels=kernels,
+    x, kv = _apply_attn(bp["attn"], x, hq, cfg, rope["attn"], kernels=kernels, kind=kind,
                         engines=engines, cache=cache, pos=pos, prefix_limit=prefix_limit,
                         page_table=page_table, page_rows=page_rows)
     h2q = L.norm_quant(bp["ln2"], x, kernels=kernels, eps=cfg.norm_eps,
@@ -434,7 +453,7 @@ def rope_for(cfg, positions) -> dict:
 
 def _head(params, x, cfg):
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    return L.lm_head(params["lm_head"], x)
+    return L.lm_head(params["lm_head"], x, softcap=cfg.final_logit_softcap)
 
 
 def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool = False,
@@ -456,13 +475,21 @@ def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool =
     return _head(params, x, cfg), caches
 
 
+# JAX's apply_block refuses both for a non-attention mixer (transformer.py:389-392,
+# 417-421): a chunk against MLA's latent cache, and a page table for it
+_MLA_CHUNK = ("a multi-token step against an MLA latent cache is refused, as JAX's "
+              "apply_block refuses it (transformer.py:417-421); the family prefills whole "
+              "(ServingEngine prefill='legacy')")
+_MLA_PAGED = ("the paged layout pages attention K/V only, as JAX's apply_block refuses a "
+              "page table for the MLA mixer (transformer.py:389-392)")
+
+
 def _refuse_paged(cfg):
     if cfg.family == "ssm":
         raise NotImplementedError("the paged layout pages attention K/V; the ssm family "
                                   "has none")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the paged layout serves the dense family only; the "
-                                  f"{cfg.family!r} family's is ROADMAP A13c")
+    if cfg.family == "mla_moe":
+        raise NotImplementedError(_MLA_PAGED)
 
 
 def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *, kernels,
@@ -471,7 +498,7 @@ def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *,
     ``pos [B]`` int32. Writes each layer's new K/V (MLA: latent row) into
     ``caches`` in place and returns (logits [B, V], caches). ``page_table
     [B, NB]`` int32 makes ``caches`` page pools (:func:`cache_specs` with
-    ``kv_pages``, dense family only). The ssm family advances its state
+    ``kv_pages``, the dense and moe families). The ssm family advances its state
     leaves in place and reads no position."""
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     page_rows = None
@@ -497,14 +524,18 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
     at or past ``prefix_limit > 0`` are write-only. Returns (logits, caches):
     logits [B, C, V], or with ``last_row [B]`` only each slot's row, gathered
     before the final norm and the LM head, [B, V]. ``page_table`` as in
-    :func:`decode_step`. The dense family only: an RWKV chunk against an
-    existing state, and the MoE families' chunks (ROADMAP A13c), raise
-    ``NotImplementedError``."""
-    if cfg.family != "dense":
+    :func:`decode_step`. Every family whose layers are all attention
+    mixers (dense, moe): an RWKV chunk against an existing state, and a
+    chunk against an MLA latent cache (JAX's ``transformer.py:417-421``),
+    raise ``NotImplementedError``."""
+    prelude, period, _ = block_plan(cfg)
+    mixers = {k.mixer for k in prelude + period}
+    if "mla" in mixers:
+        raise NotImplementedError(_MLA_CHUNK)
+    if mixers != {"attn"}:
         raise NotImplementedError(
-            f"prefill_chunk_step is the dense family's; the {cfg.family!r} family is "
-            "prefilled whole (ServingEngine prefill='legacy'); widening the chunked path "
-            "is ROADMAP A13c")
+            f"prefill_chunk_step needs attention mixers; the {cfg.family!r} family is "
+            "prefilled whole (ServingEngine prefill='legacy')")
     x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
     b, c = tokens.shape
     positions = offset.to(torch.int32)[:, None] + torch.arange(
@@ -565,7 +596,7 @@ def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> di
     D] in ``cfg.dtype``; with ``cfg.kv_cache_dtype == "int8"``, k/v int8 and
     ``k_scale``/``v_scale`` [B, HK, seq] f32 row scales. An MLA layer's are
     ``c_kv [B, seq, R]`` and ``k_rope [B, seq, rope]`` in ``cfg.dtype``
-    under either cache dtype. ``kv_pages`` switches the dense family to the
+    under either cache dtype. ``kv_pages`` switches the dense and moe families to the
     paged layout (``transformer.py:711-741``): one pool shared by every
     slot, k/v [L, kv_pages, HK, cfg.kv_page_size, D] (and scales [L,
     kv_pages, HK, cfg.kv_page_size]); ``batch`` and ``seq`` then go unused.

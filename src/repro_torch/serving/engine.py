@@ -46,11 +46,17 @@ attention fallback and retries the tick; the port has no second
 implementation to fall back to, neither the plain versions nor the CPU, so
 it goes straight to JAX's last resort. A page pool that runs dry fails the
 request that needed the page (``FAILED``, ``page_pool_exhausted``). The
-``moe`` and ``mla_moe`` families are served like the ssm family, by the
-legacy prefill on the contiguous layout (their chunked and paged paths are
-ROADMAP A13c); their idle slots decode what JAX's do, since they share the
-routed experts' capacity with the live ones. Not ported yet: the hybrid
-family (A13d).
+``mla_moe`` family is served like the ssm family, by the legacy prefill
+on the contiguous layout: JAX's ``apply_block`` refuses a chunk against an
+MLA latent cache and a page table for it (``transformer.py:389-392,
+417-421``). The ``moe`` family takes ``"auto"`` as legacy too, as in JAX,
+and runs the chunked prefill, the paged layout and speculative decoding
+when asked (``prefill="chunked"``). Under MoE the rows of idle and
+trash-diverted slots share the routed experts' capacity with the live
+ones, so they are JAX's rows: zeros at ``trash_base`` in a chunk, the
+slot's token at ``cache_len - 1`` in a fused tick's decode, at its own
+position in a decode-only tick, and ``[token, drafts]`` at ``trash_base``
+in a verify chunk. Not ported yet: the hybrid family (A13d).
 """
 
 from __future__ import annotations
@@ -313,6 +319,18 @@ def _advance(logits, first_tok, pos, done, gen_count, max_new, active, caches, *
     return next_tok, new_pos, new_done, new_count, torch.stack(rows)
 
 
+def _prefix_limit(cfg, trash_base: int) -> int:
+    """The chunk steps' write-only frontier: ``trash_base``, past which the
+    diverted rows skip their prefix scan, or 0 where routed experts share
+    capacity across rows (the ``moe`` family). There a diverted row's
+    hidden state decides which live rows its expert choices crowd out, so
+    it attends as JAX's XLA append form has every row attend (its prefix
+    and its chunk, ``attention.py:270-300``), the form JAX's engine runs
+    off the TPU."""
+    routed = any(k.ffn != "dense" for kinds in Tr.block_plan(cfg)[:2] for k in kinds)
+    return 0 if routed else trash_base
+
+
 def _fused_tick_step(params, caches, cur_tok, pos, done, gen_count, max_new, dec_active,
                      chunk_tok, chunk_off, finishing, last_row, fin_pos, page_table, *, cfg,
                      kernels, eos_id: int, max_len: int, cache_len: int, trash_base: int,
@@ -332,7 +350,7 @@ def _fused_tick_step(params, caches, cur_tok, pos, done, gen_count, max_new, dec
                                         dpos, cfg, kernels=kernels, page_table=page_table)
     first_logits, caches = Tr.prefill_chunk_step(
         params, chunk_tok, caches, chunk_off, cfg, kernels=kernels, last_row=last_row,
-        prefix_limit=trash_base, page_table=page_table)
+        prefix_limit=_prefix_limit(cfg, trash_base), page_table=page_table)
     dec_logits, first_logits = _poison(dec_logits, fault_nan), _poison(first_logits, fault_nan)
     next_dec = torch.argmax(dec_logits, dim=-1).to(torch.int32)
     inc = dec_active.to(torch.int32)
@@ -384,7 +402,8 @@ def _spec_tick_step(params, caches, hist, cur_tok, pos, done, gen_count, max_new
     ver_tok = torch.cat([cur_tok[:, None], drafts], dim=1).to(torch.int64)
     ver_off = torch.where(dec_active, pos, torch.full_like(pos, trash_base))
     ver_logits, caches = Tr.verify_chunk_step(params, ver_tok, caches, ver_off, cfg,
-                                              kernels=kernels, prefix_limit=trash_base,
+                                              kernels=kernels,
+                                              prefix_limit=_prefix_limit(cfg, trash_base),
                                               page_table=page_table)
     ver_logits = _poison(ver_logits, fault_nan)
     targets, k = Sp.accept_tokens(drafts, ver_logits)
@@ -411,7 +430,7 @@ def _spec_tick_step(params, caches, hist, cur_tok, pos, done, gen_count, max_new
     if chunk_tok is not None:  # the mixed tick: the fused tick's prefill phase
         first_logits, caches = Tr.prefill_chunk_step(
             params, chunk_tok, caches, chunk_off, cfg, kernels=kernels, last_row=last_row,
-            prefix_limit=trash_base, page_table=page_table)
+            prefix_limit=_prefix_limit(cfg, trash_base), page_table=page_table)
         first_logits = _poison(first_logits, fault_nan)
         first_tok, new_tok, new_pos, new_count, new_done = _prefill_handoff(
             first_logits, finishing, fin_pos, new_tok, new_pos, new_count, new_done, max_new,
@@ -538,7 +557,9 @@ class ServingEngine:
     ``cache_len = max_len`` rows per slot with no trash tail, every tick is
     a decode-only tick, and the paged layout is refused. ``"auto"`` is
     ``"chunked"`` for the dense family and ``"legacy"`` for every other,
-    as in JAX. The ssm family (RWKV-6) runs legacy only: its state has no
+    as in JAX; the moe family runs ``"chunked"`` (and so the paged layout
+    and speculation) when asked, the mla_moe family legacy only, as JAX's
+    blocks refuse an MLA chunk. The ssm family (RWKV-6) runs legacy only: its state has no
     rows to append a chunk to, and ``"chunked"`` or the paged layout raise
     (JAX serves chunked ssm through its XLA WKV from a warm state; the
     port's WKV kernel starts from zero, as the TPU kernel does). Admission
@@ -598,10 +619,15 @@ class ServingEngine:
             prefill = "chunked" if cfg.family == "dense" else "legacy"
         if prefill not in ("chunked", "legacy"):
             raise ValueError(f"prefill must be 'auto', 'chunked' or 'legacy', got {prefill!r}")
-        if cfg.family != "dense" and (prefill == "chunked" or cfg.kv_layout == "paged"):
+        # the chunked and paged paths serve the attention families (dense,
+        # moe); JAX's apply_block refuses both for MLA (transformer.py:389-392,
+        # 417-421), and the port's WKV kernel starts from a zero state
+        if cfg.family in ("ssm", "mla_moe") and (prefill == "chunked"
+                                                 or cfg.kv_layout == "paged"):
             why = ("its recurrent state has no rows to append a chunk to or to page, and "
                    "the WKV kernel starts from a zero state" if cfg.family == "ssm" else
-                   "the chunked and paged paths of its mixer are ROADMAP A13c")
+                   "JAX's apply_block refuses a chunk against an MLA latent cache and a "
+                   "page table for it (transformer.py:389-392, 417-421)")
             raise ValueError(
                 f"the {cfg.family!r} family runs prefill='legacy' on the contiguous layout "
                 f"only (got prefill={prefill!r}, kv_layout={cfg.kv_layout!r}): {why}")

@@ -60,7 +60,11 @@ its row's scale, and the output's own rounding can differ by one bf16 ulp
 (2^-7 of |want| at most). The dense schedule gives the causal-skip
 schedule's output bit for bit; with v of another head dim and an
 explicit scale (DeepSeek's (192, 128), the smoke's (24, 16) zero-padded to
-(32, 32)) at the same bars. One period block of each MoE family's smoke
+(32, 32)) at the same bars; with gemma2's sliding window and softcap
+(windows off the tiles, G = 1 and 2, gemma2-27b's 4352-token local
+layer) at the same bars, the dense schedule bit for bit, and the
+kernel without them unchanged; gemma2 smoke's local block through the
+kernels within 1e-4 of the plain versions. One period block of each MoE family's smoke
 config (MLA or attention, routed experts, the shared or dense MLP) through
 the kernels is within 1e-4 of the plain versions, prefill and decode. The GEMV (M <= 16, the cluster-split
 kernel) and the tiled matmul (the tensor-core kernel) are held bit for bit
@@ -1110,6 +1114,80 @@ def test_flash_attention_dv_and_scale(cuda, b, h, hk, s, d, dv, dtype):
         worst = ((got.float() - want).abs() / (want.abs() + rms)).max().item()
         assert worst <= FLASH_TOL_BF16, worst
     assert torch.equal(dense, got)
+
+
+# (B, H, HK, S, Dqk, Dv, window, softcap, dtype): gemma2's sliding window
+# and attention softcap, G = 1 and 2, windows shorter than S and off the
+# 64-row tiles (and the f32 kernel's 32), a window of 1, one wider than S,
+# the smoke's padded (24, 16) pair, and gemma2-27b's local layer at 4352
+# tokens past its 4096 window
+FLASH_WINDOW_CASES = [
+    (2, 4, 4, 200, 32, 32, 37, 50.0, "bfloat16"), (2, 4, 4, 200, 32, 32, 37, 50.0, "float32"),
+    (1, 8, 4, 300, 128, 128, 100, 50.0, "bfloat16"), (1, 8, 4, 300, 128, 128, 100, 50.0, "float32"),
+    (2, 4, 2, 129, 16, 16, 16, 50.0, "bfloat16"), (2, 4, 2, 129, 16, 16, 16, 0.0, "float32"),
+    (1, 4, 2, 65, 64, 64, 1, 30.0, "bfloat16"), (1, 4, 2, 65, 64, 64, 500, 5.0, "float32"),
+    (1, 4, 4, 77, 24, 16, 20, 50.0, "bfloat16"), (1, 4, 4, 77, 24, 16, 20, 50.0, "float32"),
+    (1, 4, 2, 256, 128, 128, 0, 50.0, "bfloat16"),
+    (1, 32, 16, 4352, 128, 128, 4096, 50.0, "bfloat16")]
+
+
+@pytest.mark.parametrize("b,h,hk,s,d,dv,window,softcap,dtype", FLASH_WINDOW_CASES)
+def test_flash_attention_window_softcap(cuda, b, h, hk, s, d, dv, window, softcap, dtype):
+    """The sliding window and the softcap (gemma2's local and global
+    layers) against the plain version at the bars above; the dense schedule
+    (every tile visited and masked) gives the windowed walk's output bit
+    for bit, and with neither option the kernel's output is unchanged."""
+    rng = np.random.default_rng(s + d + window)
+    td = TORCH_DT[dtype]
+    q = _t(4 * rng.standard_normal((b, h, s, d)).astype(np.float32), cuda, td)
+    k = _t(rng.standard_normal((b, hk, s, d)).astype(np.float32), cuda, td)
+    v = _t(rng.standard_normal((b, hk, s, dv)).astype(np.float32), cuda, td)
+    got = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    dense = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap, causal_skip=False)
+    want = fa_ref.flash_attention(q, k, v, window=window, softcap=softcap).float()
+    plain_kernel = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == td and got.shape == (b, h, s, dv)
+    if td is torch.float32:
+        torch.testing.assert_close(got, want, atol=FLASH_TOL_F32, rtol=FLASH_TOL_F32)
+    else:
+        rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        worst = ((got.float() - want).abs() / (want.abs() + rms)).max().item()
+        assert worst <= FLASH_TOL_BF16, worst
+    assert torch.equal(dense, got)
+    assert torch.equal(plain_kernel, fa_ops.flash_attention(q, k, v, window=0, softcap=0.0))
+    if 0 < window < s:  # the window acts: it is not the causal output
+        assert not torch.equal(got, fa_ops.flash_attention(q, k, v, softcap=softcap))
+
+
+def test_gemma2_local_block_kernels_vs_plain(cuda):
+    """gemma2-27b smoke's local block (window 16, softcaps) in f32 through
+    the kernels on the card and the plain versions on the same weights: a
+    40-token prefill and one decode step at positions past the window,
+    within 1e-4 of max |plain|, through the fused branch (two norm-quant
+    launches)."""
+    cfg = dataclasses.replace(get_config("gemma2-27b", smoke=True), dtype=torch.float32)
+    params = PR.init_packed_params(TT.param_specs(cfg), 0, cuda, dense_leaves=TT.DENSE_LEAVES)
+    kind, bp, _ = list(TT._layers(cfg, params))[0]
+    assert kind.local and cfg.sliding_window == 16
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    rope = TT.rope_for(cfg, torch.arange(40, device=cuda)[None].expand(2, 40))
+    reset_launch_counts()
+    yk, rows = TT.apply_block(kind, bp, x, cfg, rope, kernels=KERNELS)
+    counts = launch_counts()
+    yp, _ = TT.apply_block(kind, bp, x, cfg, rope, kernels=PLAIN)
+    assert (yk - yp).abs().max() <= 1e-4 * yp.abs().max()
+    assert counts["norm_quant"] == 2 and counts["flash_attention"] == 1
+    pos = torch.tensor([40, 29], dtype=torch.int32, device=cuda)
+    cache = {n: torch.nn.functional.pad(r, (0, 0, 0, 3)) for n, r in rows.items()}  # S + 3
+    drope = TT.rope_for(cfg, pos[:, None])
+    x1 = x[:, :1].clone()
+    dk, _ = TT.apply_block(kind, bp, x1, cfg, drope, kernels=KERNELS, pos=pos,
+                           cache={n: c.clone() for n, c in cache.items()})
+    dp, _ = TT.apply_block(kind, bp, x1, cfg, drope, kernels=PLAIN, pos=pos,
+                           cache={n: c.clone() for n, c in cache.items()})
+    assert (dk - dp).abs().max() <= 1e-4 * dp.abs().max()
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])

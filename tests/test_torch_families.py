@@ -22,8 +22,11 @@ Bars:
   ones):
   equal to JAX's ``mode="packed"`` ones token for token, with the same
   statuses; Arctic also under the int8 KV cache;
-* the refusals of the chunked and paged paths (ROADMAP A13c), and
-  ``speculative=True`` staying plain decode, as in JAX;
+* DeepSeek's refusals of the chunked and paged paths (JAX's MLA mixer
+  refuses both, ``transformer.py:389-392, 417-421``), Arctic's ``"auto"``
+  resolving to the legacy prefill and ``speculative=True`` then staying
+  plain decode, as in JAX (Arctic's chunked, paged and speculative engines
+  are ``test_torch_moe_engine.py``'s);
 * tellme-0.7b smoke: ``fused=False`` equal to ``fused=True`` bit for bit
   (logits, caches and streams) on the plain versions;
 * the engine's cache walks on DeepSeek's tree (a prelude, MLA latents with
@@ -300,18 +303,32 @@ def test_legacy_engine_with_decode_drops():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_chunked_and_paged_refused_speculative_stays_plain(models, arch):
+    """The MLA family refuses the chunked and paged paths, as JAX's
+    ``apply_block`` does; the moe family runs them when asked (its streams
+    are held in ``test_torch_moe_engine.py``). Both resolve ``"auto"`` to
+    the legacy prefill, where ``speculative=True`` stays plain decode."""
     _, tcfg, _, tp = models[arch]
-    with pytest.raises(ValueError, match="A13c"):
-        TE.ServingEngine(tp, tcfg, slots=1, max_len=MAX_LEN, prefill="chunked", device="cpu")
-    with pytest.raises(ValueError, match="A13c"):
-        TE.ServingEngine(tp, dataclasses.replace(tcfg, kv_layout="paged"), slots=1,
-                         max_len=MAX_LEN, device="cpu")
     caches = TT.cache_zeros(tcfg, 1, MAX_LEN, "cpu")
-    with pytest.raises(NotImplementedError, match="A13c"):
-        TT.prefill_chunk_step(tp, torch.zeros((1, 64), dtype=torch.long), caches,
-                              torch.zeros(1, dtype=torch.int32), tcfg, kernels=PLAIN)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        TT.cache_specs(tcfg, 1, 64, kv_pages=4)
+    chunk = (tp, torch.zeros((1, 64), dtype=torch.long), caches,
+             torch.zeros(1, dtype=torch.int32), tcfg)
+    if tcfg.family == "mla_moe":
+        with pytest.raises(ValueError, match="transformer.py:389-392, 417-421"):
+            TE.ServingEngine(tp, tcfg, slots=1, max_len=MAX_LEN, prefill="chunked",
+                             device="cpu")
+        with pytest.raises(ValueError, match="transformer.py:389-392, 417-421"):
+            TE.ServingEngine(tp, dataclasses.replace(tcfg, kv_layout="paged"), slots=1,
+                             max_len=MAX_LEN, device="cpu")
+        with pytest.raises(NotImplementedError, match="transformer.py:417-421"):
+            TT.prefill_chunk_step(*chunk, kernels=PLAIN)
+        with pytest.raises(NotImplementedError, match="transformer.py:389-392"):
+            TT.cache_specs(tcfg, 1, 64, kv_pages=4)
+    else:
+        eng = TE.ServingEngine(tp, dataclasses.replace(tcfg, kv_layout="paged"), slots=1,
+                               max_len=MAX_LEN, prefill="chunked", kernels=PLAIN, device="cpu")
+        assert eng.paged is not None
+        logits, _ = TT.prefill_chunk_step(*chunk, kernels=PLAIN)
+        assert logits.shape == (1, 64, tcfg.padded_vocab)
+        assert TT.cache_specs(tcfg, 1, 64, kv_pages=4)["blocks"]["b0"]["k"][0][1] == 4
     eng = TE.ServingEngine(tp, tcfg, slots=2, max_len=MAX_LEN, kernels=PLAIN, device="cpu",
                            speculative=True)
     assert not eng.speculative and eng.prefill == "legacy"
