@@ -12,7 +12,9 @@ DeepSeek-V2-Lite 16B (the mla_moe family) at full width and depth through
 ``generate`` and the per-request engine; then Gemma-2 27B (local layers
 with a 4096-token sliding window beside global ones, softcaps) at full
 width and depth through ``generate`` and the chunked engine, with
-prompts past the window.
+prompts past the window; then Jamba-v0.1 52B (the hybrid family: Mamba
+mixers, one attention layer in eight, 16 experts every second layer) at
+full width and depth through ``generate`` and the per-request engine.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
@@ -20,7 +22,7 @@ prompts past the window.
 Phases (each prints one JSON line; any failed bar exits non-zero):
   Every phase's line carries ``phase_wall_s``, the wall seconds since the
   line before it.
-  build     nvcc builds the eight kernel sources (timed, each source's
+  build     nvcc builds the eleven kernel sources (timed, each source's
             compile seconds in ``compile_s``); the line carries
             ptxas's registers, static shared memory and spills of the three
             tensor-core kernels (flash attention and prefill-append in bf16,
@@ -219,7 +221,7 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             and the engine (prefill="auto", which is legacy): equal streams
             and statuses.
   rwkv_generate  full-width rwkv6-3b (32 layers, random weights from seed
-            0), B = 4, a 100-token prompt, 64 greedy steps through the
+            0), B = 4, a 100-token prompt, 32 greedy steps through the
             kernels, 16 through the plain versions (the streams compared
             over those): 32 wkv launches per prefill and no attention or
             norm-quant launch (counters reset just before, read just
@@ -265,7 +267,7 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             each through the kernels and the plain versions on the same
             input, a 4 x 100 prefill and one decode step: within the
             logits bar of max |plain|.
-  deepseek_generate  B = 4, a 100-token prompt, 32 steps through the
+  deepseek_generate  B = 4, a 100-token prompt, 16 steps through the
             kernels, 4 through the plain versions (2 s a step): decode ms a
             step and tokens/s, the launches of
             the run and of one decode step, the 1 x 1000 prefill, the
@@ -314,6 +316,29 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             attention at 1 x 4352 and 4 x 128 with and without them, its
             bound over the live pairs under the window, its library call
             SDPA with a boolean mask) with their launches in these runs.
+  jamba_smoke  jamba-v0.1-52b's smoke config in f32, card (kernels) vs
+            CPU (plain versions): forward logits, generate streams and the
+            legacy engine (two slots, prompts of 2-200 tokens): streams
+            equal or parting at a near-tie (its top-2 gap reported).
+  jamba_init  full-width jamba-v0.1-52b (32 layers, d_model 4096, 16
+            experts, random weights from seed 0) packed leaf by leaf on the
+            card: seconds, bytes resident, peak beyond what was resident.
+  jamba_blocks  b0 (Mamba + dense MLP), b1 (Mamba + experts) and b4
+            (attention, fused), kernels vs plain versions on the same
+            input: a 1 x 512 prefill and a B = 4 decode from its state;
+            the Mamba blocks bit for bit, b4 within the logits bar.
+  jamba_generate  B = 4 with 100-token prompts, 16 steps through the
+            kernels and 4 through the plain versions: prefill ms, decode
+            ms a step, tokens/s, launches a step, busy share; the prefill
+            layer by layer (Mamba blocks bit-equal, attention blocks
+            within the bar); the 1 x 2000 prefill timed, with the selective
+            scan's share of it.
+  jamba_engine  the legacy engine, 8 slots, 16 prompts of 64-1024 tokens,
+            16 new each: every request OK with its tokens delivered once,
+            one host transfer a tick; tokens/s, tick ms. Then the
+            ``jamba_rows`` line: the kernels phase's jamba shapes of rows
+            1, 3-6 and 17 (the Mamba and expert projections, x_proj's
+            ragged 288 outputs, G = 4 attention) with their launches.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -346,6 +371,7 @@ SMOKE_LOGIT_TOL = 1e-3  # f32 smoke prefill logits, card vs CPU
 WKV_TOL = 1e-4  # wkv's y and state, f32, of each head's max |plain| (wkv_rows)
 
 STEPS = 64  # greedy steps of the full-width run
+RWKV_STEPS = 32  # greedy steps of rwkv6-3b's full-width generate
 # greedy steps of the plain versions' full-width generate (tellme-0.7b,
 # rwkv6-3b); the streams are compared over them
 PLAIN_STEPS = 16
@@ -380,7 +406,7 @@ RWKV_PREFILL_SHAPES = ((1, 1000), (1, 4000))  # (batch, prompt), exact length
 ONE_SLOT_REQUESTS = 2  # the rwkv engine's requests also served through one slot
 # the rwkv engine's requests set beside generate of their prompt alone (4 s
 # each)
-ALONE_REQUESTS = 4
+ALONE_REQUESTS = 2
 REPEAT_REQUESTS, REPEAT_NEW = 8, 64  # the speculative engine's repetitive workload
 # the fault phases' plans: ticks and slots where the engine phase's schedule
 # (and the smoke engine's) has the targeted slots live
@@ -545,21 +571,19 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def kernel_phase(torch, cfg, report: dict) -> list[dict]:
+def kernel_helpers(torch, checks: list):
+    """The kernel phase's helpers on the card, seeded once: ``randn(*shape,
+    dtype=)``, ``int8(*shape)``, ``packed(n, k)`` (random trits, packed),
+    ``unpacked_bf16(wp, scale)``, ``quant_close(name, got, want)`` (codes
+    within 1 and scales within QUANT_SCALE_RTOL, else the script fails) and
+    ``projection_row(...)`` (one packed projection held bit for bit against
+    its plain version and timed); held shapes go into ``checks``."""
     from repro_torch.core import packing as PK
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention import ref as da_ref
-    from repro_torch.kernels.fused_norm_quant import ops as nq_ops
-    from repro_torch.kernels.fused_norm_quant import ref as nq_ref
-    from repro_torch.kernels.ternary_matmul import ops as tm_ops
-    from repro_torch.kernels.ternary_matmul import ref as tm_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     bf16 = torch.bfloat16
-    d, ff, b = cfg.d_model, cfg.d_ff, 4
-    decode_m, prefill_m = b, b * 128
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -582,35 +606,6 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
             fail(f"{name}: codes off by {code_err}, scale rel err {scale_err}")
         return float(code_err)
 
-    rows = []
-    checks = []
-
-    # --- norm_quant: decode, prefill and the 4096-token prefill's rows, and
-    # rwkv6-3b's d_model; each held and timed, the decode row on the line --
-    nq_rows = []
-    for tag, m, width in (("decode", decode_m, d), ("prefill", prefill_m, d),
-                          ("prefill 4096", 4096, d), ("d_model 2560", decode_m, 2560)):
-        gamma = randn(width)
-        x = randn(m, width, dtype=bf16)
-        err = quant_close(f"norm_quant[{tag}]", nq_ops.norm_quant(x, gamma),
-                          nq_ref.norm_quant(x, gamma))
-        checks.append({"kernel": "norm_quant", "shape": tag, "max_abs_err": err})
-        nq_args = [(x, gamma)]
-        nb = _nbytes(x, gamma) + x.numel() + x.shape[0] * 4
-        bms, bby = bound_ms(nb, 5 * x.numel(), "f32")
-        nq_rows.append({"name": "norm_quant", "route": "cuda", "shape_tag": tag,
-                        "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
-                        "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:74",
-                        "shape": f"x[{m},{width}] bf16", "max_abs_err": err,
-                        "ms": time_ms(torch, nq_ops.norm_quant, nq_args),
-                        "eager_ms": eager_ms(torch, nq_ops.norm_quant, nq_args),
-                        "plain_ms": time_ms(torch, nq_ref.norm_quant, nq_args,
-                                            iters=100 if m <= prefill_m else 20),
-                        "bound_ms": bms, "bound_by": bby, "library_ms": None})
-    rows.append(nq_rows[0])
-    report["norm_quant_shapes"] = nq_rows
-
-    # --- ternary projections: GEMV (decode) and tiled matmul (prefill) ----
     def projection_row(name, fn, ref_fn, m, n, k, residual: bool, replaces, shape_tag,
                        plain_iters: int = 100):
         wp = packed(n, k)
@@ -646,6 +641,52 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
         row["over_library"] = row["ms"] / row["library_ms"]
         return row
 
+    return randn, int8, packed, unpacked_bf16, quant_close, projection_row
+
+
+def kernel_phase(torch, cfg, report: dict) -> list[dict]:
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.fused_norm_quant import ops as nq_ops
+    from repro_torch.kernels.fused_norm_quant import ref as nq_ref
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.ternary_matmul import ref as tm_ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    d, ff, b = cfg.d_model, cfg.d_ff, 4
+    decode_m, prefill_m = b, b * 128
+    rows = []
+    checks = []
+    randn, int8, packed, unpacked_bf16, quant_close, projection_row = kernel_helpers(
+        torch, checks)
+
+    # --- norm_quant: decode, prefill and the 4096-token prefill's rows, and
+    # rwkv6-3b's d_model; each held and timed, the decode row on the line --
+    nq_rows = []
+    for tag, m, width in (("decode", decode_m, d), ("prefill", prefill_m, d),
+                          ("prefill 4096", 4096, d), ("d_model 2560", decode_m, 2560)):
+        gamma = randn(width)
+        x = randn(m, width, dtype=bf16)
+        err = quant_close(f"norm_quant[{tag}]", nq_ops.norm_quant(x, gamma),
+                          nq_ref.norm_quant(x, gamma))
+        checks.append({"kernel": "norm_quant", "shape": tag, "max_abs_err": err})
+        nq_args = [(x, gamma)]
+        nb = _nbytes(x, gamma) + x.numel() + x.shape[0] * 4
+        bms, bby = bound_ms(nb, 5 * x.numel(), "f32")
+        nq_rows.append({"name": "norm_quant", "route": "cuda", "shape_tag": tag,
+                        "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
+                        "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:74",
+                        "shape": f"x[{m},{width}] bf16", "max_abs_err": err,
+                        "ms": time_ms(torch, nq_ops.norm_quant, nq_args),
+                        "eager_ms": eager_ms(torch, nq_ops.norm_quant, nq_args),
+                        "plain_ms": time_ms(torch, nq_ref.norm_quant, nq_args,
+                                            iters=100 if m <= prefill_m else 20),
+                        "bound_ms": bms, "bound_by": bby, "library_ms": None})
+    rows.append(nq_rows[0])
+    report["norm_quant_shapes"] = nq_rows
+
+    # --- ternary projections: GEMV (decode) and tiled matmul (prefill) ----
     gemv_rows = [
         projection_row("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv,
                        decode_m, d, d, False, "src/repro/kernels/ternary_matmul/kernel.py:109",
@@ -790,6 +831,8 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
     report["wkv_shapes"] = wkv
     report["gemma2_kernel_shapes"] = gemma2_kernel_rows(torch, randn, int8, packed, quant_close,
                                                         projection_row, checks)
+    report["jamba_kernel_shapes"] = jamba_kernel_rows(torch, randn, int8, packed, quant_close,
+                                                      projection_row, checks)
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
     return rows
@@ -1557,7 +1600,7 @@ def paged_prefill_rows(torch, cfg, randn, int8, checks) -> list[dict]:
                          vd[live, :, :end].contiguous(), (kpos <= qpos)[:, None])]
             out_rows.append({
                 "name": name, "route": "cuda", "shape_tag": tag,
-                "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append.cu",
+                "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append_paged.cu",
                 "replaces": ("src/repro/kernels/prefill_append/kernel.py:503" if quant
                              else "src/repro/kernels/prefill_append/kernel.py:477"),
                 "shape": (f"q[{b},{h},{c},{hd}] offsets {offs} prefix_limit {limit} pools "
@@ -3871,7 +3914,7 @@ def _drift_problems(drift) -> list[str]:
 
 def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
     """Full-width rwkv6-3b generate, B = 4, a 100-token prompt (the exact
-    length, no bucket), 64 greedy steps through the kernels (counters
+    length, no bucket), RWKV_STEPS greedy steps through the kernels (counters
     reset just before, read just after) and PLAIN_STEPS through the plain
     versions (the streams compared over those):
     32 wkv launches (one prefill), no attention and no norm-quant launch.
@@ -3895,10 +3938,10 @@ def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
     dev = torch.device("cuda")
     prompts = generate_prompts(torch, cfg)
     b, s = prompts.shape
-    res_k, counts, times_k = generate_run(torch, cfg, params, prompts, STEPS, K.KERNELS)
+    res_k, counts, times_k = generate_run(torch, cfg, params, prompts, RWKV_STEPS, K.KERNELS)
     res_p, _, times_p = generate_run(torch, cfg, params, prompts, PLAIN_STEPS, K.PLAIN)
     toks_k, toks_p = res_k.tokens, res_p.tokens
-    if tuple(toks_k.shape) != (b, STEPS):
+    if tuple(toks_k.shape) != (b, RWKV_STEPS):
         fail("rwkv_generate: wrong token shape")
     toks_k = toks_k[:, :PLAIN_STEPS]  # compared over the plain run's steps
     lk, lp = res_k.prefill_logits.float(), res_p.prefill_logits.float()
@@ -3922,7 +3965,8 @@ def rwkv_generate_phase(torch, cfg, params, report: dict) -> dict:
     weight_bytes = rwkv_weight_bytes(params)
     decode_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     out = {"phase": "rwkv_generate", "model": cfg.name, "batch": b, "prompt": s,
-           "steps": STEPS, "compared_steps": PLAIN_STEPS, "kernels": times_k, "plain": times_p,
+           "steps": RWKV_STEPS, "compared_steps": PLAIN_STEPS, "kernels": times_k,
+           "plain": times_p,
            "launch_counts": {n: c for n, c in counts.items() if c},
            "first_tokens_equal": bool(torch.equal(toks_k[:, 0], toks_p[:, 0])),
            "first_token_plain_gap_rel": first_gap.item() / scale,
@@ -4348,7 +4392,7 @@ MOE_SMOKE_ARCHS = (DEEPSEEK, "arctic-480b")
 # f32 smoke logits, card vs CPU, of max |logit|: as the CPU tests' bar
 # against JAX (tests/test_torch_families.py), an ulp can move one int8 code
 MOE_SMOKE_LOGIT_TOL = 2e-2
-DEEPSEEK_STEPS = 32
+DEEPSEEK_STEPS = 16
 DEEPSEEK_PLAIN_STEPS = 4  # the plain versions' run (2 s a step), the streams' prefix compared
 DEEPSEEK_PREFILLS = ((4, 100), (1, 1000))  # (batch, prompt), exact length
 # the kernels the DeepSeek runs launch: the packed projections (GEMV and
@@ -4357,32 +4401,48 @@ DEEPSEEK_PREFILLS = ((4, 100), (1, 1000))  # (batch, prompt), exact length
 DEEPSEEK_PATH = ("ternary_gemv", "ternary_matmul", "flash_attention")
 
 
-def _decode_parting(torch, cfg, cuda_params, cpu_params, prompt, got, want) -> dict:
-    """Where a card stream parts from the CPU's, for a model whose decode
-    is no teacher-forced prefill (MLA absorbs float weights where its
-    prefill quantizes): the CPU's stream replayed through
-    ``prefill_bucketed`` and ``decode_step`` on both sides up to the
-    parting step; the gap between the two tokens' plain logits there, and
-    how far the kernels' logits lie from the plain ones."""
+def _near_tie(p) -> bool:
+    """A parting at a near-tie: the plain top-2 gap is no larger than the
+    kernels' difference from the plain logits, which is within the bar."""
+    return p["plain_gap"] <= p["kernel_vs_plain"] <= MOE_SMOKE_LOGIT_TOL * p["max_abs_logit"]
+
+
+def _decode_parting(torch, cfg, cuda_params, cpu_params, prompts, got, want) -> dict:
+    """Where card streams first part from the CPU's, for a model whose
+    decode is no teacher-forced prefill (MLA absorbs float weights where its
+    prefill quantizes; a batch's rows share the experts' capacity):
+    ``prompts [B, S]`` and the CPU's tokens ``want [B, T]`` replayed through
+    ``prefill_bucketed`` and ``decode_step`` of the whole batch on both
+    sides up to the first parting step of ``got [B, T]``; the gap between
+    the two tokens' plain logits there, and how far the kernels' logits lie
+    from the plain ones."""
+    import numpy as np
+
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.models import transformer as Tr
     from repro_torch.serving import engine as E
 
-    step = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
-    rows = []
+    prompts = torch.as_tensor(np.asarray(prompts)).long()
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    t = min(got.shape[1], want.shape[1])
+    got, want = got[:, :t], want[:, :t]
+    b, s = prompts.shape
+    step = int((got != want).any(0).nonzero()[0])
+    row = int((got[:, step] != want[:, step]).nonzero()[0])
+    out = []
     for params, kset, dev in ((cuda_params, KERNELS, "cuda"), (cpu_params, PLAIN, "cpu")):
-        tokens = torch.as_tensor(list(prompt), device=dev)[None].long()
         with torch.inference_mode():
-            logits, caches = E.prefill_bucketed(params, cfg, tokens, kernels=kset)
-            caches = E.fit_caches(caches, cfg, len(prompt) + step + 1)
+            logits, caches = E.prefill_bucketed(params, cfg, prompts.to(dev), kernels=kset)
+            caches = E.fit_caches(caches, cfg, s + step + 1)
             for i in range(step):
-                pos = torch.full((1,), len(prompt) + i, dtype=torch.int32, device=dev)
-                tok = torch.full((1, 1), int(want[i]), dtype=torch.long, device=dev)
-                logits, caches = Tr.decode_step(params, tok, caches, pos, cfg, kernels=kset)
-        rows.append(logits[0].float().cpu())
-    rk, rp = rows
-    return {"step": step, "tokens": [int(got[step]), int(want[step])],
-            "plain_gap": abs(rp[got[step]] - rp[want[step]]).item(),
+                pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+                logits, caches = Tr.decode_step(params, want[:, i:i + 1].to(dev).long(),
+                                                caches, pos, cfg, kernels=kset)
+        out.append(logits[row].float().cpu())
+    rk, rp = out
+    tg, tw = int(got[row, step]), int(want[row, step])
+    return {"row": row, "step": step, "tokens": [tg, tw],
+            "plain_gap": abs(rp[tg] - rp[tw]).item(),
             "kernel_vs_plain": (rk - rp).abs().max().item(),
             "max_abs_logit": rp.abs().max().item()}
 
@@ -4441,11 +4501,10 @@ def moe_smoke_phase(torch, report: dict) -> None:
             runs.append(([(r.generated, r.status.name) for r in reqs], eng.stats(),
                          eng.prefill))
         (got, st, mode), (want, _, _) = runs
-        partings = {i: _decode_parting(torch, cfg, cuda_params, cpu_params, eng_prompts[i],
-                                       g[0], w[0])
+        partings = {i: _decode_parting(torch, cfg, cuda_params, cpu_params, [eng_prompts[i]],
+                                       [g[0]], [w[0]])
                     for i, (g, w) in enumerate(zip(got, want)) if g[0] != w[0]}
-        near_ties = all(p["plain_gap"] <= p["kernel_vs_plain"]
-                        <= MOE_SMOKE_LOGIT_TOL * p["max_abs_logit"] for p in partings.values())
+        near_ties = all(_near_tie(p) for p in partings.values())
         res = {"forward_logit_rel_err": logit_rel,
                "forward_argmax_equal": bool(torch.equal(lk.argmax(-1), lp.argmax(-1))),
                "generate_streams_equal": bool(torch.equal(on_card.tokens, on_cpu.tokens)),
@@ -4669,6 +4728,193 @@ def _flash_live_pairs(b, h, s, window: int) -> int:
     return b * h * (window * (window + 1) // 2 + (s - window) * window)
 
 
+def norm_quant_row(torch, randn, quant_close, checks, tag: str, m: int, d: int,
+                   note: str = "") -> dict:
+    """Row 1 at x[m, d] bf16 under ``tag``: held against its plain version
+    (codes within 1) and timed beside its bound and the plain version."""
+    from repro_torch.kernels.fused_norm_quant import ops as nq_ops
+    from repro_torch.kernels.fused_norm_quant import ref as nq_ref
+
+    gamma, x = randn(d), randn(m, d, dtype=torch.bfloat16)
+    err = quant_close(f"norm_quant[{tag}]", nq_ops.norm_quant(x, gamma),
+                      nq_ref.norm_quant(x, gamma))
+    checks.append({"kernel": "norm_quant", "shape": tag, "max_abs_err": err})
+    args = [(x, gamma)]
+    bms, bby = bound_ms(_nbytes(x, gamma) + x.numel() + m * 4, 5 * x.numel(), "f32")
+    return {"name": "norm_quant", "route": "cuda", "shape_tag": tag,
+            "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
+            "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:74",
+            "shape": f"x[{m},{d}] bf16{note}", "max_abs_err": err,
+            "ms": time_ms(torch, nq_ops.norm_quant, args),
+            "eager_ms": eager_ms(torch, nq_ops.norm_quant, args),
+            "plain_ms": time_ms(torch, nq_ref.norm_quant, args),
+            "bound_ms": bms, "bound_by": bby, "library_ms": None}
+
+
+def swiglu_rows(torch, randn, int8, packed, quant_close, checks, model: str, d: int, ff: int,
+                tagged_rows) -> list[dict]:
+    """Row 5 with one pair of packed ``[d, ff]`` weights at each ``(tag,
+    m)`` of ``tagged_rows``: held against its plain version (codes within
+    1) and timed."""
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.ternary_matmul import ref as tm_ref
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    wg, wu = packed(d, ff), packed(d, ff)
+    sg, su = torch.tensor(0.03, device=dev), torch.tensor(0.025, device=dev)
+    kw = {"act_dtype": bf16}
+    rows = []
+    for tag, m in tagged_rows:
+        x, xs = int8(m, d), randn(m, 1).abs() * 1e-3 + 1e-4
+        err = quant_close(f"ternary_swiglu[{model} {tag}]",
+                          tm_ops.ternary_swiglu(x, xs, wg, sg, wu, su, **kw),
+                          tm_ref.ternary_swiglu(x, xs, wg, sg, wu, su, **kw))
+        checks.append({"kernel": "ternary_swiglu", "shape": f"{model} {tag}",
+                       "max_abs_err": err})
+        sets = [(x, xs, wg, sg, wu, su)]
+        bms, bby = bound_ms(_nbytes(x, xs, wg, wu, sg, su) + m * ff + m * 4, 4 * m * d * ff,
+                            "int8")
+        rows.append({"name": "ternary_swiglu", "route": "cuda", "shape_tag": f"{model} {tag}",
+                     "source": "src/repro_torch/kernels/ternary_matmul/csrc/ternary_swiglu.cu",
+                     "replaces": "src/repro/kernels/ternary_matmul/kernel.py:177",
+                     "shape": f"x[{m},{d}] x 2 wp[{d // 4},{ff}]", "max_abs_err": err,
+                     "ms": time_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw), sets,
+                                   iters=20),
+                     "eager_ms": eager_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw),
+                                          sets, iters=50),
+                     "plain_ms": time_ms(torch, lambda *a: tm_ref.ternary_swiglu(*a, **kw),
+                                         sets, iters=3),
+                     "bound_ms": bms, "bound_by": bby, "library_ms": None})
+    return rows
+
+
+def decode_attention_row(torch, randn, checks, tag: str, b: int, h: int, hk: int, hd: int,
+                         m: int, pos: list, window: int = 0, softcap: float = 0.0) -> dict:
+    """Row 6 with q[b, h, hd] against a bf16 cache [b, hk, m, hd] at the
+    frontiers ``pos``: held against its plain version in bf16 and f32 and
+    timed beside its bound (the rows the frontiers and the window leave
+    live), the plain version and SDPA with the same boolean mask (k/v
+    repeated to H heads; SDPA has no softcap)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q = randn(b, h, hd, dtype=bf16)
+    k, v = randn(b, hk, m, hd, dtype=bf16), randn(b, hk, m, hd, dtype=bf16)
+    kw = {"window": window, "softcap": softcap}
+    for dtype, tol in ((bf16, ATTN_TOL_BF16), (f32, ATTN_TOL_F32)):
+        args = (q.to(dtype), k.to(dtype), v.to(dtype), pos)
+        got = da_ops.decode_attention(*args, **kw).float()
+        want = da_ref.decode_attention(*args, **kw).float()
+        err = (got - want).abs().max().item()
+        checks.append({"kernel": "decode_attention", "shape": f"{tag} {dtype}",
+                       "max_abs_err": err, "tol": tol})
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            fail(f"decode_attention[{tag}, {dtype}]: max |kernel - plain| = {err}, bar {tol}")
+        if dtype is bf16:
+            dec_err = err
+    live = pos.to(torch.int64) + 1
+    rows_read = (torch.clamp(live, max=window) if window > 0 else live).sum().item() * hk
+    bms, bby = bound_ms(2 * _nbytes(q) + _nbytes(pos) + rows_read * 2 * hd * 2,
+                        4 * rows_read * (h // hk) * hd, "bf16")
+    kpos = torch.arange(m, device=dev)[None, :]
+    mask = _window_mask(pos[:, None].to(torch.int64), kpos, window)[:, None, None]
+    kr, vr = k.repeat_interleave(h // hk, dim=1), v.repeat_interleave(h // hk, dim=1)
+    sets = [(q, k, v, pos)]
+    extras = (f", window {window}" if window else "") + (f", softcap {softcap}" if softcap
+                                                           else "")
+    row = {"name": "decode_attention", "route": "cuda", "shape_tag": tag,
+           "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention/kernel.py:305",
+           "shape": f"q[{b},{h},{hd}] cache[{b},{hk},{m},{hd}] bf16, pos {pos.tolist()}"
+                    + extras,
+           "max_abs_err": dec_err,
+           "ms": time_ms(torch, lambda *a: da_ops.decode_attention(*a, **kw), sets),
+           "eager_ms": eager_ms(torch, lambda *a: da_ops.decode_attention(*a, **kw), sets),
+           "plain_ms": time_ms(torch, lambda *a: da_ref.decode_attention(*a, **kw), sets,
+                               iters=5),
+           "bound_ms": bms, "bound_by": bby,
+           "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a),
+                                 [(q[:, :, None], kr, vr, mask)]),
+           "library_note": f"SDPA with the {'window' if window else 'frontier'}'s boolean "
+                           "mask, k/v repeated to H heads" + (", no softcap" if softcap else "")}
+    row["over_library"] = row["ms"] / row["library_ms"]
+    return row
+
+
+def flash_attention_model_rows(torch, randn, checks, tag: str, fb: int, s: int, h: int,
+                               hk: int, hd: int, window: int = 0,
+                               softcap: float = 0.0) -> list[dict]:
+    """Row 17 with q[fb, h, s, hd] and k/v of hk heads in bf16: with
+    ``window`` (and ``softcap``) set, one row with them and one without.
+    Each held against its plain version (within FLASH_TOL_BF16 of |want|
+    plus its row's RMS, and the dense schedule bit-equal to the causal
+    skip's) and timed beside its bound (the live pairs), the plain version
+    and SDPA (causal, or the window's boolean mask; k/v repeated to H
+    heads; no softcap)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = randn(fb, h, s, hd, dtype=bf16)
+    k, v = randn(fb, hk, s, hd, dtype=bf16), randn(fb, hk, s, hd, dtype=bf16)
+    kl, vl = k.repeat_interleave(h // hk, dim=1), v.repeat_interleave(h // hk, dim=1)
+    rows = []
+    for local in ((True, False) if window else (False,)):
+        kw = {"window": window, "softcap": softcap} if local else {}
+        kind = "window+softcap" if local else "plain"
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        want = fa_ref.flash_attention(q, k, v, **kw).float()
+        rms_row = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        scaled = ((got.float() - want).abs()
+                  / (want.abs() + rms_row).clamp_min(1e-30)).max().item()
+        dense_same = bool(torch.equal(fa_ops.flash_attention(q, k, v, causal_skip=False, **kw),
+                                      got))
+        err = (got.float() - want).abs().max().item()
+        checks.append({"kernel": "flash_attention", "shape": f"{tag} {kind}",
+                       "max_err_over_abs_plus_row_rms": scaled,
+                       "tol_of_abs_plus_row_rms": FLASH_TOL_BF16,
+                       "dense_schedule_equal": dense_same})
+        if scaled > FLASH_TOL_BF16 or not dense_same:
+            fail(f"flash_attention[{tag} {kind}]: {checks[-1]}")
+        del want, rms_row
+        pairs = _flash_live_pairs(fb, h, s, window if local else 0)
+        bms, bby = bound_ms(_nbytes(q, k, v) + _nbytes(q), 2 * (hd + hd) * pairs, "bf16")
+        iters = 100 if s <= 256 else 20
+        if local and window < s:
+            idx = torch.arange(s, device=dev)
+            mask = _window_mask(idx[:, None], idx[None, :], window)
+            lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, attn_mask=mask),
+                             [(q, kl, vl)], iters=iters)
+            note = "SDPA with the window's boolean mask, k/v repeated to H heads, no softcap"
+        else:
+            lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, is_causal=True),
+                             [(q, kl, vl)], iters=iters)
+            note = "SDPA, is_causal=True, k/v repeated to H heads" + (
+                ", no softcap" if local else "")
+        sets = [(q, k, v)]
+        extras = (f", window {window}, softcap {softcap}" if local else "")
+        row = {"name": "flash_attention", "route": "cuda",
+               "shape_tag": tag + (" window+softcap" if local else ""),
+               "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+               "shape": f"q[{fb},{h},{s},{hd}] k/v[{fb},{hk},{s},{hd}] bf16" + extras,
+               "max_err_over_abs_plus_row_rms": scaled, "max_abs_err": err,
+               "ms": time_ms(torch, lambda *a: fa_ops.flash_attention(*a, **kw), sets,
+                             iters=iters),
+               "eager_ms": eager_ms(torch, lambda *a: fa_ops.flash_attention(*a, **kw),
+                                    sets, iters=2 * iters),
+               "plain_ms": time_ms(torch, lambda *a: fa_ref.flash_attention(*a, **kw),
+                                   sets, iters=2 if s > 256 else 5),
+               "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
+               "library_note": note, "live_pairs": pairs}
+        row["over_library"] = row["ms"] / lib_ms
+        rows.append(row)
+    return rows
+
+
 def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
                        checks) -> list[dict]:
     """Rows 1, 3-6, 10 and 17 at gemma2-27b's shapes (d 4608, d_ff 36864,
@@ -4684,12 +4930,6 @@ def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
     the library call (SDPA with a boolean mask for a window; it has no
     softcap)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention import ref as da_ref
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.fused_norm_quant import ops as nq_ops
-    from repro_torch.kernels.fused_norm_quant import ref as nq_ref
     from repro_torch.kernels.prefill_append import ops as pa_ops
     from repro_torch.kernels.prefill_append import ref as pa_ref
     from repro_torch.kernels.ternary_matmul import ops as tm_ops
@@ -4700,28 +4940,14 @@ def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
     bf16, f32 = torch.bfloat16, torch.float32
     d, ff, h, hk, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     w, cap = cfg.sliding_window, cfg.attn_logit_softcap
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
+    phases = (("decode", 4), ("prefill", 512))
 
     def tagged(row, tag):
         return {**row, "shape_tag": f"gemma2 {tag}"}
 
-    # --- rows 1, 3-5 ---------------------------------------------------------
-    for tag, m in (("decode", 4), ("prefill", 512)):
-        gamma, x = randn(d), randn(m, d, dtype=bf16)
-        err = quant_close(f"norm_quant[gemma2 {tag}]", nq_ops.norm_quant(x, gamma),
-                          nq_ref.norm_quant(x, gamma))
-        checks.append({"kernel": "norm_quant", "shape": f"gemma2 {tag}", "max_abs_err": err})
-        args = [(x, gamma)]
-        bms, bby = bound_ms(_nbytes(x, gamma) + x.numel() + m * 4, 5 * x.numel(), "f32")
-        rows.append({"name": "norm_quant", "route": "cuda", "shape_tag": f"gemma2 {tag}",
-                     "source": "src/repro_torch/kernels/fused_norm_quant/csrc/norm_quant.cu",
-                     "replaces": "src/repro/kernels/fused_norm_quant/kernel.py:74",
-                     "shape": f"x[{m},{d}] bf16 (loop form)", "max_abs_err": err,
-                     "ms": time_ms(torch, nq_ops.norm_quant, args),
-                     "eager_ms": eager_ms(torch, nq_ops.norm_quant, args),
-                     "plain_ms": time_ms(torch, nq_ref.norm_quant, args),
-                     "bound_ms": bms, "bound_by": bby, "library_ms": None})
+    # --- rows 1, 3-6 ---------------------------------------------------------
+    rows = [norm_quant_row(torch, randn, quant_close, checks, f"gemma2 {tag}", m, d,
+                           " (loop form)") for tag, m in phases]
     for name, fn, ref_fn, m, line in (
             ("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv, 4, 109),
             ("ternary_matmul", tm_ops.ternary_matmul, tm_ref.ternary_matmul, 512, 147)):
@@ -4732,74 +4958,10 @@ def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
         rows.append(tagged(projection_row(name, fn, ref_fn, m, ff, d, True,
                                           f"src/repro/kernels/ternary_matmul/kernel.py:{line}",
                                           "down+res", plain_iters=3), f"{phase} down+res"))
-    wg, wu = packed(d, ff), packed(d, ff)
-    sg, su = torch.tensor(0.03, device=dev), torch.tensor(0.025, device=dev)
-    for tag, m in (("decode", 4), ("prefill", 512)):
-        x, xs = int8(m, d), randn(m, 1).abs() * 1e-3 + 1e-4
-        err = quant_close(f"ternary_swiglu[gemma2 {tag}]",
-                          tm_ops.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=bf16),
-                          tm_ref.ternary_swiglu(x, xs, wg, sg, wu, su, act_dtype=bf16))
-        checks.append({"kernel": "ternary_swiglu", "shape": f"gemma2 {tag}",
-                       "max_abs_err": err})
-        sets = [(x, xs, wg, sg, wu, su)]
-        kw = {"act_dtype": bf16}
-        bms, bby = bound_ms(_nbytes(x, xs, wg, wu, sg, su) + m * ff + m * 4, 4 * m * d * ff,
-                            "int8")
-        rows.append({"name": "ternary_swiglu", "route": "cuda", "shape_tag": f"gemma2 {tag}",
-                     "source": "src/repro_torch/kernels/ternary_matmul/csrc/ternary_swiglu.cu",
-                     "replaces": "src/repro/kernels/ternary_matmul/kernel.py:177",
-                     "shape": f"x[{m},{d}] x 2 wp[{d // 4},{ff}]", "max_abs_err": err,
-                     "ms": time_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw), sets,
-                                   iters=20),
-                     "eager_ms": eager_ms(torch, lambda *a: tm_ops.ternary_swiglu(*a, **kw),
-                                          sets, iters=50),
-                     "plain_ms": time_ms(torch, lambda *a: tm_ref.ternary_swiglu(*a, **kw),
-                                         sets, iters=3),
-                     "bound_ms": bms, "bound_by": bby, "library_ms": None})
-
-    # --- row 6: decode attention, window and softcap --------------------------
+    rows += swiglu_rows(torch, randn, int8, packed, quant_close, checks, "gemma2", d, ff, phases)
     b, m = ENGINE_SLOTS, GEMMA2_MAX_LEN + CHUNK_ROWS
-    pos = torch.tensor([100, w - 1, w, w + 1, 5000, m - 1, m - 1, 4300], dtype=torch.int32,
-                       device=dev)
-    q = randn(b, h, hd, dtype=bf16)
-    k, v = randn(b, hk, m, hd, dtype=bf16), randn(b, hk, m, hd, dtype=bf16)
-    kw = {"window": w, "softcap": cap}
-    for dtype, tol in ((bf16, ATTN_TOL_BF16), (f32, ATTN_TOL_F32)):
-        args = (q.to(dtype), k.to(dtype), v.to(dtype), pos)
-        got = da_ops.decode_attention(*args, **kw).float()
-        want = da_ref.decode_attention(*args, **kw).float()
-        err = (got - want).abs().max().item()
-        checks.append({"kernel": "decode_attention", "shape": f"gemma2 engine {dtype}",
-                       "max_abs_err": err, "tol": tol})
-        if not torch.allclose(got, want, atol=tol, rtol=tol):
-            fail(f"decode_attention[gemma2, {dtype}]: max |kernel - plain| = {err}, bar {tol}")
-        if dtype is bf16:
-            dec_err = err
-    rows_read = (torch.clamp(pos.to(torch.int64) + 1, max=w)).sum().item() * hk
-    bms, bby = bound_ms(2 * _nbytes(q) + _nbytes(pos) + rows_read * 2 * hd * 2,
-                        4 * rows_read * (h // hk) * hd, "bf16")
-    kpos = torch.arange(m, device=dev)[None, :]
-    mask = _window_mask(pos[:, None].to(torch.int64), kpos, w)[:, None, None]
-    kr, vr = k.repeat_interleave(h // hk, dim=1), v.repeat_interleave(h // hk, dim=1)
-    sets = [(q, k, v, pos)]
-    row = {"name": "decode_attention", "route": "cuda", "shape_tag": "gemma2 engine",
-           "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-           "replaces": "src/repro/kernels/decode_attention/kernel.py:305",
-           "shape": f"q[{b},{h},{hd}] cache[{b},{hk},{m},{hd}] bf16, pos {pos.tolist()}, "
-                    f"window {w}, softcap {cap}",
-           "max_abs_err": dec_err,
-           "ms": time_ms(torch, lambda *a: da_ops.decode_attention(*a, **kw), sets),
-           "eager_ms": eager_ms(torch, lambda *a: da_ops.decode_attention(*a, **kw), sets),
-           "plain_ms": time_ms(torch, lambda *a: da_ref.decode_attention(*a, **kw), sets,
-                               iters=5),
-           "bound_ms": bms, "bound_by": bby,
-           "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a),
-                                 [(q[:, :, None], kr, vr, mask)]),
-           "library_note": "SDPA with the window's boolean mask, k/v repeated to H heads, "
-                           "no softcap"}
-    row["over_library"] = row["ms"] / row["library_ms"]
-    rows.append(row)
-    del k, v, kr, vr
+    rows.append(decode_attention_row(torch, randn, checks, "gemma2 engine", b, h, hk, hd, m,
+                                     [100, w - 1, w, w + 1, 5000, m - 1, m - 1, 4300], w, cap))
 
     # --- row 10: prefill-append at the engine's tick, window and softcap -----
     c, limit = CHUNK_ROWS, GEMMA2_MAX_LEN
@@ -4865,60 +5027,8 @@ def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
 
     # --- row 17: flash attention, with and without the window and softcap ----
     for tag, (fb, s) in (("1x4352", (1, GEMMA2_BLOCK_PREFILL)), ("4x128", (4, 128))):
-        q = randn(fb, h, s, hd, dtype=bf16)
-        k, v = randn(fb, hk, s, hd, dtype=bf16), randn(fb, hk, s, hd, dtype=bf16)
-        kl, vl = k.repeat_interleave(h // hk, dim=1), v.repeat_interleave(h // hk, dim=1)
-        for local in (True, False):
-            kw = {"window": w, "softcap": cap} if local else {}
-            got = fa_ops.flash_attention(q, k, v, **kw)
-            want = fa_ref.flash_attention(q, k, v, **kw).float()
-            rms_row = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
-            scaled = ((got.float() - want).abs()
-                      / (want.abs() + rms_row).clamp_min(1e-30)).max().item()
-            dense_same = bool(torch.equal(fa_ops.flash_attention(q, k, v, causal_skip=False,
-                                                                 **kw), got))
-            err = (got.float() - want).abs().max().item()
-            kind = "local" if local else "plain"
-            checks.append({"kernel": "flash_attention", "shape": f"gemma2 {tag} {kind}",
-                           "max_err_over_abs_plus_row_rms": scaled,
-                           "tol_of_abs_plus_row_rms": FLASH_TOL_BF16,
-                           "dense_schedule_equal": dense_same})
-            if scaled > FLASH_TOL_BF16 or not dense_same:
-                fail(f"flash_attention[gemma2 {tag} {kind}]: {checks[-1]}")
-            del want, rms_row
-            pairs = _flash_live_pairs(fb, h, s, w if local else 0)
-            bms, bby = bound_ms(_nbytes(q, k, v) + _nbytes(q), 2 * (hd + hd) * pairs, "bf16")
-            iters = 100 if s <= 256 else 20
-            if local and w < s:
-                idx = torch.arange(s, device=dev)
-                mask = _window_mask(idx[:, None], idx[None, :], w)
-                lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, attn_mask=mask),
-                                 [(q, kl, vl)], iters=iters)
-                note = "SDPA with the window's boolean mask, k/v repeated to H heads, no softcap"
-            else:
-                lib_ms = time_ms(torch, lambda qq, kk, vv: sdpa(qq, kk, vv, is_causal=True),
-                                 [(q, kl, vl)], iters=iters)
-                note = "SDPA, is_causal=True, k/v repeated to H heads" + (
-                    ", no softcap" if local else "")
-            sets = [(q, k, v)]
-            row = {"name": "flash_attention", "route": "cuda",
-                   "shape_tag": f"gemma2 {tag}" + (" window+softcap" if local else ""),
-                   "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-                   "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
-                   "shape": f"q[{fb},{h},{s},{hd}] k/v[{fb},{hk},{s},{hd}] bf16"
-                            + (f", window {w}, softcap {cap}" if local else ""),
-                   "max_err_over_abs_plus_row_rms": scaled, "max_abs_err": err,
-                   "ms": time_ms(torch, lambda *a: fa_ops.flash_attention(*a, **kw), sets,
-                                 iters=iters),
-                   "eager_ms": eager_ms(torch, lambda *a: fa_ops.flash_attention(*a, **kw),
-                                        sets, iters=2 * iters),
-                   "plain_ms": time_ms(torch, lambda *a: fa_ref.flash_attention(*a, **kw),
-                                       sets, iters=2 if s > 256 else 5),
-                   "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
-                   "library_note": note, "live_pairs": pairs}
-            row["over_library"] = row["ms"] / lib_ms
-            rows.append(row)
-        del q, k, v, kl, vl
+        rows += flash_attention_model_rows(torch, randn, checks, f"gemma2 {tag}", fb, s, h,
+                                           hk, hd, w, cap)
     return rows
 
 
@@ -5001,7 +5111,7 @@ def gemma2_smoke_phase(torch, report: dict) -> None:
             partings = {}
             if arch != GEMMA2:
                 partings = {i: _decode_parting(torch, cfg, cuda_params, cpu_params,
-                                               prompts[i][0], g[0], w[0])
+                                               [prompts[i][0]], [g[0]], [w[0]])
                             for i, (g, w) in enumerate(zip(got, want)) if g[0] != w[0]}
             run = {"streams_equal": got == want, "partings": partings,
                    "statuses": [x[1] for x in got], "ticks": st["ticks"],
@@ -5009,9 +5119,7 @@ def gemma2_smoke_phase(torch, report: dict) -> None:
                    chunk_kernel: counts[chunk_kernel],
                    "decode_attention" + sfx: counts["decode_attention" + sfx]}
             res[f"{kv} {layout}" + (" speculative" if spec else "")] = run
-            near_ties = all(p["plain_gap"] <= p["kernel_vs_plain"]
-                            <= MOE_SMOKE_LOGIT_TOL * p["max_abs_logit"]
-                            for p in partings.values())
+            near_ties = all(_near_tie(p) for p in partings.values())
             ok = (got == want if arch == GEMMA2 else near_ties)
             if not (ok and [x[1] for x in got] == [x[1] for x in want]
                     and all(x[1] == "OK" for x in got) and counts[chunk_kernel] > 0
@@ -5239,6 +5347,482 @@ def gemma2_rows(report: dict, gen_counts: dict, eng_counts: dict) -> dict:
     return {"phase": "gemma2_rows", "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# jamba-v0.1-52b: the hybrid family (Mamba mixers, one attention layer in
+# eight, 16 experts every second layer), through generate and the legacy
+# engine
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+JAMBA_STEPS, JAMBA_PLAIN_STEPS = 16, 4
+JAMBA_LONG = (1, 2000)  # (batch, prompt): the timed long prefill, exact length
+JAMBA_BLOCK_PREFILL = 512  # the blocks' 1 x 512 prefill
+JAMBA_BLOCK_DECODE_POS = (512, 400, 256, 100)  # their B = 4 decode from its state
+JAMBA_ENGINE_RANGE, JAMBA_ENGINE_NEW = (64, 1024), 16
+JAMBA_MAX_LEN = 1056  # the legacy engine's cache rows a slot: the longest prompt + 16 + 16
+# the kernels the jamba runs launch: the fused attention block's prologue,
+# SwiGLU and attention, and every BitLinear's GEMV or tiled matmul
+JAMBA_PATH = ("norm_quant", "ternary_gemv", "ternary_matmul", "ternary_swiglu",
+              "decode_attention", "flash_attention")
+
+
+def jamba_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
+                      checks) -> list[dict]:
+    """Rows 1, 3-6 and 17 at jamba-v0.1-52b's shapes (d 4096, d_ff 14336,
+    d_inner 8192, x_proj's ragged 288 outputs, 32 heads on 8 kv heads of
+    128, so G = 4): norm-quant and the SwiGLU of the fused attention block
+    at generate's decode (4 rows) and 4 x 100 prefill (400 rows); the GEMV
+    at a decode step's in/x/out projections and expert gate and down (an
+    expert holds 4 slots a decode group), the tiled matmul at the 4 x 100
+    prefill's (an expert 62 slots); decode attention at the engine's 8
+    slots against 1056 rows; flash attention at 4 x 100 and 1 x 2000. Each
+    held against its plain version at its kernel's bars and timed beside its
+    bound, the plain version and the library call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.ternary_matmul import ref as tm_ref
+    from repro_torch.models import mamba as Mb
+
+    t0 = time.perf_counter()
+    cfg = get_config(JAMBA)
+    d, ff, h, hk, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    di, ds, dt_rank = Mb.dims(cfg)
+    decode_m, prefill_m, expert_prefill_rows = 4, 400, 62
+    phases = (("decode", decode_m), ("prefill", prefill_m))
+
+    def tagged(row, tag):
+        return {**row, "shape_tag": f"jamba {tag}"}
+
+    # --- row 1: the fused attention block's prologue -------------------------
+    rows = [norm_quant_row(torch, randn, quant_close, checks, f"jamba {tag}", m, d)
+            for tag, m in phases]
+
+    # --- rows 3-4: the Mamba projections and the experts' --------------------
+    gemv = ("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv,
+            "src/repro/kernels/ternary_matmul/kernel.py:109")
+    mm = ("ternary_matmul", tm_ops.ternary_matmul, tm_ref.ternary_matmul,
+          "src/repro/kernels/ternary_matmul/kernel.py:147")
+    for (name, fn, ref_fn, line), (phase, m) in zip((gemv, mm), phases):
+        expert_m = decode_m if phase == "decode" else expert_prefill_rows
+        for what, mm_rows, n, k in (("in_proj", m, d, 2 * di),
+                                    ("x_proj", m, di, dt_rank + 2 * ds),
+                                    ("out_proj", m, di, d),
+                                    ("expert gate", expert_m, d, ff),
+                                    ("expert down", expert_m, ff, d)):
+            rows.append(tagged(projection_row(name, fn, ref_fn, mm_rows, n, k, False, line,
+                                              what, plain_iters=5), f"{phase} {what}"))
+
+    # --- rows 5, 6 and 17: the fused attention block's SwiGLU, attention at G = 4
+    rows += swiglu_rows(torch, randn, int8, packed, quant_close, checks, "jamba", d, ff, phases)
+    rows.append(decode_attention_row(torch, randn, checks, "jamba engine", ENGINE_SLOTS, h, hk,
+                                     hd, JAMBA_MAX_LEN, [100, 1040, 64, 700, 1055, 300, 1023,
+                                                         512]))
+    for tag, (fb, s) in (("4x100", (4, 100)), ("1x2000", JAMBA_LONG)):
+        rows += flash_attention_model_rows(torch, randn, checks, f"jamba {tag}", fb, s, h,
+                                           hk, hd)
+    checks.append({"kernel": "jamba rows", "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def jamba_smoke_phase(torch, report: dict) -> None:
+    """jamba-v0.1-52b's smoke config in f32 on the card (kernels) against
+    the same weights on the CPU (plain versions): forward logits within
+    MOE_SMOKE_LOGIT_TOL of max |logit|; generate (B = 3, 13-token prompts,
+    12 steps) and the legacy engine (``prefill="auto"``, two slots, five
+    prompts of 2-200 tokens, 8 new each, one with 1): equal statuses, one
+    host transfer a tick, every stream equal to the CPU's or parting at a
+    near-tie (the two tokens' plain logits closer than the kernels' lie
+    from the plain ones, those within MOE_SMOKE_LOGIT_TOL), the gap
+    reported; every kernel of JAMBA_PATH launched by the card's runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    cfg = dataclasses.replace(get_config(JAMBA, smoke=True), dtype=torch.float32)
+    cpu_params = PR.init_packed_params(Tr.param_specs(cfg), 0, "cpu",
+                                       dense_leaves=Tr.DENSE_LEAVES)
+    cuda_params = _to_cuda(cpu_params)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 13), generator=torch.Generator().manual_seed(7))
+    with torch.inference_mode():
+        lk, _ = Tr.forward(cuda_params, prompts.to("cuda"), cfg, kernels=K.KERNELS)
+        lp, _ = Tr.forward(cpu_params, prompts, cfg, kernels=K.PLAIN)
+    lk = lk.cpu()
+    logit_rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    K.reset_launch_counts()
+    on_card = E.generate(cuda_params, cfg, prompts, steps=12, kernels=K.KERNELS)
+    counts = dict(K.launch_counts())
+    on_cpu = E.generate(cpu_params, cfg, prompts, steps=12, kernels=K.PLAIN, device="cpu")
+    gen_parting = (None if torch.equal(on_card.tokens, on_cpu.tokens) else
+                   _decode_parting(torch, cfg, cuda_params, cpu_params, prompts,
+                                   on_card.tokens, on_cpu.tokens))
+    rng = np.random.default_rng(7)
+    eng_prompts = [(rng.integers(0, cfg.vocab_size, n), m)
+                   for n, m in ((9, 8), (2, 8), (70, 1), (130, 8), (200, 8))]
+    runs = []
+    for params, kset, device in ((cuda_params, K.KERNELS, None), (cpu_params, K.PLAIN, "cpu")):
+        eng = E.ServingEngine(params, cfg, slots=2, max_len=256, kernels=kset, device=device)
+        reqs = [E.Request(rid=i, prompt=p, max_new=n) for i, (p, n) in enumerate(eng_prompts)]
+        K.reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        runs.append(([(r.generated, r.status.name) for r in reqs], eng.stats(), eng.prefill,
+                     dict(K.launch_counts())))
+    (got, st, mode, eng_counts), (want, _, _, _) = runs
+    partings = {i: _decode_parting(torch, cfg, cuda_params, cpu_params, [eng_prompts[i][0]],
+                                   [g[0]], [w[0]])
+                for i, (g, w) in enumerate(zip(got, want)) if g[0] != w[0]}
+    res = {"phase": "jamba_smoke", "forward_logit_rel_err": logit_rel,
+           "forward_argmax_equal": bool(torch.equal(lk.argmax(-1), lp.argmax(-1))),
+           "generate_streams_equal": gen_parting is None, "generate_parting": gen_parting,
+           "generate_launch_counts": {n: c for n, c in counts.items() if c},
+           "engine_prefill": mode, "engine_streams_equal": got == want,
+           "engine_partings": partings, "engine_statuses": [x[1] for x in got],
+           "engine_ticks": st["ticks"], "engine_host_transfers": st["host_transfers"],
+           "engine_launch_counts": {n: c for n, c in eng_counts.items() if c}}
+    report["jamba_smoke"] = res
+    emit(res)
+    missing = [n for n in JAMBA_PATH if not counts[n] + eng_counts[n]]
+    if not (logit_rel <= MOE_SMOKE_LOGIT_TOL and res["forward_argmax_equal"]
+            and (gen_parting is None or _near_tie(gen_parting))
+            and all(_near_tie(p) for p in partings.values())
+            and [x[1] for x in got] == [x[1] for x in want] == ["OK"] * len(eng_prompts)
+            and mode == "legacy" and st["host_transfers"] == st["ticks"] and not missing):
+        fail(f"jamba_smoke: {res}, kernels never launched: {missing}")
+
+
+def jamba_params(torch, cfg, report: dict):
+    """Full-width jamba-v0.1-52b weights, random from seed 0, packed leaf by
+    leaf on the card: seconds, bytes resident, and the peak the leaf-by-leaf
+    init reached beyond what was resident before it (the largest f32
+    latent, an expert gate or up [4, 16, 4096, 14336], is 15.0 GB)."""
+    from repro_torch.models import transformer as Tr
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = full_params(torch, cfg)
+    secs = time.perf_counter() - t
+    nbytes = sum(x.numel() * x.element_size() for _, x in Tr.tree_leaves(params))
+    report["jamba_init"] = {"init_and_pack_s": secs, "param_bytes": nbytes,
+                            "memory_allocated": torch.cuda.memory_allocated(),
+                            "peak_bytes_beyond_resident":
+                                torch.cuda.max_memory_allocated() - before,
+                            "layers": cfg.n_layers, "d_model": cfg.d_model}
+    emit({"phase": "jamba_init", **report["jamba_init"]})
+    return params
+
+
+def jamba_blocks_phase(torch, cfg, params, report: dict) -> None:
+    """Blocks b0 (Mamba + dense MLP), b1 (Mamba + 16 experts) and b4
+    (attention + dense MLP, the fused branch) of the first period at full
+    width, each through the kernels and through the plain versions on the
+    same input: a 1 x 512 prefill (the embedding into b0, b0's plain output
+    into b1, b1's into b4), then a B = 4 decode from its state (the
+    prefill's state or cache rows copied to four slots, the attention
+    block's at positions 512, 400, 256 and 100). The Mamba blocks bit for
+    bit, outputs and states; the attention block within LOGIT_REL_TOL of
+    max |plain|, through the fused branch."""
+    from repro_torch import kernels as K
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as Tr
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    s, b = JAMBA_BLOCK_PREFILL, len(JAMBA_BLOCK_DECODE_POS)
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device="cuda")
+    dtoks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device="cuda")
+    layers = list(Tr._layers(cfg, params))
+    rope = Tr.rope_for(cfg, torch.arange(s, dtype=torch.int32, device="cuda")[None])
+    dpos = torch.tensor(JAMBA_BLOCK_DECODE_POS, dtype=torch.int32, device="cuda")
+    drope = Tr.rope_for(cfg, dpos[:, None])
+    rows = []
+    with torch.inference_mode():
+        xin = L.embed(params["embed"], toks, dtype=cfg.dtype)
+        din = L.embed(params["embed"], dtoks, dtype=cfg.dtype)
+        for idx in (0, 1, 4):
+            kind, bp, _ = layers[idx]
+            K.reset_launch_counts()
+            yk, sk = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=K.KERNELS)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            yp, sp = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=K.PLAIN)
+            if kind.mixer == "mamba":  # the prefill's state in four slots
+                state = {n: t.expand(b, *t.shape[1:]).contiguous() for n, t in sp.items()}
+            else:  # its rows in four slots, 8 more rows for the decode
+                state = {n: torch.nn.functional.pad(t.expand(b, *t.shape[1:]), (0, 0, 0, 8))
+                         for n, t in sp.items()}
+            ck, cp = ({n: t.clone() for n, t in state.items()} for _ in range(2))
+            dk, _ = Tr.apply_block(kind, bp, din, cfg, drope, kernels=K.KERNELS, pos=dpos,
+                                   cache=ck)
+            dp, _ = Tr.apply_block(kind, bp, din, cfg, drope, kernels=K.PLAIN, pos=dpos,
+                                   cache=cp)
+            row = {"block": f"b{idx}", "kind": f"{kind.mixer}+{kind.ffn}",
+                   "prefill_rel_err": ((yk.float() - yp.float()).abs().max()
+                                       / yp.float().abs().max()).item(),
+                   "decode_rel_err": ((dk.float() - dp.float()).abs().max()
+                                      / dp.float().abs().max()).item(),
+                   "finite": bool(torch.isfinite(yk).all() and torch.isfinite(dk).all()),
+                   "prefill_launches": {n: c for n, c in counts.items() if c}}
+            if kind.mixer == "mamba":
+                row["bit_equal"] = bool(
+                    torch.equal(yk, yp) and torch.equal(dk, dp)
+                    and all(torch.equal(sk[n], sp[n]) and torch.equal(ck[n], cp[n])
+                            for n in sp))
+            rows.append(row)
+            xin, din = yp, dp
+            del sk, sp, state, ck, cp, yk, dk
+    out = {"phase": "jamba_blocks", "tol": LOGIT_REL_TOL, "prefill": [1, s],
+           "decode_pos": list(JAMBA_BLOCK_DECODE_POS), "blocks": rows}
+    report["jamba_blocks"] = out
+    emit(out)
+    bad = [r for r in rows if not (
+        r["finite"] and (r.get("bit_equal") if "bit_equal" in r else (
+            r["prefill_rel_err"] <= LOGIT_REL_TOL and r["decode_rel_err"] <= LOGIT_REL_TOL
+            and r["prefill_launches"].get("norm_quant") == 2
+            and r["prefill_launches"].get("flash_attention") == 1)))]
+    if bad:
+        fail(f"jamba_blocks: Mamba blocks not bit-equal, or the attention block beyond the "
+             f"bar or off the fused branch: {bad}")
+
+
+def jamba_drift(torch, cfg, params, tokens) -> list[dict]:
+    """Per layer of the full-width prefill of ``tokens``: the block through
+    the kernels and through the plain versions on the same input (the plain
+    run's residual stream), whether a Mamba block's outputs are bit-equal,
+    the largest difference relative to max |plain|, and the two runs' own
+    residual streams apart (the trajectory, relative to max |x|), where a
+    router near-tie after an attention block's rounding moves experts."""
+    from repro_torch.kernels import KERNELS, PLAIN
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as Tr
+
+    b, s = tokens.shape
+    x_k = L.embed(params["embed"], tokens, dtype=cfg.dtype)
+    x_p = x_k.clone()
+    rope = Tr.rope_for(cfg, torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
+                       .expand(b, s))
+    out = []
+    with torch.inference_mode():
+        for li, (kind, bp, _) in enumerate(Tr._layers(cfg, params)):
+            same_k, _ = Tr.apply_block(kind, bp, x_p, cfg, rope, kernels=KERNELS)
+            x_k, _ = Tr.apply_block(kind, bp, x_k, cfg, rope, kernels=KERNELS)
+            x_p, _ = Tr.apply_block(kind, bp, x_p, cfg, rope, kernels=PLAIN)
+            scale = x_p.float().abs().max().item()
+            out.append({"layer": li, "kind": f"{kind.mixer}+{kind.ffn}",
+                        "same_input_bit_equal": bool(torch.equal(same_k, x_p)),
+                        "same_input_rel": (same_k.float() - x_p.float()).abs().max().item()
+                                          / scale,
+                        "trajectory_rel": (x_k.float() - x_p.float()).abs().max().item()
+                                          / scale})
+    return out
+
+
+def jamba_generate_phase(torch, cfg, params, report: dict) -> dict:
+    """Full-width generate, B = 4 with 100-token prompts: JAMBA_STEPS steps
+    through the kernels (counters reset just before, read just after) and
+    JAMBA_PLAIN_STEPS through the plain versions (streams agreeing over
+    those steps reported, not held: a router or argmax near-tie parts
+    them): prefill ms, decode ms a step and tokens/s, one decode step's
+    launches, torch.profiler over three decode steps (device ms, busy
+    share). The 4 x 100 prefill layer by layer (``jamba_drift``): every
+    Mamba block bit-equal, kernels against plain on the same input, every
+    attention block within LOGIT_REL_TOL; the two runs' logits apart
+    reported, not held (the random-weight routers amplify the attention
+    blocks' rounding over 32 layers, as DeepSeek's do). Then the 1 x 2000
+    prefill, timed after a warm-up, with its
+    launches and the selective scan's share of it: 28 standalone scans at
+    its shape (a Mamba layer's [1, 2000, 8192, 16]), timed with CUDA
+    events, over the prefill's wall time. Returns the launch counts by run."""
+    from repro_torch import kernels as K
+    from repro_torch.models import mamba as Mb
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    prompts = generate_prompts(torch, cfg)
+    b, s = prompts.shape
+    res_k, counts, times_k = generate_run(torch, cfg, params, prompts, JAMBA_STEPS, K.KERNELS)
+    res_p, _, times_p = generate_run(torch, cfg, params, prompts, JAMBA_PLAIN_STEPS, K.PLAIN)
+    if (tuple(res_k.tokens.shape) != (b, JAMBA_STEPS)
+            or not torch.isfinite(res_k.prefill_logits).all()):
+        fail("jamba_generate: wrong token shape or non-finite logits")
+    prefill_err = (res_k.prefill_logits.float() - res_p.prefill_logits.float()).abs().max().item()
+    prefill_max = res_p.prefill_logits.float().abs().max().item()
+    drift = jamba_drift(torch, cfg, params, prompts)
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        _, caches = E.prefill_bucketed(params, cfg, prompts, kernels=K.KERNELS)
+        torch.cuda.synchronize()
+        prefill_counts = K.launch_counts()
+        caches = E.fit_caches(caches, cfg, s + 8)
+        tok = res_k.tokens[:, :1].to("cuda").long()
+        pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        K.reset_launch_counts()
+        Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.KERNELS)
+        torch.cuda.synchronize()
+        step_counts = K.launch_counts()
+    profile = profile_device(
+        torch, lambda: Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.KERNELS),
+        steps=3)
+    del caches
+    # the long prefill, and the scan's share of it
+    lb, ls = JAMBA_LONG
+    long_prompt = torch.randint(0, cfg.vocab_size, JAMBA_LONG,
+                                generator=torch.Generator(device="cuda").manual_seed(1),
+                                device="cuda")
+    with torch.inference_mode():
+        E.prefill_bucketed(params, cfg, long_prompt, kernels=K.KERNELS)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        E.prefill_bucketed(params, cfg, long_prompt, kernels=K.KERNELS)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t) * 1e3
+        long_counts = K.launch_counts()
+        long_peak = torch.cuda.max_memory_allocated() - before
+        di, ds, _ = Mb.dims(cfg)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        dt = (torch.rand((lb, ls, di), generator=g, device="cuda") + 0.5).to(cfg.dtype)
+        u = torch.randn((lb, ls, di), generator=g, device="cuda").to(cfg.dtype)
+        bmat, cmat = (torch.randn((lb, ls, ds), generator=g, device="cuda").to(cfg.dtype)
+                      for _ in range(2))
+        a = -torch.exp(torch.ones((di, ds), device="cuda"))
+        h0 = torch.zeros((lb, di, ds), device="cuda")
+        n_mamba = sum(k.mixer == "mamba" for k in Tr.block_plan(cfg)[1]) * Tr.block_plan(cfg)[2]
+        Mb.selective_scan(dt, u, bmat, cmat, a, h0)  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_mamba):
+            Mb.selective_scan(dt, u, bmat, cmat, a, h0)
+        end.record()
+        torch.cuda.synchronize()
+        scan_ms = start.elapsed_time(end)
+        del dt, u, bmat, cmat
+    nz = {n: c for n, c in counts.items() if c}
+    agree = [bool(torch.equal(k[:JAMBA_PLAIN_STEPS], p))
+             for k, p in zip(res_k.tokens, res_p.tokens)]
+    out = {"phase": "jamba_generate", "model": cfg.name, "batch": b, "prompt": s,
+           "steps": JAMBA_STEPS, "kernels": times_k, "plain": times_p, "launch_counts": nz,
+           "decode_launches_per_step": sum(step_counts.values()),
+           "decode_step_launch_counts": {n: c for n, c in step_counts.items() if c},
+           "prefill_launch_counts": {n: c for n, c in prefill_counts.items() if c},
+           "prefill_logit_max_abs_err": prefill_err, "prefill_logit_max_abs": prefill_max,
+           "prefill_drift": drift,
+           "first_tokens_equal_plain": bool(torch.equal(res_k.tokens[:, 0], res_p.tokens[:, 0])),
+           "streams_equal_to_plain": sum(agree), "streams": len(agree),
+           "compared_steps": JAMBA_PLAIN_STEPS, "decode_profile": profile,
+           "prefill_1x2000_ms": long_ms, "prefill_1x2000_peak_bytes_beyond": long_peak,
+           "prefill_1x2000_launch_counts": {n: c for n, c in long_counts.items() if c},
+           "scan_ms_28_layers": scan_ms, "scan_share_of_prefill": scan_ms / long_ms}
+    report["jamba_generate"] = out
+    emit(out)
+    missing = [n for n in JAMBA_PATH if not counts[n]]
+    if missing:
+        fail(f"jamba_generate: kernels never launched on the main path: {missing}")
+    bad = [r for r in drift if not (r["same_input_bit_equal"] if r["kind"].startswith("mamba")
+                                    else r["same_input_rel"] <= LOGIT_REL_TOL)]
+    if bad:
+        fail(f"jamba_generate: layers kernels vs plain on the same input beyond the bar "
+             f"(Mamba blocks bit-equal, attention within {LOGIT_REL_TOL}): {bad}")
+    n_attn = cfg.n_layers // cfg.attn_layer_period
+    if (prefill_counts["flash_attention"] != n_attn or step_counts["decode_attention"] != n_attn
+            or long_counts["flash_attention"] != n_attn):
+        fail(f"jamba_generate: want {n_attn} attention launches a prefill and a step, got "
+             f"{prefill_counts['flash_attention']}, {step_counts['decode_attention']}, "
+             f"{long_counts['flash_attention']}")
+    return {"generate": counts, "decode_step": step_counts, "prefill": prefill_counts,
+            "prefill_1x2000": long_counts}
+
+
+def jamba_engine_phase(torch, cfg, params, report: dict) -> dict:
+    """The full-width legacy ServingEngine (``prefill="auto"`` resolves to
+    it), 8 slots, max_len JAMBA_MAX_LEN, 16 ragged prompts of 64-1024 tokens
+    (numpy default_rng(0)), JAMBA_ENGINE_NEW new tokens each, through the
+    kernels: every request OK with exactly its tokens, each emitted once
+    (the ``on_emit`` deliveries add up to them), one host transfer a tick;
+    tokens/s and ms a tick, apart for ticks that admitted (prefilled) a
+    request and for decode-only ticks. Returns the run's launch counts."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    rng = np.random.default_rng(0)
+    lo, hi = JAMBA_ENGINE_RANGE
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, ENGINE_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    eng = E.ServingEngine(params, cfg, slots=ENGINE_SLOTS, max_len=JAMBA_MAX_LEN,
+                          kernels=K.KERNELS)
+    reqs = [E.Request(rid=i, prompt=p, max_new=JAMBA_ENGINE_NEW) for i, p in enumerate(prompts)]
+    delivered, first, admit_ms, decode_ms = {r.rid: [] for r in reqs}, {}, [], []
+    t0 = time.perf_counter()
+
+    def on_emit(req, toks):
+        delivered[req.rid].extend(int(x) for x in toks)
+        first.setdefault(req.rid, (time.perf_counter() - t0) * 1e3)
+
+    eng.on_emit = on_emit
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    while eng.queue or any(r is not None for r in eng.live):
+        t, queued = time.perf_counter(), len(eng.queue)
+        if not eng.step():
+            break
+        (admit_ms if len(eng.queue) < queued else decode_ms).append(
+            (time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    st = eng.stats()
+    tokens = sum(len(r.generated) for r in reqs)
+    out = {"phase": "jamba_engine", "prefill": eng.prefill, "prompt_lengths": lengths,
+           "ticks": st["ticks"], "host_transfers": st["host_transfers"],
+           "statuses": st["statuses"], "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "admission_ticks": len(admit_ms),
+           "admission_tick_ms_mean": sum(admit_ms) / len(admit_ms),
+           "decode_tick_ms_mean": sum(decode_ms) / len(decode_ms),
+           "first_token_ms": [first.get(r.rid) for r in reqs],
+           "cache_bytes": E.cache_nbytes(eng.caches),
+           "launch_counts": {n: c for n, c in counts.items() if c}}
+    report["jamba_engine"] = out
+    emit(out)
+    bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != JAMBA_ENGINE_NEW
+           or delivered[r.rid] != [int(x) for x in r.generated]]
+    missing = [n for n in JAMBA_PATH if not counts[n]]
+    if bad or st["host_transfers"] != st["ticks"] or eng.prefill != "legacy" or missing:
+        fail(f"jamba_engine: requests not OK with {JAMBA_ENGINE_NEW} tokens delivered once: "
+             f"{bad}; {st['host_transfers']} transfers for {st['ticks']} ticks; prefill "
+             f"{eng.prefill}; kernels never launched: {missing}")
+    return counts
+
+
+def jamba_rows(report: dict, counts: dict) -> dict:
+    """The jamba shapes of rows 1, 3-6 and 17 with the launches of the run
+    that gives each its shape."""
+    runs = {"decode": (counts["decode_step"], "one decode step, B = 4"),
+            "prefill": (counts["prefill"], "prefill 4 x 100"),
+            "engine": (counts["engine"], "jamba_engine run"),
+            "4x100": (counts["prefill"], "prefill 4 x 100"),
+            "1x2000": (counts["prefill_1x2000"], "prefill 1 x 2000")}
+    keys = ("name", "shape_tag", "shape", "launches", "launches_run", "max_abs_err", "ms",
+            "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "over_library")
+    rows = []
+    for row in report["jamba_kernel_shapes"]:
+        c, what = runs[row["shape_tag"].split()[1]]
+        row["launches"], row["launches_run"] = c.get(row["name"], 0), what
+        rows.append({k: row[k] for k in keys if k in row})
+    return {"phase": "jamba_rows", "rows": rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
@@ -5371,6 +5955,17 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emit(gemma2_rows(report, g2_counts, g2_engine_counts))
+
+    jamba_smoke_phase(torch, report)
+    jb_cfg = get_config(JAMBA)
+    jb_params = jamba_params(torch, jb_cfg, report)
+    jamba_blocks_phase(torch, jb_cfg, jb_params, report)
+    jb_counts = jamba_generate_phase(torch, jb_cfg, jb_params, report)
+    jb_counts["engine"] = jamba_engine_phase(torch, jb_cfg, jb_params, report)
+    del jb_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(jamba_rows(report, jb_counts))
     # The GEMV's and the SwiGLU's shapes, each with the launches of the run
     # that gives it that shape: generate (decode rows and its 4 x 128
     # prefill), the chunked engine (bf16 cache; its chunk step has 2048

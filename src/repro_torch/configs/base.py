@@ -3,11 +3,12 @@
 Counterpart of ``repro/configs/base.py``, holding only the fields the
 port's ``generate`` and ``ServingEngine`` paths read (the JAX module imports
 JAX, so the port keeps its own copy). Field names and defaults match the JAX config, so a
-test can hold each shared field against it. Four families are ported: the
+test can hold each shared field against it. Five families are ported: the
 dense transformer (with gemma2's softcaps, sliding window and local/global
-layers, ``base.py:45-49``), ``moe``, ``mla_moe`` and ``ssm`` (RWKV-6). The
-hybrid family's fields come with the slice that ports it. ``sub_quadratic`` is left
-out: only the JAX package's dry-run reads it. The serving knobs of the
+layers, ``base.py:45-49``), ``moe``, ``mla_moe``, ``hybrid`` (Jamba: Mamba
+mixers with one attention layer a period, ``base.py:50-55``) and ``ssm``
+(RWKV-6). ``sub_quadratic`` is left out: only the JAX package's dry-run
+reads it. The serving knobs of the
 replica pool and the HTTP/SSE front door (``serving/pool.py``,
 ``serving/server.py``) and :func:`resolve_slo` are JAX's
 (``base.py:115-153, 238-248``).
@@ -31,7 +32,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
-    family: str = "dense"  # dense | moe | mla_moe | ssm (RWKV-6)
+    family: str = "dense"  # dense | moe | mla_moe | hybrid (Jamba) | ssm (RWKV-6)
     # MoE: routed experts (top experts_per_tok of n_experts), shared experts,
     # dense first layers, Arctic's dense residual, the capacity factor
     n_experts: int = 0
@@ -54,6 +55,13 @@ class ModelConfig:
     final_logit_softcap: float = 0.0
     sliding_window: int = 0
     local_global_period: int = 0  # alternate local/global attention every k
+    # hybrid (Jamba): one attention layer at attn_layer_offset of every
+    # attn_layer_period layers, Mamba mixers elsewhere (d_inner = expand * d)
+    attn_layer_period: int = 0
+    attn_layer_offset: int = 0
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
     rwkv_head_dim: int = 64  # ssm: the WKV head size n (d_model // n heads)
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
     prefill_chunk_budget: int = 512  # chunk tokens appended per engine tick
@@ -143,8 +151,8 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
-    from . import (arctic_480b, deepseek_v2_lite_16b, gemma2_27b, rwkv6_3b,  # noqa: F401
-                   tellme_0p7b)
+    from . import (arctic_480b, deepseek_v2_lite_16b, gemma2_27b,  # noqa: F401
+                   jamba_v0_1_52b, rwkv6_3b, tellme_0p7b)
 
     table = _SMOKE if smoke else _REGISTRY
     if name not in table:

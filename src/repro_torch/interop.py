@@ -4,7 +4,10 @@
 (...))`` fetched to numpy) and returns the port's tree with the same keys:
 the stacked period ``blocks/b{i}`` and the unstacked ``prelude_{i}``
 layers, the f32 MoE router ``[d, E]``, the 3-D (prelude) or 4-D (period)
-packed expert ``wp`` with their per-expert ``scale``, MLA's ``kv_norm``.
+packed expert ``wp`` with their per-expert ``scale``, MLA's ``kv_norm``,
+and a Mamba layer's float leaves (``conv_w``, ``conv_b``, ``dt_proj``,
+``a_log``, ``d_skip``) in JAX's f32, which each use site casts as JAX's
+does (``models/mamba.py``).
 The ``wp`` bytes and f32 ``scale``s cross as they are, so both packages run
 identical ternary weights; nothing is re-ternarized (``ternary_scale`` is an
 f32 mean whose summation order would differ). The embedding table and the

@@ -36,6 +36,9 @@ SOURCES = (
     _PKG / "ternary_matmul" / "csrc" / "ternary_swiglu.cu",
     _PKG / "decode_attention" / "csrc" / "decode_attention.cu",
     _PKG / "prefill_append" / "csrc" / "prefill_append.cu",
+    _PKG / "prefill_append" / "csrc" / "prefill_append_int8.cu",
+    _PKG / "prefill_append" / "csrc" / "prefill_append_paged.cu",
+    _PKG / "prefill_append" / "csrc" / "prefill_append_paged_int8.cu",
     _PKG / "tl_gemv" / "csrc" / "tl_gemv.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     _PKG / "wkv" / "csrc" / "wkv.cu",
@@ -43,6 +46,7 @@ SOURCES = (
 HEADERS = (
     _PKG / "csrc" / "common.cuh",
     _PKG / "csrc" / "attn_mma.cuh",
+    _PKG / "prefill_append" / "csrc" / "prefill_append.cuh",
     _PKG / "ternary_matmul" / "csrc" / "ternary_tiles.cuh",
     _PKG / "ternary_matmul" / "csrc" / "ternary_mma.cuh",
 )

@@ -1,5 +1,6 @@
 """Dispatch for chunked prefill-append attention: the plain version for
-CPU tensors, the CUDA kernel (``csrc/prefill_append.cu``) for CUDA tensors.
+CPU tensors, the CUDA kernel (``csrc/prefill_append.cuh``, built as four
+sources, one for each layout and cache dtype) for CUDA tensors.
 An int8 cache (``k_scale``/``v_scale`` given) goes to
 :func:`prefill_append_quant`, the kernel's int8 variant, with its own
 launch count. Both write the chunk into the cache in place. The paged

@@ -5,8 +5,9 @@ Builds packed weights (random, from ``--seed``) on the device and serves a
 batch of prompts through the ``ServingEngine``: chunked prefill in
 bucketed chunks while every decoding slot advances each tick (the dense
 family, ``--arch gemma2-27b``'s sliding-window local layers included, and
-``--arch arctic-480b`` with ``--prefill chunked``; ``deepseek-v2-lite-16b``
-and ``rwkv6-3b`` prefill each request whole at admission), a bounded
+``--arch arctic-480b`` with ``--prefill chunked``; ``deepseek-v2-lite-16b``,
+``jamba-v0.1-52b`` and ``rwkv6-3b`` prefill each request whole at
+admission, ``--prefill legacy`` or ``auto``), a bounded
 admission queue, per-request deadlines and priorities with preemption, and
 the numerics guards. Reports time to first token, throughput and every
 request's terminal status. Exit code 0 only if every admitted request ended
@@ -28,6 +29,8 @@ Usage:
       [--queue-cap N] [--deadline-s S] [--json]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --smoke \\
       --device cpu --prompt-len 40 --gen 16 --batch 2 --ragged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \\
+      --device cpu --prompt-len 40 --gen 8 --batch 4 --ragged
 """
 
 from __future__ import annotations
@@ -73,8 +76,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tellme-0.7b",
                     help="tellme-0.7b, gemma2-27b (local/global layers, window, softcaps), "
-                         "rwkv6-3b, deepseek-v2-lite-16b, or arctic-480b (its full width "
-                         "does not fit one card: --smoke)")
+                         "rwkv6-3b, deepseek-v2-lite-16b, jamba-v0.1-52b (Mamba, "
+                         "attention and MoE layers), or arctic-480b (its full width does "
+                         "not fit one card: --smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the plain "

@@ -13,7 +13,7 @@ Endpoints: POST /v1/generate (an SSE token stream), GET /healthz, GET
 /readyz, GET /v1/stats.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.server --smoke --port 8080 [--device cpu]
-      [--arch gemma2-27b]
+      [--arch gemma2-27b | jamba-v0.1-52b]
 Try:  curl -N localhost:8080/v1/generate -d '{"prompt": [1,2,3], "max_new": 8}'
 """
 
@@ -36,8 +36,10 @@ from ..serving.server import ServingServer
 def build_params(cfg, *, seed: int, device):
     """Packed serving weights, random from ``seed``, on ``device``, one
     latent leaf at a time (``init_packed_params``: DeepSeek-V2-Lite's f32
-    latents would take about 64 GB at once, gemma2-27b's about 104 GB; its
-    largest leaf, ``blocks/b0/ffn/gate`` [23, 4608, 36864], is 15.6 GB)."""
+    latents would take about 64 GB at once, gemma2-27b's about 104 GB,
+    jamba-v0.1-52b's about 204 GB; the largest leaves, gemma2-27b's
+    ``blocks/b0/ffn/gate`` [23, 4608, 36864] and jamba's ``blocks/b1/ffn/moe/gate``
+    [4, 16, 4096, 14336], are 15.6 and 15.0 GB)."""
     return PR.init_packed_params(Tr.param_specs(cfg), seed, device, dtype=cfg.dtype,
                                  dense_leaves=Tr.DENSE_LEAVES)
 
@@ -100,8 +102,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tellme-0.7b",
                     help="tellme-0.7b, gemma2-27b (local/global layers, window, softcaps), "
-                         "rwkv6-3b, deepseek-v2-lite-16b, or arctic-480b (its full width "
-                         "does not fit one card: --smoke)")
+                         "rwkv6-3b, deepseek-v2-lite-16b, jamba-v0.1-52b (Mamba, "
+                         "attention and MoE layers), or arctic-480b (its full width does "
+                         "not fit one card: --smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the plain "

@@ -1,8 +1,10 @@
 """The decoder stack on the packed serving path (``repro/models/transformer.py``)
-for four families: the dense transformer, ``moe`` (Arctic: attention, then
+for five families: the dense transformer, ``moe`` (Arctic: attention, then
 a token-choice MoE beside a dense residual MLP), ``mla_moe`` (DeepSeek-V2:
-latent attention, a dense first layer, then MoE with shared experts) and
-``ssm``, RWKV-6 (``transformer.py:393-414``).
+latent attention, a dense first layer, then MoE with shared experts),
+``hybrid`` (Jamba: Mamba mixers with one attention layer a period, MoE
+every ``moe_every``-th layer, ``transformer.py:68-77``) and ``ssm``, RWKV-6
+(``transformer.py:393-414``).
 
 A model is a block plan (``transformer.py:38-77``): an unstacked prelude
 of layers (DeepSeek's dense first layer), then a period of layer kinds
@@ -12,7 +14,9 @@ in ``params["blocks"]["b{i}"]`` with a leading ``[n_periods]`` axis on
 every leaf. The ssm family and a dense config without ``local_global_period``
 have a one-kind period and no prelude, so their trees are ``{"blocks":
 {"b0": ...}}``; gemma2's period is ``[local, global]`` attention
-(``transformer.py:51-60``), ``{"blocks": {"b0": local, "b1": global}}``.
+(``transformer.py:51-60``), ``{"blocks": {"b0": local, "b1": global}}``;
+Jamba's has ``attn_layer_period`` kinds, ``b{attn_layer_offset}`` the
+attention layer, the others Mamba (``layer["mamba"]``, ``models/mamba.py``).
 A local layer masks keys at ``qpos - kpos >= cfg.sliding_window`` in every
 attention form; every attention layer scores ``softcap * tanh(s /
 softcap)`` with ``cfg.attn_logit_softcap``, and the LM head caps its logits
@@ -29,8 +33,9 @@ matmul engine of its projections once (``cfg.matmul_engine``); where q
 also emits the TL tables, which q, k and v (gate and up) consume; o and
 down quantize their own input. Every other kind, and a dense block with
 ``fused=False``, runs the unfused branch (``transformer.py:449-475``):
-``rmsnorm``, the mixer on the float row (attention, or MLA's prefill or
-weight-absorbed decode, ``models/mla.py``), the residual add, ``rmsnorm``,
+``rmsnorm``, the mixer on the float row (attention, MLA's prefill or
+weight-absorbed decode, ``models/mla.py``, or Mamba's prefill from a zero
+state or one decode token, ``models/mamba.py``), the residual add, ``rmsnorm``,
 then the FFN (the unfused SwiGLU, or ``models/moe.py``'s experts, with the
 shared or dense MLP added). Its projections quantize their own input and
 take the ``"auto"`` engine, as JAX's do. On the plain versions the two
@@ -43,7 +48,9 @@ with f32 row scales ``[B, HK, M]``), or, for the engine's paged layout
 [B, NB]`` shared by every layer; per MLA layer, the latent ``c_kv [B, M,
 R]`` and the shared rope key ``k_rope [B, M, rope]`` in the activation
 dtype (no int8 form: ``kv_cache_dtype`` leaves them as they are, as in
-JAX). Period leaves carry the ``[n_periods]`` axis in front.
+JAX); per Mamba layer, its state ``ssm [B, d_inner, d_state]`` f32 and
+``conv [B, d_conv - 1, d_inner]`` in the activation dtype, with no
+sequence axis. Period leaves carry the ``[n_periods]`` axis in front.
 :func:`cache_layout` gives each leaf's batch and sequence axis.
 
 An RWKV block norms with plain ``rmsnorm``, its projections quantize their
@@ -56,9 +63,9 @@ advances the state in place; a multi-token step against an existing state
 (``prefill_chunk_step``) raises, as the WKV kernel, like the TPU kernel,
 starts from zero, and the paged layout pages attention K/V only.
 ``prefill_chunk_step`` and the paged layout serve the families whose
-layers are all attention mixers (dense and moe). An MLA layer refuses a
-chunk against its latent cache and a page table, as JAX's ``apply_block``
-does (``transformer.py:389-392, 417-421``).
+layers are all attention mixers (dense and moe). An MLA or a Mamba layer
+refuses a chunk against its latent cache or state and a page table, as
+JAX's ``apply_block`` does (``transformer.py:389-392, 417-421``).
 """
 
 from __future__ import annotations
@@ -72,16 +79,17 @@ from ..core.params import ParamSpec
 from ..core.ternary import dequantize_kv, kv_page_rows, quantize_kv, update_kv_pages
 from . import attention as attn_ops
 from . import layers as L
+from . import mamba as mamba_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 
-FAMILIES = ("dense", "moe", "mla_moe", "ssm")
+FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerKind:
-    mixer: str  # attn | mla | rwkv
+    mixer: str  # attn | mla | mamba | rwkv
     ffn: str  # dense | moe | moe_shared | moe_dense | rwkv_channel
     local: bool = False  # sliding-window attention (gemma2's local layers)
 
@@ -106,9 +114,14 @@ def block_plan(cfg) -> tuple[list[LayerKind], list[LayerKind], int]:
         return prelude, period, cfg.n_layers - cfg.first_dense_layers
     if cfg.family == "ssm":
         return [], [LayerKind("rwkv", "rwkv_channel")], cfg.n_layers
-    if cfg.family == "hybrid":
-        raise NotImplementedError("the hybrid family (mamba mixers, jamba) is not ported "
-                                  "yet: ROADMAP A13d")
+    if cfg.family == "hybrid":  # transformer.py:68-77
+        p = cfg.attn_layer_period
+        period = [LayerKind("attn" if i == cfg.attn_layer_offset else "mamba",
+                            "moe" if cfg.n_experts and i % cfg.moe_every == cfg.moe_every - 1
+                            else "dense") for i in range(p)]
+        if cfg.n_layers % p:
+            raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of the period {p}")
+        return [], period, cfg.n_layers // p
     raise ValueError(f"family must be one of {FAMILIES}, got {cfg.family!r}")
 
 
@@ -141,12 +154,12 @@ def layer_spec(cfg, kind: LayerKind) -> dict:
         spec = rwkv_mod.rwkv_spec(cfg)
         return {"ln1": L.rmsnorm_spec(cfg.d_model), "ln2": L.rmsnorm_spec(cfg.d_model),
                 "time": spec["time"], "channel": spec["channel"]}
-    return {
-        "ln1": L.rmsnorm_spec(cfg.d_model),
-        "ln2": L.rmsnorm_spec(cfg.d_model),
-        "attn": _attn_spec(cfg) if kind.mixer == "attn" else mla_mod.mla_spec(cfg),
-        "ffn": _ffn_spec(cfg, kind),
-    }
+    if kind.mixer == "mamba":
+        mixer = {"mamba": mamba_mod.mamba_spec(cfg)}
+    else:
+        mixer = {"attn": _attn_spec(cfg) if kind.mixer == "attn" else mla_mod.mla_spec(cfg)}
+    return {"ln1": L.rmsnorm_spec(cfg.d_model), "ln2": L.rmsnorm_spec(cfg.d_model), **mixer,
+            "ffn": _ffn_spec(cfg, kind)}
 
 
 def _stack(tree, n: int):
@@ -359,20 +372,26 @@ def _apply_ffn(fp, x, cfg, kind: LayerKind, *, kernels) -> torch.Tensor:
 def _apply_unfused(kind: LayerKind, bp, x, cfg, rope, *, kernels, cache=None, pos=None,
                    prefix_limit=0, page_table=None, page_rows=None):
     """``transformer.py:449-475``. Returns (x, the cache rows of a one-shot
-    prefill or None)."""
+    prefill or None). A Mamba mixer prefills from a zero state when
+    ``cache`` is None, else takes one decode token and updates its state
+    leaves in place (``transformer.py:462-466``)."""
     h = L.rmsnorm(bp["ln1"], x, eps=cfg.norm_eps)
+    if cache is not None and x.shape[1] > 1 and kind.mixer != "attn":
+        raise NotImplementedError(_chunk_refusal(kind.mixer))
     if kind.mixer == "attn":
         y, new = _apply_attn(bp["attn"], h, ternary.quantize_act(h), cfg, rope["attn"],
                              kernels=kernels, kind=kind, engines=dict.fromkeys("qkvo", "auto"),
                              cache=cache, pos=pos, prefix_limit=prefix_limit,
                              page_table=page_table, page_rows=page_rows, residual=False)
+    elif kind.mixer == "mamba" and cache is None:
+        y, new = mamba_mod.mamba_prefill(bp["mamba"], h, cfg, kernels=kernels)
+    elif kind.mixer == "mamba":
+        y, new = mamba_mod.mamba_decode(bp["mamba"], h, cfg, cache, kernels=kernels), None
     elif cache is None:
         y, new = mla_mod.mla_prefill(bp["attn"], h, cfg, rope["mla"], kernels=kernels)
-    elif x.shape[1] == 1:
+    else:
         y, new = mla_mod.mla_decode(bp["attn"], h, cfg, cache, pos, rope["mla"],
                                     kernels=kernels), None
-    else:
-        raise NotImplementedError(_MLA_CHUNK)
     x = x + y
     h2 = L.rmsnorm(bp["ln2"], x, eps=cfg.norm_eps)
     return x + _apply_ffn(bp["ffn"], h2, cfg, kind, kernels=kernels), new
@@ -476,20 +495,43 @@ def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool =
 
 
 # JAX's apply_block refuses both for a non-attention mixer (transformer.py:389-392,
-# 417-421): a chunk against MLA's latent cache, and a page table for it
-_MLA_CHUNK = ("a multi-token step against an MLA latent cache is refused, as JAX's "
-              "apply_block refuses it (transformer.py:417-421); the family prefills whole "
-              "(ServingEngine prefill='legacy')")
-_MLA_PAGED = ("the paged layout pages attention K/V only, as JAX's apply_block refuses a "
-              "page table for the MLA mixer (transformer.py:389-392)")
+# 417-421): a chunk against MLA's latent cache or a Mamba state, and a page table
+_MIXER_STATE = {"mla": ("an MLA latent cache", "MLA"), "mamba": ("a Mamba state", "Mamba")}
+
+
+def _chunk_refusal(mixer: str) -> str:
+    return (f"a multi-token step against {_MIXER_STATE[mixer][0]} is refused, as JAX's "
+            "apply_block refuses it (transformer.py:417-421); the family prefills whole "
+            "(ServingEngine prefill='legacy')")
+
+
+def _refused_mixer(cfg) -> str | None:
+    """A mixer of ``cfg`` with a cache that JAX's apply_block takes no chunk
+    and no page table against (MLA, Mamba), or None."""
+    prelude, period, _ = block_plan(cfg)
+    return next((k.mixer for k in prelude + period if k.mixer in _MIXER_STATE), None)
+
+
+def legacy_only_reason(cfg) -> str | None:
+    """Why JAX's apply_block takes neither a chunk nor a page table for a
+    mixer of ``cfg`` (MLA, Mamba), or None."""
+    mixer = _refused_mixer(cfg)
+    if mixer is None:
+        return None
+    what, name = _MIXER_STATE[mixer]
+    return (f"JAX's apply_block refuses a chunk against {what} and a page table for the "
+            f"{name} mixer (transformer.py:389-392, 417-421)")
 
 
 def _refuse_paged(cfg):
     if cfg.family == "ssm":
         raise NotImplementedError("the paged layout pages attention K/V; the ssm family "
                                   "has none")
-    if cfg.family == "mla_moe":
-        raise NotImplementedError(_MLA_PAGED)
+    mixer = _refused_mixer(cfg)
+    if mixer is not None:
+        raise NotImplementedError(
+            "the paged layout pages attention K/V only, as JAX's apply_block refuses a page "
+            f"table for the {_MIXER_STATE[mixer][1]} mixer (transformer.py:389-392)")
 
 
 def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *, kernels,
@@ -526,13 +568,13 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
     before the final norm and the LM head, [B, V]. ``page_table`` as in
     :func:`decode_step`. Every family whose layers are all attention
     mixers (dense, moe): an RWKV chunk against an existing state, and a
-    chunk against an MLA latent cache (JAX's ``transformer.py:417-421``),
-    raise ``NotImplementedError``."""
+    chunk against an MLA latent cache or a Mamba state (JAX's
+    ``transformer.py:417-421``), raise ``NotImplementedError``."""
+    mixer = _refused_mixer(cfg)
+    if mixer is not None:
+        raise NotImplementedError(_chunk_refusal(mixer))
     prelude, period, _ = block_plan(cfg)
-    mixers = {k.mixer for k in prelude + period}
-    if "mla" in mixers:
-        raise NotImplementedError(_MLA_CHUNK)
-    if mixers != {"attn"}:
+    if {k.mixer for k in prelude + period} != {"attn"}:
         raise NotImplementedError(
             f"prefill_chunk_step needs attention mixers; the {cfg.family!r} family is "
             "prefilled whole (ServingEngine prefill='legacy')")
@@ -578,6 +620,10 @@ def _kind_cache_spec(cfg, kind: LayerKind, batch: int, seq: int, kv_pages) -> di
     if kind.mixer == "mla":
         return {"c_kv": ((batch, seq, cfg.kv_lora_rank), cfg.dtype),
                 "k_rope": ((batch, seq, cfg.qk_rope_head_dim), cfg.dtype)}
+    if kind.mixer == "mamba":  # transformer.py:771-777
+        di, ds, _ = mamba_mod.dims(cfg)
+        return {"ssm": ((batch, di, ds), torch.float32),
+                "conv": ((batch, cfg.mamba_d_conv - 1, di), cfg.dtype)}
     if kv_pages is not None:
         shape = (kv_pages, cfg.n_kv_heads, cfg.kv_page_size, cfg.head_dim)
     else:
@@ -596,7 +642,9 @@ def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> di
     D] in ``cfg.dtype``; with ``cfg.kv_cache_dtype == "int8"``, k/v int8 and
     ``k_scale``/``v_scale`` [B, HK, seq] f32 row scales. An MLA layer's are
     ``c_kv [B, seq, R]`` and ``k_rope [B, seq, rope]`` in ``cfg.dtype``
-    under either cache dtype. ``kv_pages`` switches the dense and moe families to the
+    under either cache dtype; a Mamba layer's ``ssm [B, d_inner, d_state]``
+    f32 and ``conv [B, d_conv - 1, d_inner]`` in ``cfg.dtype``, with no
+    sequence axis. ``kv_pages`` switches the dense and moe families to the
     paged layout (``transformer.py:711-741``): one pool shared by every
     slot, k/v [L, kv_pages, HK, cfg.kv_page_size, D] (and scales [L,
     kv_pages, HK, cfg.kv_page_size]); ``batch`` and ``seq`` then go unused.
@@ -622,11 +670,11 @@ def cache_specs(cfg, batch: int, seq: int, *, kv_pages: int | None = None) -> di
 def cache_layout(cfg) -> dict:
     """Every leaf of a contiguous cache tree: ``{path: (batch axis, sequence
     axis or None)}``, ``path`` the tuple of keys. Period leaves: attention
-    k/v and scales (1, 3), MLA latents (1, 2), RWKV state (1, None);
+    k/v and scales (1, 3), MLA latents (1, 2), Mamba and RWKV state (1, None);
     prelude leaves have no layer axis, so one less (MLA: (0, 1)). JAX keys
     the same choice on the ``act_kv_seq`` axis name (``engine.py:158-197``)."""
     prelude, period, _ = block_plan(cfg)
-    seq_axis = {"attn": 2, "mla": 1, "rwkv": None}
+    seq_axis = {"attn": 2, "mla": 1, "mamba": None, "rwkv": None}
     out = {}
     for kinds, key, stacked in ((prelude, "prelude_{}", 0), (period, "blocks/b{}", 1)):
         for i, kind in enumerate(kinds):

@@ -56,7 +56,13 @@ trash-diverted slots share the routed experts' capacity with the live
 ones, so they are JAX's rows: zeros at ``trash_base`` in a chunk, the
 slot's token at ``cache_len - 1`` in a fused tick's decode, at its own
 position in a decode-only tick, and ``[token, drafts]`` at ``trash_base``
-in a verify chunk. Not ported yet: the hybrid family (A13d).
+in a verify chunk. The hybrid family (Jamba) is served by the legacy
+prefill on the contiguous layout, as the mla_moe family: JAX's
+``apply_block`` refuses a chunk against a Mamba state and a page table for
+it. Its cache tree mixes the attention layers' K/V with the Mamba layers'
+state leaves (``ssm``, ``conv``), which have no sequence axis: admission
+overwrites them whole, and every cache walk goes through
+``transformer.cache_layout``.
 """
 
 from __future__ import annotations
@@ -558,8 +564,9 @@ class ServingEngine:
     a decode-only tick, and the paged layout is refused. ``"auto"`` is
     ``"chunked"`` for the dense family and ``"legacy"`` for every other,
     as in JAX; the moe family runs ``"chunked"`` (and so the paged layout
-    and speculation) when asked, the mla_moe family legacy only, as JAX's
-    blocks refuse an MLA chunk. The ssm family (RWKV-6) runs legacy only: its state has no
+    and speculation) when asked, the mla_moe and hybrid families legacy
+    only, as JAX's blocks refuse a chunk against an MLA latent cache or a
+    Mamba state. The ssm family (RWKV-6) runs legacy only: its state has no
     rows to append a chunk to, and ``"chunked"`` or the paged layout raise
     (JAX serves chunked ssm through its XLA WKV from a warm state; the
     port's WKV kernel starts from zero, as the TPU kernel does). Admission
@@ -620,14 +627,12 @@ class ServingEngine:
         if prefill not in ("chunked", "legacy"):
             raise ValueError(f"prefill must be 'auto', 'chunked' or 'legacy', got {prefill!r}")
         # the chunked and paged paths serve the attention families (dense,
-        # moe); JAX's apply_block refuses both for MLA (transformer.py:389-392,
-        # 417-421), and the port's WKV kernel starts from a zero state
-        if cfg.family in ("ssm", "mla_moe") and (prefill == "chunked"
-                                                 or cfg.kv_layout == "paged"):
-            why = ("its recurrent state has no rows to append a chunk to or to page, and "
-                   "the WKV kernel starts from a zero state" if cfg.family == "ssm" else
-                   "JAX's apply_block refuses a chunk against an MLA latent cache and a "
-                   "page table for it (transformer.py:389-392, 417-421)")
+        # moe); JAX's apply_block refuses both for MLA and Mamba mixers, and
+        # the port's WKV kernel starts from a zero state
+        why = ("its recurrent state has no rows to append a chunk to or to page, and the "
+               "WKV kernel starts from a zero state" if cfg.family == "ssm"
+               else Tr.legacy_only_reason(cfg))
+        if why is not None and (prefill == "chunked" or cfg.kv_layout == "paged"):
             raise ValueError(
                 f"the {cfg.family!r} family runs prefill='legacy' on the contiguous layout "
                 f"only (got prefill={prefill!r}, kv_layout={cfg.kv_layout!r}): {why}")
@@ -1282,9 +1287,16 @@ class ServingEngine:
         # capacity with the live ones, so they decode what JAX's do: their
         # last token at their own position (engine.py:539-545). MLA's row
         # write skips a position past the cache, as JAX's one-hot does; the
-        # attention kernels take none, so the moe family's is clamped into it
-        idle = {"mla_moe": self.pos, "moe": self.pos.clamp(max=self.cache_len - 1)}.get(
-            self.cfg.family, torch.full_like(self.pos, self.cache_len - 1))
+        # attention kernels take none, so the moe and hybrid families' is
+        # clamped into it. An idle slot's Mamba state steps too, and is
+        # overwritten at the next admission
+        kinds = [k for ks in Tr.block_plan(self.cfg)[:2] for k in ks]
+        if not any(k.ffn.startswith("moe") for k in kinds):
+            idle = torch.full_like(self.pos, self.cache_len - 1)
+        elif any(k.mixer == "mla" for k in kinds):
+            idle = self.pos
+        else:
+            idle = self.pos.clamp(max=self.cache_len - 1)
         dpos = torch.where(active, self.pos, idle)
         logits, _ = Tr.decode_step(self.params, self.cur_tok[:, None].to(torch.int64),
                                    self.caches, dpos, self.cfg, kernels=self.kernels,

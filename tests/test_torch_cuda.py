@@ -66,9 +66,12 @@ layer) at the same bars, the dense schedule bit for bit, and the
 kernel without them unchanged; gemma2 smoke's local block through the
 kernels within 1e-4 of the plain versions. One period block of each MoE family's smoke
 config (MLA or attention, routed experts, the shared or dense MLP) through
-the kernels is within 1e-4 of the plain versions, prefill and decode. The GEMV (M <= 16, the cluster-split
+the kernels is within 1e-4 of the plain versions, prefill and decode; of
+jamba's smoke config the Mamba blocks (dense MLP, routed experts) bit for
+bit, its attention block within 1e-4. The GEMV (M <= 16, the cluster-split
 kernel) and the tiled matmul (the tensor-core kernel) are held bit for bit
-at M = 1 to 2048 and at rwkv6-3b's projections, and with x and the packed
+at M = 1 to 2048, at rwkv6-3b's projections and jamba's Mamba projections
+(x_proj's ragged 288 and 24 outputs), and with x and the packed
 weights off their 16-byte alignment. The SwiGLU (the GEMV's pass 1 at
 M <= 16, the tensor-core pass above, then the row requant) is held at
 M = 1 to 2048, also at a ragged 72 x 44, within its bar and bit for bit
@@ -187,10 +190,15 @@ def test_norm_quant_widths(cuda, dtype, m, n):
 # the GEMV's MB = 8 instance; 16: MB = 16), around the
 # tensor-core tiles (17, 64, 130 rows), at 512 (a prefill) and 2048 (the
 # chunk step's 8 x 256); then rwkv6-3b's d -> d, d -> d_ff and d_ff -> d
-# at generate's 400 prefill rows (N/4 = 640 and 2240)
+# at generate's 400 prefill rows (N/4 = 640 and 2240); then jamba's Mamba
+# projections: x_proj's ragged output (dt_rank + 2 d_state = 288; 24 at
+# smoke) at a decode, the engine's 8 rows and a prefill, in_proj and
+# out_proj at a decode
 PROJECTION_CASES = [(m, n, k) for m in (1, 4, 8, 16, 17, 40, 64, 130, 512, 2048)
                     for n, k in ((1536, 1536), (4096, 1536), (72, 44))]
 PROJECTION_CASES += [(400, 2560, 2560), (400, 2560, 8960), (400, 8960, 2560)]
+PROJECTION_CASES += [(4, 8192, 288), (8, 8192, 288), (512, 8192, 288), (26, 128, 24),
+                     (4, 4096, 16384), (4, 8192, 4096)]
 
 
 @pytest.mark.parametrize("m,n,k", PROJECTION_CASES)
@@ -1220,6 +1228,50 @@ def test_moe_block_kernels_vs_plain(cuda, arch):
     dp, _ = TT.apply_block(kind, bp, x1, cfg, drope, kernels=PLAIN, pos=pos,
                            cache={n: c.clone() for n, c in cache.items()})
     assert (dk - dp).abs().max() <= 1e-4 * dp.abs().max()
+
+
+@pytest.mark.parametrize("block", ["b0", "b1", "b2"])
+def test_jamba_block_kernels_vs_plain(cuda, block):
+    """One block of each jamba smoke kind in f32 (b0 Mamba + dense MLP, b1
+    Mamba + routed experts, b2 attention + dense MLP on the fused branch),
+    through the kernels on the card and the plain versions on the same
+    weights: a 2 x 13 prefill, then one decode step from its state or
+    cache. The Mamba kinds are bit-equal (their projections are exact
+    int32 sums through the same epilogues, and everything else is the same
+    torch code); the attention kind within 1e-4 of max |plain|."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", smoke=True), dtype=torch.float32)
+    params = PR.init_packed_params(TT.param_specs(cfg), 0, cuda, dense_leaves=TT.DENSE_LEAVES)
+    kind, bp, _ = list(TT._layers(cfg, params))[int(block[1])]
+    x = torch.randn((2, 13, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    rope = TT.rope_for(cfg, torch.arange(13, device=cuda)[None].expand(2, 13))
+    reset_launch_counts()
+    yk, rows_k = TT.apply_block(kind, bp, x, cfg, rope, kernels=KERNELS)
+    counts = launch_counts()
+    yp, rows = TT.apply_block(kind, bp, x, cfg, rope, kernels=PLAIN)
+    pos = torch.tensor([13, 5], dtype=torch.int32, device=cuda)
+    x1 = x[:, :1].clone()
+    if kind.mixer == "mamba":
+        assert torch.equal(yk, yp)
+        for n in rows:
+            assert torch.equal(rows_k[n], rows[n]), n
+        cache = rows
+    else:
+        assert (yk - yp).abs().max() <= 1e-4 * yp.abs().max()
+        assert counts["norm_quant"] == 2 and counts["flash_attention"] == 1
+        cache = {n: torch.nn.functional.pad(r, (0, 0, 0, 3)) for n, r in rows.items()}
+    assert counts["ternary_gemv"] + counts["ternary_matmul"] >= (
+        3 * cfg.n_experts if kind.ffn == "moe" else 4)
+    drope = TT.rope_for(cfg, pos[:, None])
+    ck, cp = ({n: c.clone() for n, c in cache.items()} for _ in range(2))
+    dk, _ = TT.apply_block(kind, bp, x1, cfg, drope, kernels=KERNELS, pos=pos, cache=ck)
+    dp, _ = TT.apply_block(kind, bp, x1, cfg, drope, kernels=PLAIN, pos=pos, cache=cp)
+    if kind.mixer == "mamba":
+        assert torch.equal(dk, dp)
+        for n in ck:
+            assert torch.equal(ck[n], cp[n]), n
+    else:
+        assert (dk - dp).abs().max() <= 1e-4 * dp.abs().max()
 
 
 def test_flash_attention_counts_and_checks(cuda):
