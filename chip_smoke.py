@@ -14,7 +14,11 @@ with a 4096-token sliding window beside global ones, softcaps) at full
 width and depth through ``generate`` and the chunked engine, with
 prompts past the window; then Jamba-v0.1 52B (the hybrid family: Mamba
 mixers, one attention layer in eight, 16 experts every second layer) at
-full width and depth through ``generate`` and the per-request engine.
+full width and depth through ``generate`` and the per-request engine;
+then the last five configs: InternVL2-26B and MusicGen-medium at full
+width and depth through their precomputed embeddings (``frontend``),
+``generate`` and (InternVL2) the chunked engine, Llama-3 405B at full
+width and 4 of its 126 layers, Granite-8B and InternLM2-20B at smoke size.
 
     python3 chip_smoke.py                # one CUDA device
     python3 chip_smoke.py --out report.json   # also the full report as JSON
@@ -339,6 +343,38 @@ Phases (each prints one JSON line; any failed bar exits non-zero):
             ``jamba_rows`` line: the kernels phase's jamba shapes of rows
             1, 3-6 and 17 (the Mamba and expert projections, x_proj's
             ragged 288 outputs, G = 4 attention) with their launches.
+  dense_smoke  granite-8b's and internlm2-20b's smoke configs in f32, card
+            (kernels) vs CPU (plain versions): forward logits, generate
+            streams, the chunked engine (contiguous bf16): equal streams
+            and statuses.
+  internvl2_init  full-width internvl2-26b (48 layers, d_model 6144, 48
+            heads on 8 kv heads, vocab 92553, random weights from seed 0)
+            packed leaf by leaf: seconds, bytes, peak beyond resident.
+  internvl2_blocks  its first block, kernels vs plain versions on the same
+            input: a 1 x 2000 prefill and a decode step at 2000, within
+            the logits bar.
+  internvl2_frontend  make_prefill_step on bf16 patch embeddings
+            [4, 100, 1024], then 16 make_serve_step calls of one embedding
+            row a slot, kernels and plain versions each on its own caches:
+            every step's logits within the logits bar, argmax partings
+            reported with their gap; prefill and decode ms, launches,
+            busy share; then a 1 x 2000 embeddings prefill, timed.
+  internvl2_generate  B = 4, 100-token prompts, 16 steps: as
+            gemma2_generate (prefill logits held against plain).
+  internvl2_engine  the chunked engine, 8 slots, max_len 1024, the ragged
+            16 prompts, 32 new each: every request OK, one transfer a tick.
+  musicgen_init, musicgen_frontend, musicgen_generate  full-width
+            musicgen-medium (48 layers, d 1536, 24 heads of 64, vocab
+            2048) as internvl2's, on audio frame embeddings [4, 100, 128].
+  llama3_init, llama3_blocks, llama3_generate  llama3-405b at full width
+            (d 16384, 128 heads on 8, d_ff 53248, vocab 128256) and 4 of
+            its 126 layers (the line says why): every block kernels vs
+            plain on a 4 x 100 prefill and a decode step; generate at
+            4 x 100 and 1 x 1000, the first's prefill logits held.
+            Then the ``a13f_rows`` line: the kernels phase's shapes of
+            these configs (rows 6 and 17 at G = 6 and 16 and D = 64, row
+            10 at G = 6, rows 1 and 3-5 at Llama-3's widths) with their
+            launches.
 Then the ``kernels`` line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
@@ -833,6 +869,8 @@ def kernel_phase(torch, cfg, report: dict) -> list[dict]:
                                                         projection_row, checks)
     report["jamba_kernel_shapes"] = jamba_kernel_rows(torch, randn, int8, packed, quant_close,
                                                       projection_row, checks)
+    report["a13f_kernel_shapes"] = a13f_kernel_rows(torch, randn, int8, packed, quant_close,
+                                                    projection_row, checks)
     report["kernel_checks"] = checks
     emit({"phase": "kernels", "checks": checks})
     return rows
@@ -4915,6 +4953,85 @@ def flash_attention_model_rows(torch, randn, checks, tag: str, fb: int, s: int, 
     return rows
 
 
+def prefill_append_row(torch, randn, checks, tag: str, b: int, h: int, hk: int, hd: int,
+                       c: int, m: int, offs: list, limit: int, window: int = 0,
+                       softcap: float = 0.0) -> dict:
+    """Row 10 with chunks q[b, h, c, hd] at the offsets ``offs`` (write-only
+    at or past ``limit``) against a cache [b, hk, m, hd]: held against its
+    plain version in bf16 and f32 (the output within the attention bars,
+    the caches after the append equal) and timed beside its bound (the
+    live slots' (query, key) pairs and prefix rows under the window), the
+    plain version and SDPA of the live slots with the offset-causal mask
+    over their cache rows up to the chunk's end (k/v repeated to H heads,
+    no softcap; the append not timed)."""
+    from repro_torch.kernels.prefill_append import ops as pa_ops
+    from repro_torch.kernels.prefill_append import ref as pa_ref
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    q = randn(b, h, c, hd)
+    kn, vn = randn(b, hk, c, hd), randn(b, hk, c, hd) * 0.25
+    kc, vc = randn(b, hk, m, hd), randn(b, hk, m, hd) * 0.25
+    kw = {"window": window, "softcap": softcap, "prefix_limit": limit}
+    model = tag.split()[0]
+    for dtype, tol in ((bf16, ATTN_TOL_BF16), (f32, ATTN_TOL_F32)):
+        cast = [t.to(dtype) for t in (q, kn, vn)]
+        mine, plain = [kc.to(dtype), vc.to(dtype)], [kc.to(dtype), vc.to(dtype)]
+        got = pa_ops.prefill_append(*cast, *mine, off, **kw).float()
+        want = pa_ref.prefill_append(*cast, *plain, off, **kw).float()
+        err = (got - want).abs().max().item()
+        same = all(torch.equal(a, p) for a, p in zip(mine, plain))
+        checks.append({"kernel": "prefill_append", "shape": f"{tag} {dtype}",
+                       "max_abs_err": err, "tol": tol, "cache_equal": same})
+        if not (torch.allclose(got, want, atol=tol, rtol=tol) and same):
+            fail(f"prefill_append[{model}, {dtype}]: max |kernel - plain| = {err}, bar {tol}, "
+                 f"cache equal {same}")
+        if dtype is bf16:
+            pa_err = err
+        del mine, plain
+    live = [i for i, o in enumerate(offs) if o < limit]
+    qpos = off[live, None].to(torch.int64) + torch.arange(c, device=dev)[None, :]
+    keys = torch.clamp(qpos + 1, max=window) if window else qpos + 1
+    pairs = int(keys.sum().item()) * h
+    prefix_rows = sum(min(offs[i], window - 1) if window else offs[i] for i in live) * hk
+    qb, knb, vnb, kcb, vcb = (t.to(bf16) for t in (q, kn, vn, kc, vc))
+    del kc, vc
+    nb = (_nbytes(qb) * len(live) // b + _nbytes(qb) + 2 * _nbytes(knb)
+          + prefix_rows * 2 * hd * 2 + b * c * hk * 2 * hd * 2 + _nbytes(off))
+    bms, bby = bound_ms(nb, 4 * hd * pairs, "bf16")
+    end = max(offs[i] for i in live) + c
+    kd, vd = kcb.clone(), vcb.clone()
+    for i, o in enumerate(offs):
+        kd[i, :, o:o + c], vd[i, :, o:o + c] = knb[i], vnb[i]
+    mask = _window_mask(qpos[:, :, None], torch.arange(end, device=dev)[None, None], window)
+    lib = [(qb[live].contiguous(), kd[live, :, :end].repeat_interleave(h // hk, dim=1),
+            vd[live, :, :end].repeat_interleave(h // hk, dim=1), mask[:, None])]
+    del kd, vd
+    sets = [(qb, knb, vnb, kcb, vcb)]
+    extras = (f", window {window}" if window else "") + (f", softcap {softcap}" if softcap
+                                                           else "")
+    row = {"name": "prefill_append", "route": "cuda", "shape_tag": tag,
+           "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append.cu",
+           "replaces": "src/repro/kernels/prefill_append/kernel.py:532",
+           "shape": f"q[{b},{h},{c},{hd}] offsets {offs} prefix_limit {limit} cache "
+                    f"[{b},{hk},{m},{hd}] bf16" + extras,
+           "max_abs_err": pa_err,
+           "ms": time_ms(torch, lambda *a: pa_ops.prefill_append(*a, off, **kw), sets,
+                         iters=20),
+           "eager_ms": eager_ms(torch, lambda *a: pa_ops.prefill_append(*a, off, **kw), sets,
+                                iters=20),
+           "plain_ms": time_ms(torch, lambda *a: pa_ref.prefill_append(*a, off, **kw), sets,
+                               iters=2),
+           "bound_ms": bms, "bound_by": bby,
+           "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib, iters=20),
+           "library_note": "SDPA of the live slots with the offset-causal "
+                           + ("window " if window else "") + "mask over their cache rows up "
+                           "to the chunk's end, k/v repeated to H heads"
+                           + (", no softcap" if softcap else "") + "; the append not timed"}
+    row["over_library"] = row["ms"] / row["library_ms"]
+    return row
+
+
 def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
                        checks) -> list[dict]:
     """Rows 1, 3-6, 10 and 17 at gemma2-27b's shapes (d 4608, d_ff 36864,
@@ -4930,14 +5047,10 @@ def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
     the library call (SDPA with a boolean mask for a window; it has no
     softcap)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.prefill_append import ops as pa_ops
-    from repro_torch.kernels.prefill_append import ref as pa_ref
     from repro_torch.kernels.ternary_matmul import ops as tm_ops
     from repro_torch.kernels.ternary_matmul import ref as tm_ref
 
     cfg = get_config(GEMMA2)
-    dev = torch.device("cuda")
-    bf16, f32 = torch.bfloat16, torch.float32
     d, ff, h, hk, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     w, cap = cfg.sliding_window, cfg.attn_logit_softcap
     phases = (("decode", 4), ("prefill", 512))
@@ -4964,66 +5077,9 @@ def gemma2_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
                                      [100, w - 1, w, w + 1, 5000, m - 1, m - 1, 4300], w, cap))
 
     # --- row 10: prefill-append at the engine's tick, window and softcap -----
-    c, limit = CHUNK_ROWS, GEMMA2_MAX_LEN
-    offs = [0, 3840, 4096, 4608] + [limit] * 4
-    off = torch.tensor(offs, dtype=torch.int32, device=dev)
-    q = randn(b, h, c, hd)
-    kn, vn = randn(b, hk, c, hd), randn(b, hk, c, hd) * 0.25
-    kc, vc = randn(b, hk, m, hd), randn(b, hk, m, hd) * 0.25
-    kw = {"window": w, "softcap": cap, "prefix_limit": limit}
-    for dtype, tol in ((bf16, ATTN_TOL_BF16), (f32, ATTN_TOL_F32)):
-        cast = [t.to(dtype) for t in (q, kn, vn)]
-        mine, plain = [kc.to(dtype), vc.to(dtype)], [kc.to(dtype), vc.to(dtype)]
-        got = pa_ops.prefill_append(*cast, *mine, off, **kw).float()
-        want = pa_ref.prefill_append(*cast, *plain, off, **kw).float()
-        err = (got - want).abs().max().item()
-        same = all(torch.equal(a, p) for a, p in zip(mine, plain))
-        checks.append({"kernel": "prefill_append", "shape": f"gemma2 tick {dtype}",
-                       "max_abs_err": err, "tol": tol, "cache_equal": same})
-        if not (torch.allclose(got, want, atol=tol, rtol=tol) and same):
-            fail(f"prefill_append[gemma2, {dtype}]: max |kernel - plain| = {err}, bar {tol}, "
-                 f"cache equal {same}")
-        if dtype is bf16:
-            pa_err = err
-        del mine, plain
-    live = [i for i, o in enumerate(offs) if o < limit]
-    qpos = off[live, None].to(torch.int64) + torch.arange(c, device=dev)[None, :]
-    pairs = int(torch.clamp(qpos + 1, max=w).sum().item()) * h
-    prefix_rows = sum(min(offs[i], w - 1) for i in live) * hk
-    qb, knb, vnb, kcb, vcb = (t.to(bf16) for t in (q, kn, vn, kc, vc))
-    del kc, vc
-    nb = (_nbytes(qb) * len(live) // b + _nbytes(qb) + 2 * _nbytes(knb)
-          + prefix_rows * 2 * hd * 2 + b * c * hk * 2 * hd * 2 + _nbytes(off))
-    bms, bby = bound_ms(nb, 4 * hd * pairs, "bf16")
-    end = max(offs[i] for i in live) + c
-    kd, vd = kcb.clone(), vcb.clone()
-    for i, o in enumerate(offs):
-        kd[i, :, o:o + c], vd[i, :, o:o + c] = knb[i], vnb[i]
-    mask = _window_mask(qpos[:, :, None], torch.arange(end, device=dev)[None, None], w)
-    lib = [(qb[live].contiguous(), kd[live, :, :end].repeat_interleave(h // hk, dim=1),
-            vd[live, :, :end].repeat_interleave(h // hk, dim=1), mask[:, None])]
-    del kd, vd
-    sets = [(qb, knb, vnb, kcb, vcb)]
-    row = {"name": "prefill_append", "route": "cuda", "shape_tag": "gemma2 tick",
-           "source": "src/repro_torch/kernels/prefill_append/csrc/prefill_append.cu",
-           "replaces": "src/repro/kernels/prefill_append/kernel.py:532",
-           "shape": f"q[{b},{h},{c},{hd}] offsets {offs} prefix_limit {limit} cache "
-                    f"[{b},{hk},{m},{hd}] bf16, window {w}, softcap {cap}",
-           "max_abs_err": pa_err,
-           "ms": time_ms(torch, lambda *a: pa_ops.prefill_append(*a, off, **kw), sets,
-                         iters=20),
-           "eager_ms": eager_ms(torch, lambda *a: pa_ops.prefill_append(*a, off, **kw), sets,
-                                iters=20),
-           "plain_ms": time_ms(torch, lambda *a: pa_ref.prefill_append(*a, off, **kw), sets,
-                               iters=2),
-           "bound_ms": bms, "bound_by": bby,
-           "library_ms": time_ms(torch, lambda *a: _sdpa_masked(torch, *a), lib, iters=20),
-           "library_note": "SDPA of the live slots with the offset-causal window mask over "
-                           "their cache rows up to the chunk's end, k/v repeated to H heads, "
-                           "no softcap; the append not timed"}
-    row["over_library"] = row["ms"] / row["library_ms"]
-    rows.append(row)
-    del sets, lib, kcb, vcb
+    rows.append(prefill_append_row(torch, randn, checks, "gemma2 tick", b, h, hk, hd,
+                                   CHUNK_ROWS, m, [0, 3840, 4096, 4608] + [GEMMA2_MAX_LEN] * 4,
+                                   GEMMA2_MAX_LEN, w, cap))
 
     # --- row 17: flash attention, with and without the window and softcap ----
     for tag, (fb, s) in (("1x4352", (1, GEMMA2_BLOCK_PREFILL)), ("4x128", (4, 128))):
@@ -5048,6 +5104,30 @@ def _smoke_engine(torch, cfg, params, kset, device, prompts, speculative: bool):
     return [(r.generated, r.status.name) for r in reqs], eng.stats(), K.launch_counts()
 
 
+def smoke_forward_generate(torch, cfg, cuda_params, cpu_params, phase: str) -> dict:
+    """A smoke config in f32, card (kernels) against CPU (plain versions):
+    ``forward`` of 3 x 40 tokens (seed 7) within SMOKE_LOGIT_TOL and
+    ``generate`` (12 steps) with equal streams, else ``phase`` fails."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), generator=torch.Generator().manual_seed(7))
+    with torch.inference_mode():
+        lk, _ = Tr.forward(cuda_params, toks.to("cuda"), cfg, kernels=K.KERNELS)
+        lp, _ = Tr.forward(cpu_params, toks, cfg, kernels=K.PLAIN)
+    err = (lk.cpu() - lp).abs().max().item()
+    on_card = E.generate(cuda_params, cfg, toks, steps=12, kernels=K.KERNELS)
+    on_cpu = E.generate(cpu_params, cfg, toks, steps=12, kernels=K.PLAIN, device="cpu")
+    res = {"forward_logit_max_abs_err": err,
+           "generate_streams_equal": bool(torch.equal(on_card.tokens, on_cpu.tokens))}
+    if err > SMOKE_LOGIT_TOL or not res["generate_streams_equal"]:
+        emit({"phase": phase, cfg.name: res})
+        fail(f"{phase}[{cfg.name}]: forward err {err}, generate streams equal "
+             f"{res['generate_streams_equal']}")
+    return res
+
+
 def gemma2_smoke_phase(torch, report: dict) -> None:
     """gemma2-27b's smoke config (window 16, softcaps 50 and 30) in f32, on
     the card (kernels) against the same weights on the CPU (plain
@@ -5069,7 +5149,6 @@ def gemma2_smoke_phase(torch, report: dict) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import params as PR
     from repro_torch.models import transformer as Tr
-    from repro_torch.serving import engine as E
 
     out = {"phase": "gemma2_smoke"}
     rng = np.random.default_rng(3)
@@ -5082,20 +5161,7 @@ def gemma2_smoke_phase(torch, report: dict) -> None:
         cuda_params = _to_cuda(cpu_params)
         res = {}
         if arch == GEMMA2:
-            toks = torch.randint(0, base.vocab_size, (3, 40),
-                                 generator=torch.Generator().manual_seed(7))
-            with torch.inference_mode():
-                lk, _ = Tr.forward(cuda_params, toks.to("cuda"), base, kernels=K.KERNELS)
-                lp, _ = Tr.forward(cpu_params, toks, base, kernels=K.PLAIN)
-            err = (lk.cpu() - lp).abs().max().item()
-            on_card = E.generate(cuda_params, base, toks, steps=12, kernels=K.KERNELS)
-            on_cpu = E.generate(cpu_params, base, toks, steps=12, kernels=K.PLAIN, device="cpu")
-            res["forward_logit_max_abs_err"] = err
-            res["generate_streams_equal"] = bool(torch.equal(on_card.tokens, on_cpu.tokens))
-            if err > SMOKE_LOGIT_TOL or not res["generate_streams_equal"]:
-                emit(out | {arch: res})
-                fail(f"gemma2_smoke: forward err {err}, generate streams equal "
-                     f"{res['generate_streams_equal']}")
+            res = smoke_forward_generate(torch, base, cuda_params, cpu_params, "gemma2_smoke")
             runs = (("bf16", "contiguous", False), ("int8", "contiguous", False),
                     ("bf16", "paged", False), ("bf16", "contiguous", True))
         else:
@@ -5132,11 +5198,13 @@ def gemma2_smoke_phase(torch, report: dict) -> None:
     emit(out)
 
 
-def gemma2_params(torch, cfg, report: dict):
-    """Full-width gemma2-27b weights, random from seed 0, packed leaf by leaf
-    on the card: seconds, bytes resident, and the peak the leaf-by-leaf
-    init reached beyond what was resident before it (the largest f32
-    latent, blocks/b0/ffn/gate [23, 4608, 36864], is 15.6 GB)."""
+def packed_params_phase(torch, cfg, report: dict, key: str, **extra):
+    """Full-width weights of ``cfg``, random from seed 0, packed leaf by
+    leaf on the card: seconds, bytes resident, and the peak the leaf-by-leaf
+    init reached beyond what was resident before it (one leaf's f32 latent
+    and its ternarization: gemma2-27b's ffn gate [23, 4608, 36864] is 15.6
+    GB, jamba's expert gate [4, 16, 4096, 14336] 15.0 GB); ``extra`` goes
+    on the line (a cut of depth and its reason)."""
     from repro_torch.models import transformer as Tr
 
     torch.cuda.synchronize()
@@ -5146,48 +5214,53 @@ def gemma2_params(torch, cfg, report: dict):
     params = full_params(torch, cfg)
     secs = time.perf_counter() - t
     nbytes = sum(x.numel() * x.element_size() for _, x in Tr.tree_leaves(params))
-    report["gemma2_init"] = {"init_and_pack_s": secs, "param_bytes": nbytes,
-                             "memory_allocated": torch.cuda.memory_allocated(),
-                             "peak_bytes_beyond_resident":
-                                 torch.cuda.max_memory_allocated() - before,
-                             "layers": cfg.n_layers, "d_model": cfg.d_model,
-                             "vocab": cfg.vocab_size}
-    emit({"phase": "gemma2_init", **report["gemma2_init"]})
+    report[key] = {"init_and_pack_s": secs, "param_bytes": nbytes,
+                   "memory_allocated": torch.cuda.memory_allocated(),
+                   "peak_bytes_beyond_resident": torch.cuda.max_memory_allocated() - before,
+                   "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                   **extra}
+    emit({"phase": key, **report[key]})
     return params
 
 
-def gemma2_blocks_phase(torch, cfg, params, report: dict) -> None:
-    """The first local and the first global block at full width, each
-    through the kernels and through the plain versions on the same input:
-    a 1 x 4352 prefill (the embedding into the local block, its plain output
-    into the global one) and one decode step at position 4400 against the
-    plain prefill's rows padded with zero rows to 4416, where the local
-    block's window masks the rows below 305; output within LOGIT_REL_TOL
-    of max |plain|; the kernels' prefill through the fused branch (two
-    norm-quant launches, one flash-attention launch a block)."""
+def blocks_phase(torch, cfg, params, report: dict, key: str, picked: dict, b: int,
+                 s: int, p: int) -> dict:
+    """Dense attention blocks at full width, ``picked`` ``{tag: layer
+    index}`` in order, each through the kernels and through the plain
+    versions on the same input: a b x s prefill (the embedding of seeded
+    tokens into the first, each block's plain output into the next) and
+    one decode step of all b rows at position ``p`` against the plain
+    prefill's rows padded with zero rows to p + 16 (gemma2: at 4400 after
+    4352 rows, where the local block's window masks the rows below 305);
+    output within LOGIT_REL_TOL of max |plain|; the kernels' prefill
+    through the fused branch (two norm-quant launches, one flash-attention
+    launch a block). A picked ``local``/``global`` tag is checked against
+    the layer's kind. Returns the kernels' launches over the picked
+    blocks' prefills."""
     from repro_torch import kernels as K
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as Tr
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    s, p = GEMMA2_BLOCK_PREFILL, GEMMA2_BLOCK_DECODE_POS
-    toks = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
     layers = list(Tr._layers(cfg, params))
-    picked = {"local": layers[0], "global": layers[1]}
-    rope = Tr.rope_for(cfg, torch.arange(s, dtype=torch.int32, device="cuda")[None])
-    dpos = torch.full((1,), p, dtype=torch.int32, device="cuda")
+    rope = Tr.rope_for(cfg, torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s))
+    dpos = torch.full((b,), p, dtype=torch.int32, device="cuda")
     drope = Tr.rope_for(cfg, dpos[:, None])
-    rows = []
+    rows, prefill_counts = [], {}
     with torch.inference_mode():
         xin = L.embed(params["embed"], toks[:, :s], dtype=cfg.dtype)
         din = L.embed(params["embed"], toks[:, s:], dtype=cfg.dtype)
-        for tag, (kind, bp, _) in picked.items():
-            if kind.local != (tag == "local"):
-                fail(f"gemma2_blocks: layer kinds out of order: {kind}")
+        for tag, index in picked.items():
+            kind, bp, _ = layers[index]
+            if tag in ("local", "global") and kind.local != (tag == "local"):
+                fail(f"{key}: layer kinds out of order: {kind}")
             K.reset_launch_counts()
             yk, _ = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=K.KERNELS)
             torch.cuda.synchronize()
             counts = K.launch_counts()
+            for n, c in counts.items():
+                prefill_counts[n] = prefill_counts.get(n, 0) + c
             yp, prefill_rows = Tr.apply_block(kind, bp, xin, cfg, rope, kernels=K.PLAIN)
             cache = {n: torch.nn.functional.pad(r, (0, 0, 0, p + 16 - s))
                      for n, r in prefill_rows.items()}
@@ -5205,40 +5278,43 @@ def gemma2_blocks_phase(torch, cfg, params, report: dict) -> None:
                 "prefill_launches": {n: c for n, c in counts.items() if c}})
             xin, din = yp, dp
             del cache, prefill_rows, yk
-    out = {"phase": "gemma2_blocks", "tol": LOGIT_REL_TOL, "prefill": [1, s],
-           "decode_pos": p, "blocks": rows}
-    report["gemma2_blocks"] = out
+    out = {"phase": key, "tol": LOGIT_REL_TOL, "prefill": [b, s], "decode_pos": p,
+           "blocks": rows}
+    report[key] = out
     emit(out)
     bad = [r for r in rows if not (r["finite"] and r["prefill_rel_err"] <= LOGIT_REL_TOL
                                    and r["decode_rel_err"] <= LOGIT_REL_TOL
                                    and r["prefill_launches"].get("norm_quant") == 2
                                    and r["prefill_launches"].get("flash_attention") == 1)]
     if bad:
-        fail(f"gemma2_blocks: kernels vs plain beyond the bar or off the fused branch: {bad}")
+        fail(f"{key}: kernels vs plain beyond the bar or off the fused branch: {bad}")
+    return prefill_counts
 
 
-def gemma2_generate_phase(torch, cfg, params, report: dict) -> dict:
-    """Full-width generate through the kernels: B = 4 with a 100-token
-    prompt and B = 1 with a 4200-token prompt (decode past the window),
-    GEMMA2_STEPS steps each (counters reset just before, read just after):
-    prefill ms, decode ms a step and tokens/s, the launches of one decode
-    step and of each prefill, the device busy share over three decode steps
-    (torch.profiler); the 4 x 100 prefill's logits within LOGIT_REL_TOL of
-    the plain versions', every logit within the final softcap. Returns the
-    launch counts by run."""
+def model_generate_phase(torch, cfg, params, report: dict, key: str, shapes,
+                         steps: int) -> dict:
+    """Full-width generate through the kernels at each (B, prompt) of
+    ``shapes`` (gemma2: B = 4 with a 100-token prompt and B = 1 with a
+    4200-token one, decode past the window), ``steps`` steps each (counters
+    reset just before, read just after): prefill ms, decode ms a step and
+    tokens/s, the launches of one decode step and of each prefill, the
+    device busy share over three decode steps (torch.profiler); the first
+    shape's prefill logits within LOGIT_REL_TOL of the plain versions',
+    every logit within the final softcap where there is one. Returns the
+    launch counts by run, keyed "BxS"."""
     from repro_torch import kernels as K
     from repro_torch.models import transformer as Tr
     from repro_torch.serving import engine as E
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     runs, counts_by = [], {}
-    for b, s in GEMMA2_GENERATES:
+    for b, s in shapes:
         prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
-        res, counts, times = generate_run(torch, cfg, params, prompts, GEMMA2_STEPS, K.KERNELS)
-        if (tuple(res.tokens.shape) != (b, GEMMA2_STEPS)
-                or not torch.isfinite(res.prefill_logits).all()
-                or res.prefill_logits.abs().max().item() > cfg.final_logit_softcap):
-            fail(f"gemma2_generate[{b}x{s}]: wrong token shape, or logits not finite or "
+        res, counts, times = generate_run(torch, cfg, params, prompts, steps, K.KERNELS)
+        cap = cfg.final_logit_softcap
+        if (tuple(res.tokens.shape) != (b, steps) or not torch.isfinite(res.prefill_logits).all()
+                or (cap and res.prefill_logits.abs().max().item() > cap)):
+            fail(f"{key}[{b}x{s}]: wrong token shape, or logits not finite or "
                  "beyond the final softcap")
         with torch.inference_mode():
             K.reset_launch_counts()
@@ -5255,14 +5331,14 @@ def gemma2_generate_phase(torch, cfg, params, report: dict) -> dict:
         profile = profile_device(
             torch, lambda: Tr.decode_step(params, tok, caches, pos, cfg, kernels=K.KERNELS),
             steps=3)
-        run = {"batch": b, "prompt": s, "steps": GEMMA2_STEPS,
+        run = {"batch": b, "prompt": s, "steps": steps,
                "bucket": E.bucket_length(s, cfg.prefill_chunk_sizes), **times,
                "decode_launches_per_step": sum(step_counts.values()),
                "decode_step_launch_counts": {n: c for n, c in step_counts.items() if c},
                "prefill_launch_counts": {n: c for n, c in prefill_counts.items() if c},
                "launch_counts": {n: c for n, c in counts.items() if c},
                "decode_profile": profile}
-        if (b, s) == GEMMA2_GENERATES[0]:
+        if (b, s) == shapes[0]:
             with torch.inference_mode():
                 lp, _ = E.prefill_bucketed(params, cfg, prompts, kernels=K.PLAIN)
             err = (res.prefill_logits.float() - lp.float()).abs().max().item()
@@ -5271,55 +5347,62 @@ def gemma2_generate_phase(torch, cfg, params, report: dict) -> dict:
             run["first_tokens_equal_plain"] = bool(torch.equal(
                 res.prefill_logits.argmax(-1), lp.argmax(-1)))
             if err > LOGIT_REL_TOL * run["prefill_logit_max_abs"]:
-                emit({"phase": "gemma2_generate", "runs": runs + [run]})
-                fail(f"gemma2_generate: prefill logits kernels vs plain differ by {err}")
+                emit({"phase": key, "runs": runs + [run]})
+                fail(f"{key}: prefill logits kernels vs plain differ by {err}")
         missing = [n for n in GEMMA2_PATH if not counts[n]]
         if missing:
-            fail(f"gemma2_generate[{b}x{s}]: kernels never launched: {missing}")
+            fail(f"{key}[{b}x{s}]: kernels never launched: {missing}")
         runs.append(run)
         counts_by[f"{b}x{s}"] = {"generate": counts, "decode_step": step_counts,
                                  "prefill": prefill_counts}
         del caches
-    out = {"phase": "gemma2_generate", "model": cfg.name, "runs": runs}
-    report["gemma2_generate"] = out
+    out = {"phase": key, "model": cfg.name, "runs": runs}
+    report[key] = out
     emit(out)
     return counts_by
 
 
-def gemma2_engine_phase(torch, cfg, params, report: dict) -> dict:
-    """The full-width chunked ServingEngine, 8 slots, max_len 6144 (a 19.3
-    GB bf16 cache), 12 ragged prompts in ENGINE_PROMPT_RANGE and 4 of
-    4200-5000 tokens, whose chunks cross the window foot, 32 new tokens
-    each, through the kernels: every request OK with its 32 tokens, one
-    host transfer a tick; tokens/s, ms a fused and a decode tick, first
-    token ms. Returns the run's launch counts."""
-    import numpy as np
-
+def chunked_engine_phase(torch, cfg, params, report: dict, key: str, prompts,
+                         max_len: int) -> dict:
+    """The full-width chunked ServingEngine, 8 slots, ``max_len`` (gemma2:
+    6144, a 19.3 GB bf16 cache, 12 ragged prompts in ENGINE_PROMPT_RANGE and
+    4 of 4200-5000 tokens, whose chunks cross the window foot), ENGINE_NEW
+    new tokens a request, through the kernels: every request OK with its
+    tokens, one host transfer a tick, every kernel of the path launched;
+    tokens/s, ms a fused and a decode tick, first token ms. Returns the
+    run's launch counts."""
     from repro_torch import kernels as K
+
+    m, reqs, eng = engine_run(torch, cfg, params, K.KERNELS, prompts, max_len=max_len)
+    out = {"phase": key, "prefill": eng.prefill, "prompt_lengths": [len(p) for p in prompts],
+           **{k: m[k] for k in ("ticks", "fused_ticks", "host_transfers", "statuses",
+                                "wall_s", "tokens", "tokens_per_s", "fused_tick_ms_mean",
+                                "decode_tick_ms_mean", "cache_bytes")},
+           "launch_counts": {n: c for n, c in m["launch_counts"].items() if c},
+           "first_token_ms": m["first_token_ms"]}
+    report[key] = out
+    emit(out)
+    bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
+    missing = [n for n in GEMMA2_PATH + ("prefill_append",)
+               if n != "flash_attention" and not m["launch_counts"][n]]
+    if bad or m["host_transfers"] != m["ticks"] or eng.prefill != "chunked" or missing:
+        fail(f"{key}: requests not OK with {ENGINE_NEW} tokens: {bad}; "
+             f"{m['host_transfers']} transfers for {m['ticks']} ticks; prefill "
+             f"{eng.prefill}; kernels never launched: {missing}")
+    return m["launch_counts"]
+
+
+def gemma2_engine_prompts(cfg) -> list:
+    """12 ragged prompts in ENGINE_PROMPT_RANGE and GEMMA2_LONG's 4 long
+    ones (numpy default_rng(0))."""
+    import numpy as np
 
     rng = np.random.default_rng(0)
     lo, hi = ENGINE_PROMPT_RANGE
     n_long, (llo, lhi) = GEMMA2_LONG
     lengths = [int(n) for n in rng.integers(lo, hi + 1, GEMMA2_SHORT)]
     lengths += [int(n) for n in rng.integers(llo, lhi + 1, n_long)]
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
-    m, reqs, eng = engine_run(torch, cfg, params, K.KERNELS, prompts, max_len=GEMMA2_MAX_LEN)
-    out = {"phase": "gemma2_engine", "prefill": eng.prefill, "prompt_lengths": lengths,
-           **{k: m[k] for k in ("ticks", "fused_ticks", "host_transfers", "statuses",
-                                "wall_s", "tokens", "tokens_per_s", "fused_tick_ms_mean",
-                                "decode_tick_ms_mean", "cache_bytes")},
-           "launch_counts": {n: c for n, c in m["launch_counts"].items() if c},
-           "first_token_ms": m["first_token_ms"]}
-    report["gemma2_engine"] = out
-    emit(out)
-    bad = [r.rid for r in reqs if r.status.name != "OK" or len(r.generated) != ENGINE_NEW]
-    missing = [n for n in GEMMA2_PATH + ("prefill_append",)
-               if n != "flash_attention" and not m["launch_counts"][n]]
-    if bad or m["host_transfers"] != m["ticks"] or eng.prefill != "chunked" or missing:
-        fail(f"gemma2_engine: requests not OK with {ENGINE_NEW} tokens: {bad}; "
-             f"{m['host_transfers']} transfers for {m['ticks']} ticks; prefill "
-             f"{eng.prefill}; kernels never launched: {missing}")
-    return m["launch_counts"]
+    return [rng.integers(0, cfg.vocab_size, n) for n in lengths]
 
 
 def gemma2_rows(report: dict, gen_counts: dict, eng_counts: dict) -> dict:
@@ -5495,29 +5578,6 @@ def jamba_smoke_phase(torch, report: dict) -> None:
             and [x[1] for x in got] == [x[1] for x in want] == ["OK"] * len(eng_prompts)
             and mode == "legacy" and st["host_transfers"] == st["ticks"] and not missing):
         fail(f"jamba_smoke: {res}, kernels never launched: {missing}")
-
-
-def jamba_params(torch, cfg, report: dict):
-    """Full-width jamba-v0.1-52b weights, random from seed 0, packed leaf by
-    leaf on the card: seconds, bytes resident, and the peak the leaf-by-leaf
-    init reached beyond what was resident before it (the largest f32
-    latent, an expert gate or up [4, 16, 4096, 14336], is 15.0 GB)."""
-    from repro_torch.models import transformer as Tr
-
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    params = full_params(torch, cfg)
-    secs = time.perf_counter() - t
-    nbytes = sum(x.numel() * x.element_size() for _, x in Tr.tree_leaves(params))
-    report["jamba_init"] = {"init_and_pack_s": secs, "param_bytes": nbytes,
-                            "memory_allocated": torch.cuda.memory_allocated(),
-                            "peak_bytes_beyond_resident":
-                                torch.cuda.max_memory_allocated() - before,
-                            "layers": cfg.n_layers, "d_model": cfg.d_model}
-    emit({"phase": "jamba_init", **report["jamba_init"]})
-    return params
 
 
 def jamba_blocks_phase(torch, cfg, params, report: dict) -> None:
@@ -5823,6 +5883,335 @@ def jamba_rows(report: dict, counts: dict) -> dict:
     return {"phase": "jamba_rows", "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# The last five configs: internvl2-26b and musicgen-medium through their
+# precomputed embeddings (the frontend) at full width and depth, llama3-405b
+# at full width and a cut depth, granite-8b and internlm2-20b at smoke size
+# ---------------------------------------------------------------------------
+
+INTERNVL2, MUSICGEN, LLAMA3 = "internvl2-26b", "musicgen-medium", "llama3-405b"
+DENSE_SMOKE_ARCHS = ("granite-8b", "internlm2-20b")
+# llama3-405b's blocks are about 100 GB packed at full depth, more than the
+# card's 80 GB: full width, the first 4 of its 126 layers
+LLAMA3_LAYERS = 4
+LLAMA3_CUT = ("126 layers of 2-bit weights (0.80 GB each) and the bf16 table and head "
+              "(8.4 GB) come to about 109 GB, more than the card's 80 GB")
+FRONTEND_PREFILL = (4, 100)  # (batch, rows) of the embeddings prefill
+FRONTEND_STEPS = 16  # make_serve_step calls after it, one embedding row a slot each
+INTERNVL2_LONG = (1, 2000)  # internvl2's long prefill and its block: embeddings, exact length
+DENSE_STEPS = 16  # generate's greedy steps of the three full-width models
+LLAMA3_GENERATES = ((4, 100), (1, 1000))  # (batch, prompt): buckets 128 and 1024
+LLAMA3_BLOCKS = (4, 100)  # its blocks' b x s prefill (400 rows), decoded at position s
+# the kernels of the embeddings prefill (400 rows: the tiled matmul) and of
+# a serve step (4 rows: the GEMV)
+FRONTEND_PREFILL_PATH = ("norm_quant", "ternary_matmul", "ternary_swiglu", "flash_attention")
+FRONTEND_STEP_PATH = ("norm_quant", "ternary_gemv", "ternary_swiglu", "decode_attention")
+
+
+def a13f_kernel_rows(torch, randn, int8, packed, quant_close, projection_row,
+                     checks) -> list[dict]:
+    """Rows 1, 3-6, 10 and 17 at the shapes of the last five configs:
+    internvl2-26b's groups of 6 (48 heads on 8 kv heads of 128) in decode
+    attention at the chunked engine's 8 slots against 1280 rows (ragged
+    frontiers), in prefill-append at its tick (8 slots, C = 256, live slots
+    at 0 and 512, six write-only) and in flash attention at 1 x 2000;
+    musicgen-medium's D = 64 without GQA (24 heads) in decode attention at
+    its serve step (4 slots, 116 rows) and in flash attention at its 4 x 100
+    embeddings prefill; llama3-405b's groups of 16 (128 heads on 8) in
+    decode attention at generate's step (4 slots, 116 rows) and flash
+    attention at 1 x 1000 (bucket 1024), and its widths: norm-quant at d
+    16384 (the loop form), the GEMV at q [4,16384]·16384 and down + residual
+    [4,53248]·16384, the tiled matmul at both at 400 rows (its blocks' 4 x
+    100 prefill), the SwiGLU at [4,16384]·2×[16384,53248]. Each held
+    against its plain version at its kernel's bars and timed beside its
+    bound, the plain version and the library call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.ternary_matmul import ref as tm_ref
+
+    t0 = time.perf_counter()
+    fb, fs = FRONTEND_PREFILL
+    rows = []
+    # --- internvl2-26b: G = 6 --------------------------------------------------
+    cfg = get_config(INTERNVL2)
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, m = ENGINE_SLOTS, ENGINE_MAX_LEN + CHUNK_ROWS
+    rows.append(decode_attention_row(torch, randn, checks, "internvl2 engine", b, h, hk, hd, m,
+                                     [100, 1279, 64, 700, 1023, 300, 900, 511]))
+    rows.append(prefill_append_row(torch, randn, checks, "internvl2 tick", b, h, hk, hd,
+                                   CHUNK_ROWS, m, [0, 512] + [ENGINE_MAX_LEN] * 6,
+                                   ENGINE_MAX_LEN))
+    rows += flash_attention_model_rows(torch, randn, checks, "internvl2 1x2000",
+                                       *INTERNVL2_LONG, h, hk, hd)
+    # --- musicgen-medium: D = 64, no GQA -----------------------------------------
+    cfg = get_config(MUSICGEN)
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows.append(decode_attention_row(torch, randn, checks, "musicgen decode", fb, h, hk, hd,
+                                     fs + FRONTEND_STEPS, [fs + FRONTEND_STEPS - 1] * fb))
+    rows += flash_attention_model_rows(torch, randn, checks, f"musicgen {fb}x{fs}", fb, fs, h,
+                                       hk, hd)
+    # --- llama3-405b: G = 16 and its widths ----------------------------------------
+    cfg = get_config(LLAMA3)
+    d, ff, h, hk, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def tagged(row, tag):
+        return {**row, "shape_tag": f"llama3 {tag}"}
+
+    rows.append(norm_quant_row(torch, randn, quant_close, checks, "llama3 decode", 4, d,
+                               " (loop form)"))
+    for name, fn, ref_fn, mm, line, phase in (
+            ("ternary_gemv", tm_ops.ternary_gemv, tm_ref.ternary_gemv, 4, 109, "decode"),
+            ("ternary_matmul", tm_ops.ternary_matmul, tm_ref.ternary_matmul,
+             LLAMA3_BLOCKS[0] * LLAMA3_BLOCKS[1], 147, "prefill")):
+        for what, n, k, res in (("q", d, h * hd, False), ("down+res", ff, d, True)):
+            rows.append(tagged(projection_row(name, fn, ref_fn, mm, n, k, res,
+                                              f"src/repro/kernels/ternary_matmul/kernel.py:{line}",
+                                              what, plain_iters=3), f"{phase} {what}"))
+    rows += swiglu_rows(torch, randn, int8, packed, quant_close, checks, "llama3", d, ff,
+                        (("decode", 4),))
+    steps = DENSE_STEPS
+    rows.append(decode_attention_row(torch, randn, checks, "llama3 decode", 4, h, hk, hd,
+                                     100 + steps, [100 + steps - 2] * 4))
+    rows += flash_attention_model_rows(torch, randn, checks, "llama3 1x1000", 1, 1024, h, hk, hd)
+    checks.append({"kernel": "a13f rows", "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def dense_smoke_phase(torch, report: dict) -> None:
+    """granite-8b's and internlm2-20b's smoke configs in f32, card (kernels)
+    vs CPU (plain versions): forward logits and generate streams
+    (``smoke_forward_generate``), then the chunked engine
+    (SMOKE_ENGINE_FIELDS, two slots, GEMMA2_SMOKE_PROMPTS) on the contiguous
+    bf16 cache: equal streams and statuses, every request OK, one host
+    transfer a tick, the chunk and decode attention launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as PR
+    from repro_torch.models import transformer as Tr
+
+    out = {"phase": "dense_smoke"}
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(0, 256, n), m) for n, m in GEMMA2_SMOKE_PROMPTS]
+    for arch in DENSE_SMOKE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32,
+                                  **SMOKE_ENGINE_FIELDS)
+        cpu_params = PR.init_packed_params(Tr.param_specs(cfg), 0, "cpu",
+                                           dense_leaves=Tr.DENSE_LEAVES)
+        cuda_params = _to_cuda(cpu_params)
+        res = smoke_forward_generate(torch, cfg, cuda_params, cpu_params, "dense_smoke")
+        got, st, counts = _smoke_engine(torch, cfg, cuda_params, K.KERNELS, None, prompts, False)
+        want, _, _ = _smoke_engine(torch, cfg, cpu_params, K.PLAIN, "cpu", prompts, False)
+        res["engine"] = {"streams_equal": got == want, "statuses": [x[1] for x in got],
+                         "ticks": st["ticks"], "host_transfers": st["host_transfers"],
+                         "prefill_append": counts["prefill_append"],
+                         "decode_attention": counts["decode_attention"]}
+        out[arch] = res
+        if not (got == want and all(x[1] == "OK" for x in got)
+                and st["host_transfers"] == st["ticks"] and counts["prefill_append"]
+                and counts["decode_attention"]):
+            emit(out)
+            fail(f"dense_smoke[{arch}]: {res['engine']}")
+    report["dense_smoke"] = out
+    emit(out)
+
+
+def frontend_phase(torch, cfg, params, report: dict, key: str, long=None) -> dict:
+    """The embeddings path at full width: ``make_prefill_step`` over
+    FRONTEND_PREFILL's bf16 embeddings [4, 100, Dfe] (drawn by a seeded
+    generator on the card), then FRONTEND_STEPS ``make_serve_step`` calls of
+    one embedding row a slot, through the kernels and through the plain
+    versions, each side on its own caches: the prefill's and every step's
+    logits within LOGIT_REL_TOL of max |plain|, every argmax parting
+    reported with its plain top-2 gap, ``_near_tie`` and whether the gap is
+    within the kernels' deviation from plain there; prefill ms, decode ms a
+    step, the launches of the prefill and of one step (counters reset just
+    before, read just after), the device busy share over three steps
+    (torch.profiler). With ``long`` (b, s), one more kernels' prefill of
+    that many embedding rows, timed, its launches counted. Returns the
+    kernels' launches by run."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as Tr
+    from repro_torch.serving import engine as E
+
+    b, s = FRONTEND_PREFILL
+    n = FRONTEND_STEPS
+    dfe = Tr.FRONTEND_DIMS[cfg.frontend]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    emb = torch.randn((b, s + n, dfe), generator=gen, device="cuda").to(torch.bfloat16)
+    sides = {}
+    for side, kset in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+        pre = E.make_prefill_step(cfg, kernels=kset)
+        srv = E.make_serve_step(cfg, kernels=kset)
+        first = {"embeddings": emb[:, :s]}
+        if kset is K.KERNELS:
+            pre(params, first)  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        last, caches = pre(params, first)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        prefill_counts = K.launch_counts()
+        caches = E.grow_caches(caches, cfg, s + n)
+        logits = [last.float()]
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        for i in range(n):
+            lg, caches = srv(params, {"embeddings": emb[:, s + i:s + i + 1]}, caches, s + i)
+            logits.append(lg.float())
+        torch.cuda.synchronize()
+        sides[side] = {"logits": logits, "prefill_ms": prefill_ms,
+                       "decode_ms_per_step": (time.perf_counter() - t) * 1e3 / n,
+                       "prefill_counts": prefill_counts,
+                       "step_counts": {k: c // n for k, c in K.launch_counts().items()}}
+        if kset is K.KERNELS:
+            last_row = {"embeddings": emb[:, -1:]}
+            profile = profile_device(torch, lambda: srv(params, last_row, caches, s + n - 1),
+                                     steps=3)
+        del caches
+    rel, partings = [], []
+    for j, (lk, lp) in enumerate(zip(sides["kernels"]["logits"], sides["plain"]["logits"])):
+        rel.append(((lk - lp).abs().max() / lp.abs().max()).item())
+        for row in (lk.argmax(-1) != lp.argmax(-1)).nonzero()[:, 0].tolist():
+            tg, tw = int(lk[row].argmax()), int(lp[row].argmax())
+            p = {"step": j, "row": row, "tokens": [tg, tw],
+                 "plain_gap": abs(lp[row, tg] - lp[row, tw]).item(),
+                 "kernel_vs_plain": (lk[row] - lp[row]).abs().max().item(),
+                 "max_abs_logit": lp[row].abs().max().item()}
+            partings.append({**p, "near_tie": _near_tie(p),
+                             "gap_within_deviation": p["plain_gap"] <= p["kernel_vs_plain"]})
+    kern = sides["kernels"]
+    finite = all(bool(torch.isfinite(x).all()) for x in kern["logits"])
+    out = {"phase": key, "model": cfg.name, "frontend": cfg.frontend,
+           "embeddings": [b, s, dfe], "serve_steps": n, "tol": LOGIT_REL_TOL,
+           "logit_rel_err": rel, "finite": finite, "partings": partings,
+           "prefill_ms": kern["prefill_ms"], "plain_prefill_ms": sides["plain"]["prefill_ms"],
+           "decode_ms_per_step": kern["decode_ms_per_step"],
+           "plain_decode_ms_per_step": sides["plain"]["decode_ms_per_step"],
+           "decode_launches_per_step": sum(kern["step_counts"].values()),
+           "step_launch_counts": {k: c for k, c in kern["step_counts"].items() if c},
+           "prefill_launch_counts": {k: c for k, c in kern["prefill_counts"].items() if c},
+           "decode_profile": profile}
+    counts = {"prefill": kern["prefill_counts"], "serve_step": kern["step_counts"]}
+    if long is not None:
+        lb, ls = long
+        batch = {"embeddings": torch.randn((lb, ls, dfe), generator=gen,
+                                           device="cuda").to(torch.bfloat16)}
+        pre = E.make_prefill_step(cfg)
+        pre(params, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        last, caches = pre(params, batch)
+        torch.cuda.synchronize()
+        counts["long_prefill"] = K.launch_counts()
+        out["long_prefill"] = {"shape": [lb, ls, dfe],
+                               "ms": (time.perf_counter() - t) * 1e3,
+                               "peak_bytes_beyond_resident":
+                                   torch.cuda.max_memory_allocated() - before,
+                               "finite": bool(torch.isfinite(last).all()),
+                               "launch_counts": {k: c for k, c in
+                                                 counts["long_prefill"].items() if c}}
+        del caches
+    report[key] = out
+    emit(out)
+    missing = ([k for k in FRONTEND_PREFILL_PATH if not kern["prefill_counts"][k]]
+               + [k for k in FRONTEND_STEP_PATH if not kern["step_counts"][k]])
+    long_bad = long is not None and not (
+        out["long_prefill"]["finite"]
+        and counts["long_prefill"]["flash_attention"] == cfg.n_layers)
+    if max(rel) > LOGIT_REL_TOL or not finite or missing or long_bad:
+        fail(f"{key}: logits kernels vs plain {max(rel)} (bar {LOGIT_REL_TOL}), finite "
+             f"{finite}; kernels never launched: {missing}; long prefill bad: {long_bad}")
+    return counts
+
+
+def a13f_rows(report: dict, counts: dict) -> dict:
+    """The last five configs' shapes of rows 1, 3-6, 10 and 17 with the
+    launches of the run that gives each its shape."""
+    iv, mg, ll = counts[INTERNVL2], counts[MUSICGEN], counts[LLAMA3]
+    fb, fs = FRONTEND_PREFILL
+    runs = {("internvl2", "engine"): (iv["engine"], "internvl2_engine run"),
+            ("internvl2", "tick"): (iv["engine"], "internvl2_engine run"),
+            ("internvl2", "1x2000"): (iv["long_prefill"], "make_prefill_step 1 x 2000"),
+            ("musicgen", "decode"): (mg["serve_step"], f"one make_serve_step, B = {fb}"),
+            ("musicgen", f"{fb}x{fs}"): (mg["prefill"], f"make_prefill_step {fb} x {fs}"),
+            ("llama3", "decode"): (ll["generate"]["4x100"]["decode_step"],
+                                   "one decode step, B = 4"),
+            ("llama3", "prefill"): (ll["blocks"], "llama3_blocks, the 4 x 100 prefill"),
+            ("llama3", "1x1000"): (ll["generate"]["1x1000"]["prefill"],
+                                   "prefill 1 x 1000 (bucket 1024)")}
+    keys = ("name", "shape_tag", "shape", "launches", "launches_run", "max_abs_err", "ms",
+            "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "over_library")
+    rows = []
+    for row in report["a13f_kernel_shapes"]:
+        c, what = runs[tuple(row["shape_tag"].split()[:2])]
+        row["launches"], row["launches_run"] = c.get(row["name"], 0), what
+        rows.append({k: row[k] for k in keys if k in row})
+    return {"phase": "a13f_rows", "rows": rows}
+
+
+def a13f_phases(torch, report: dict) -> None:
+    """The last five configs after the kernels phase: ``dense_smoke``;
+    internvl2-26b at full width and depth (init, its first block, the
+    embeddings path with the 1 x 2000 prefill, generate, the chunked
+    engine); musicgen-medium at full width and depth (init, the embeddings
+    path, generate); llama3-405b at full width and LLAMA3_LAYERS layers
+    (init, its blocks, generate at LLAMA3_GENERATES); then the
+    ``a13f_rows`` line."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    dense_smoke_phase(torch, report)
+    a13f_counts = {}
+    iv_cfg = get_config(INTERNVL2)
+    iv_params = packed_params_phase(torch, iv_cfg, report, "internvl2_init")
+    blocks_phase(torch, iv_cfg, iv_params, report, "internvl2_blocks", {"b0": 0},
+                 *INTERNVL2_LONG, INTERNVL2_LONG[1])
+    iv_counts = frontend_phase(torch, iv_cfg, iv_params, report, "internvl2_frontend",
+                               long=INTERNVL2_LONG)
+    iv_counts["generate"] = model_generate_phase(torch, iv_cfg, iv_params, report,
+                                                 "internvl2_generate", (FRONTEND_PREFILL,),
+                                                 DENSE_STEPS)
+    iv_counts["engine"] = chunked_engine_phase(torch, iv_cfg, iv_params, report,
+                                               "internvl2_engine", _engine_prompts(iv_cfg),
+                                               ENGINE_MAX_LEN)
+    a13f_counts[INTERNVL2] = iv_counts
+    del iv_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mg_cfg = get_config(MUSICGEN)
+    mg_params = packed_params_phase(torch, mg_cfg, report, "musicgen_init")
+    mg_counts = frontend_phase(torch, mg_cfg, mg_params, report, "musicgen_frontend")
+    mg_counts["generate"] = model_generate_phase(torch, mg_cfg, mg_params, report,
+                                                 "musicgen_generate", (FRONTEND_PREFILL,),
+                                                 DENSE_STEPS)
+    a13f_counts[MUSICGEN] = mg_counts
+    del mg_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ll_cfg = dataclasses.replace(get_config(LLAMA3), n_layers=LLAMA3_LAYERS)
+    ll_params = packed_params_phase(torch, ll_cfg, report, "llama3_init",
+                                    of=get_config(LLAMA3).n_layers, reason=LLAMA3_CUT)
+    a13f_counts[LLAMA3] = {
+        "blocks": blocks_phase(torch, ll_cfg, ll_params, report, "llama3_blocks",
+                               {f"b{i}": i for i in range(LLAMA3_LAYERS)}, *LLAMA3_BLOCKS,
+                               LLAMA3_BLOCKS[1]),
+        "generate": model_generate_phase(torch, ll_cfg, ll_params, report, "llama3_generate",
+                                         LLAMA3_GENERATES, DENSE_STEPS)}
+    del ll_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(a13f_rows(report, a13f_counts))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
@@ -5947,10 +6336,13 @@ def main(argv=None) -> int:
 
     gemma2_smoke_phase(torch, report)
     g2_cfg = get_config(GEMMA2)
-    g2_params = gemma2_params(torch, g2_cfg, report)
-    gemma2_blocks_phase(torch, g2_cfg, g2_params, report)
-    g2_counts = gemma2_generate_phase(torch, g2_cfg, g2_params, report)
-    g2_engine_counts = gemma2_engine_phase(torch, g2_cfg, g2_params, report)
+    g2_params = packed_params_phase(torch, g2_cfg, report, "gemma2_init")
+    blocks_phase(torch, g2_cfg, g2_params, report, "gemma2_blocks", {"local": 0, "global": 1},
+                 1, GEMMA2_BLOCK_PREFILL, GEMMA2_BLOCK_DECODE_POS)
+    g2_counts = model_generate_phase(torch, g2_cfg, g2_params, report, "gemma2_generate",
+                                     GEMMA2_GENERATES, GEMMA2_STEPS)
+    g2_engine_counts = chunked_engine_phase(torch, g2_cfg, g2_params, report, "gemma2_engine",
+                                            gemma2_engine_prompts(g2_cfg), GEMMA2_MAX_LEN)
     del g2_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5958,7 +6350,7 @@ def main(argv=None) -> int:
 
     jamba_smoke_phase(torch, report)
     jb_cfg = get_config(JAMBA)
-    jb_params = jamba_params(torch, jb_cfg, report)
+    jb_params = packed_params_phase(torch, jb_cfg, report, "jamba_init")
     jamba_blocks_phase(torch, jb_cfg, jb_params, report)
     jb_counts = jamba_generate_phase(torch, jb_cfg, jb_params, report)
     jb_counts["engine"] = jamba_engine_phase(torch, jb_cfg, jb_params, report)
@@ -5966,6 +6358,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emit(jamba_rows(report, jb_counts))
+
+    a13f_phases(torch, report)
     # The GEMV's and the SwiGLU's shapes, each with the launches of the run
     # that gives it that shape: generate (decode rows and its 4 x 128
     # prefill), the chunked engine (bf16 cache; its chunk step has 2048

@@ -7,8 +7,12 @@ test can hold each shared field against it. Five families are ported: the
 dense transformer (with gemma2's softcaps, sliding window and local/global
 layers, ``base.py:45-49``), ``moe``, ``mla_moe``, ``hybrid`` (Jamba: Mamba
 mixers with one attention layer a period, ``base.py:50-55``) and ``ssm``
-(RWKV-6). ``sub_quadratic`` is left out: only the JAX package's dry-run
-reads it. The serving knobs of the
+(RWKV-6). All eleven of JAX's configs are registered, the dense
+``granite-8b``, ``internlm2-20b``, ``llama3-405b``, ``musicgen-medium``
+and ``internvl2-26b`` among them; the last two set ``frontend``, JAX's
+input path for precomputed audio frames and image patches
+(``base.py:57-58``). ``sub_quadratic`` is left out: only the JAX
+package's dry-run reads it. The serving knobs of the
 replica pool and the HTTP/SSE front door (``serving/pool.py``,
 ``serving/server.py``) and :func:`resolve_slo` are JAX's
 (``base.py:115-153, 238-248``).
@@ -63,6 +67,10 @@ class ModelConfig:
     mamba_d_conv: int = 4
     mamba_expand: int = 2
     rwkv_head_dim: int = 64  # ssm: the WKV head size n (d_model // n heads)
+    # The input path (base.py:57-58): "audio" and "vision" feed precomputed
+    # frame or patch embeddings [B, S, FRONTEND_DIMS[frontend]] through a
+    # dense f32 projection; tokens still go through the embedding table
+    frontend: str = "none"  # none | audio | vision
     prefill_chunk_sizes: tuple = (64, 128, 256)  # the prefill buckets
     prefill_chunk_budget: int = 512  # chunk tokens appended per engine tick
     kv_cache_dtype: str = "bf16"  # bf16 (the activation dtype) | int8 + f32 row scales
@@ -151,8 +159,9 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
-    from . import (arctic_480b, deepseek_v2_lite_16b, gemma2_27b,  # noqa: F401
-                   jamba_v0_1_52b, rwkv6_3b, tellme_0p7b)
+    from . import (arctic_480b, deepseek_v2_lite_16b, gemma2_27b, granite_8b,  # noqa: F401
+                   internlm2_20b, internvl2_26b, jamba_v0_1_52b, llama3_405b,
+                   musicgen_medium, rwkv6_3b, tellme_0p7b)
 
     table = _SMOKE if smoke else _REGISTRY
     if name not in table:

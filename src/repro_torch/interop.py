@@ -12,9 +12,11 @@ The ``wp`` bytes and f32 ``scale``s cross as they are, so both packages run
 identical ternary weights; nothing is re-ternarized (``ternary_scale`` is an
 f32 mean whose summation order would differ). The embedding table and the
 LM head weight are cast to ``cfg.dtype`` once, the cast the JAX forms apply
-per call. A tree that ``with_tl_tree`` prepared carries its int32 group
-indices ``w_idx`` across as the port's uint8, after checking that every
-value lies in [0, 27). This module imports neither JAX nor ``repro``:
+per call; a frontend's projection (``frontend/w``, f32 in JAX's packed
+tree) crosses as its f32 bytes, cast at each use as in JAX. A tree that
+``with_tl_tree`` prepared carries its int32 group indices ``w_idx``
+across as the port's uint8, after checking that every value lies in [0,
+27). This module imports neither JAX nor ``repro``:
 numpy in, torch out.
 """
 

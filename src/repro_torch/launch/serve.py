@@ -4,8 +4,11 @@ resilience envelope (``repro/launch/serve.py``).
 Builds packed weights (random, from ``--seed``) on the device and serves a
 batch of prompts through the ``ServingEngine``: chunked prefill in
 bucketed chunks while every decoding slot advances each tick (the dense
-family, ``--arch gemma2-27b``'s sliding-window local layers included, and
-``--arch arctic-480b`` with ``--prefill chunked``; ``deepseek-v2-lite-16b``,
+family, ``--arch gemma2-27b``'s sliding-window local layers included,
+``granite-8b``, ``internlm2-20b``, ``llama3-405b`` (``--smoke`` on one
+card: about 100 GB packed at full depth), ``musicgen-medium`` and
+``internvl2-26b`` (from tokens), and ``--arch arctic-480b`` with
+``--prefill chunked``; ``deepseek-v2-lite-16b``,
 ``jamba-v0.1-52b`` and ``rwkv6-3b`` prefill each request whole at
 admission, ``--prefill legacy`` or ``auto``), a bounded
 admission queue, per-request deadlines and priorities with preemption, and
@@ -46,7 +49,7 @@ import numpy as np
 from .. import _common as C
 from ..configs import get_config
 from ..serving import engine as E
-from .server import load_kernels, build_params
+from .server import ARCH_HELP, build_params, load_kernels
 
 
 def _load_requests(path, cfg, args) -> list:
@@ -74,11 +77,7 @@ def _load_requests(path, cfg, args) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="tellme-0.7b",
-                    help="tellme-0.7b, gemma2-27b (local/global layers, window, softcaps), "
-                         "rwkv6-3b, deepseek-v2-lite-16b, jamba-v0.1-52b (Mamba, "
-                         "attention and MoE layers), or arctic-480b (its full width does "
-                         "not fit one card: --smoke)")
+    ap.add_argument("--arch", default="tellme-0.7b", help=ARCH_HELP)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the plain "

@@ -13,7 +13,7 @@ Endpoints: POST /v1/generate (an SSE token stream), GET /healthz, GET
 /readyz, GET /v1/stats.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.server --smoke --port 8080 [--device cpu]
-      [--arch gemma2-27b | jamba-v0.1-52b]
+      [--arch gemma2-27b | jamba-v0.1-52b | internvl2-26b | ...]
 Try:  curl -N localhost:8080/v1/generate -d '{"prompt": [1,2,3], "max_new": 8}'
 """
 
@@ -98,13 +98,17 @@ async def amain(args) -> int:
     return 0
 
 
+ARCH_HELP = ("tellme-0.7b, granite-8b, internlm2-20b, gemma2-27b (local/global layers, "
+             "window, softcaps), musicgen-medium and internvl2-26b (served from tokens "
+             "here; their precomputed embeddings enter through engine.make_prefill_step "
+             "and make_serve_step), rwkv6-3b, deepseek-v2-lite-16b, jamba-v0.1-52b "
+             "(Mamba, attention and MoE layers), or arctic-480b and llama3-405b (their "
+             "full width and depth need more than one card: --smoke on one)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="tellme-0.7b",
-                    help="tellme-0.7b, gemma2-27b (local/global layers, window, softcaps), "
-                         "rwkv6-3b, deepseek-v2-lite-16b, jamba-v0.1-52b (Mamba, "
-                         "attention and MoE layers), or arctic-480b (its full width does "
-                         "not fit one card: --smoke)")
+    ap.add_argument("--arch", default="tellme-0.7b", help=ARCH_HELP)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the plain "

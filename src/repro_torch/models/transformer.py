@@ -41,6 +41,15 @@ shared or dense MLP added). Its projections quantize their own input and
 take the ``"auto"`` engine, as JAX's do. On the plain versions the two
 branches of a dense block are equal bit for bit.
 
+The first residual row comes from :func:`embed_inputs`
+(``transformer.py:498-503``): a token tensor, or JAX's batch dict
+``{"tokens"}``, through the embedding table; for a config with a
+``frontend`` (musicgen-medium's audio frames, internvl2-26b's image
+patches), ``{"embeddings": [B, S, FRONTEND_DIMS[frontend]]}`` through the
+f32 ``params["frontend"]`` projection (``torch.matmul`` in ``cfg.dtype``,
+as JAX's ``jnp.matmul`` outside any Pallas kernel). ``forward``,
+``decode_step`` and ``prefill_chunk_step`` take either.
+
 The KV caches are, per attention layer, ``[B, HK, M, D]`` (int8 cache:
 with f32 row scales ``[B, HK, M]``), or, for the engine's paged layout
 (the dense and moe families), page pools ``[P, HK, ps, D]`` (``[P, HK, ps]``) that
@@ -168,11 +177,20 @@ def _stack(tree, n: int):
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
+# The width of the precomputed embeddings each frontend feeds (transformer.py:149)
+FRONTEND_DIMS = {"audio": 128, "vision": 1024}
+
+
 def param_specs(cfg) -> dict:
     """``transformer.py:152-166``: prelude leaves unstacked, period leaves
-    with a leading ``[n_periods]`` axis."""
+    with a leading ``[n_periods]`` axis; with a ``frontend``, its dense
+    projection ``frontend/w [FRONTEND_DIMS[frontend], d_model]``, which no
+    packing or cast touches (f32 in the serving tree, as in JAX's)."""
     prelude, period, n_periods = block_plan(cfg)
-    specs = {"embed": L.embedding_spec(cfg.padded_vocab, cfg.d_model)}
+    specs = {}
+    if cfg.frontend != "none":
+        specs["frontend"] = bitlinear.dense_spec(FRONTEND_DIMS[cfg.frontend], cfg.d_model)
+    specs["embed"] = L.embedding_spec(cfg.padded_vocab, cfg.d_model)
     for i, kind in enumerate(prelude):
         specs[f"prelude_{i}"] = layer_spec(cfg, kind)
     specs["blocks"] = {f"b{i}": _stack(layer_spec(cfg, kind), n_periods)
@@ -204,7 +222,9 @@ def packed_param_specs(cfg) -> dict:
     return rec(param_specs(cfg))
 
 
-# Float matrices the serving path casts to the activation dtype.
+# Float matrices the serving path casts to the activation dtype. The
+# frontend's projection is not one: JAX's packed tree keeps it f32 and
+# ``dense_apply`` casts it at each use (bitlinear.py:343-345).
 DENSE_LEAVES = {("embed", "table"), ("lm_head", "w")}
 
 
@@ -470,18 +490,32 @@ def rope_for(cfg, positions) -> dict:
     return tables
 
 
+def embed_inputs(params, inputs, cfg) -> torch.Tensor:
+    """The first residual row ``[B, S, d]`` in ``cfg.dtype``
+    (``transformer.py:498-503``). ``inputs`` is a token tensor ``[B, S]``
+    or JAX's batch dict: ``{"tokens": [B, S]}``, or, for a config with a
+    ``frontend``, ``{"embeddings": [B, S, FRONTEND_DIMS[frontend]]}``,
+    projected by ``params["frontend"]`` after a cast to ``cfg.dtype``.
+    Tokens go through the embedding table, on every config."""
+    if not isinstance(inputs, dict):
+        inputs = {"tokens": inputs}
+    if cfg.frontend != "none" and "embeddings" in inputs:
+        return bitlinear.dense_apply(params["frontend"], inputs["embeddings"].to(cfg.dtype))
+    return L.embed(params["embed"], inputs["tokens"], dtype=cfg.dtype)
+
+
 def _head(params, x, cfg):
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     return L.lm_head(params["lm_head"], x, softcap=cfg.final_logit_softcap)
 
 
-def forward(params, tokens: torch.Tensor, cfg, *, kernels, collect_cache: bool = False,
-            fused=None):
-    """Full-sequence pass over ``tokens [B, S]``. Returns (logits [B, S, V]
-    f32, caches | None) with caches of :func:`cache_specs` layout at length
-    S. ``fused=False`` runs dense blocks through the unfused branch."""
-    x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
-    b, s = tokens.shape
+def forward(params, inputs, cfg, *, kernels, collect_cache: bool = False, fused=None):
+    """Full-sequence pass over ``inputs``: tokens ``[B, S]`` or a batch
+    dict (:func:`embed_inputs`). Returns (logits [B, S, V] f32, caches |
+    None) with caches of :func:`cache_specs` layout at length S.
+    ``fused=False`` runs dense blocks through the unfused branch."""
+    x = embed_inputs(params, inputs, cfg)
+    b, s = x.shape[:2]
     caches = cache_zeros(cfg, b, s, x.device) if collect_cache else None
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     rope = rope_for(cfg, positions)
@@ -534,15 +568,16 @@ def _refuse_paged(cfg):
             f"table for the {_MIXER_STATE[mixer][1]} mixer (transformer.py:389-392)")
 
 
-def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *, kernels,
+def decode_step(params, inputs, caches, pos: torch.Tensor, cfg, *, kernels,
                 page_table=None, fused=None):
-    """One autoregressive step: ``tokens [B, 1]`` at per-slot positions
+    """One autoregressive step: ``inputs`` tokens ``[B, 1]`` (or a batch
+    dict of one row, :func:`embed_inputs`) at per-slot positions
     ``pos [B]`` int32. Writes each layer's new K/V (MLA: latent row) into
     ``caches`` in place and returns (logits [B, V], caches). ``page_table
     [B, NB]`` int32 makes ``caches`` page pools (:func:`cache_specs` with
     ``kv_pages``, the dense and moe families). The ssm family advances its state
     leaves in place and reads no position."""
-    x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
+    x = embed_inputs(params, inputs, cfg)
     page_rows = None
     if page_table is not None:  # the frontier rows' pool addresses, shared by all layers
         _refuse_paged(cfg)
@@ -555,14 +590,13 @@ def decode_step(params, tokens: torch.Tensor, caches, pos: torch.Tensor, cfg, *,
     return _head(params, x, cfg)[:, 0], caches
 
 
-def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
-                       kernels, last_row=None, prefix_limit: int = 0, page_table=None,
-                       fused=None):
-    """One chunked-prefill step (``transformer.py:608-666``): ``tokens
-    [B, C]`` at positions ``offset[b] + [0, C)`` (``offset [B]`` int32, any
-    offset with ``offset + C`` within the cache) attend to each slot's cache
-    prefix and to themselves, and
-    every layer appends the chunk's K/V into ``caches`` in place. Offsets
+def prefill_chunk_step(params, inputs, caches, offset: torch.Tensor, cfg, *, kernels,
+                       last_row=None, prefix_limit: int = 0, page_table=None, fused=None):
+    """One chunked-prefill step (``transformer.py:608-666``): ``inputs``
+    tokens ``[B, C]`` (or a batch dict, :func:`embed_inputs`) at positions
+    ``offset[b] + [0, C)`` (``offset [B]`` int32, any offset with ``offset
+    + C`` within the cache) attend to each slot's cache prefix and to
+    themselves, and every layer appends the chunk's K/V into ``caches`` in place. Offsets
     at or past ``prefix_limit > 0`` are write-only. Returns (logits, caches):
     logits [B, C, V], or with ``last_row [B]`` only each slot's row, gathered
     before the final norm and the LM head, [B, V]. ``page_table`` as in
@@ -578,8 +612,8 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
         raise NotImplementedError(
             f"prefill_chunk_step needs attention mixers; the {cfg.family!r} family is "
             "prefilled whole (ServingEngine prefill='legacy')")
-    x = L.embed(params["embed"], tokens, dtype=cfg.dtype)
-    b, c = tokens.shape
+    x = embed_inputs(params, inputs, cfg)
+    b, c = x.shape[:2]
     positions = offset.to(torch.int32)[:, None] + torch.arange(
         c, dtype=torch.int32, device=x.device)[None, :]
     rope = rope_for(cfg, positions)
@@ -593,8 +627,8 @@ def prefill_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tenso
     return _head(params, x, cfg), caches
 
 
-def verify_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor, cfg, *,
-                      kernels, prefix_limit: int = 0, page_table=None, fused=None):
+def verify_chunk_step(params, inputs, caches, offset: torch.Tensor, cfg, *, kernels,
+                      prefix_limit: int = 0, page_table=None, fused=None):
     """The speculative verify step (``transformer.py:669-703``): the chunk
     ``tokens [B, C]`` = [current token, C - 1 drafts] at each slot's decode
     frontier ``offset [B]`` (anywhere, not a multiple of C), through
@@ -605,7 +639,7 @@ def verify_chunk_step(params, tokens: torch.Tensor, caches, offset: torch.Tensor
     rewinding the frontier (``core.ternary.mask_past_frontier``). The
     port's prefill-append kernel runs here at any frontier, where JAX pins
     its XLA form."""
-    return prefill_chunk_step(params, tokens, caches, offset, cfg, kernels=kernels,
+    return prefill_chunk_step(params, inputs, caches, offset, cfg, kernels=kernels,
                               prefix_limit=prefix_limit, page_table=page_table, fused=fused)
 
 

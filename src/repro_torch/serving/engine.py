@@ -1,6 +1,9 @@
 """Greedy generation and the chunked continuous-batching engine on the
 packed model (``repro/serving/engine.py``).
 
+``make_prefill_step`` and ``make_serve_step`` (``engine.py:96-123``) are
+the pure steps: one exact-length ``forward`` and one ``decode_step``, on
+tokens or, for a config with a ``frontend``, on precomputed embeddings.
 ``generate`` runs a length-bucketed one-shot prefill, then one decode step
 per token. Tokens, positions and done flags stay on the device for the whole
 loop; the token ids cross to the host once, at the end.
@@ -206,6 +209,58 @@ def prefill_bucketed(params, cfg, prompts: torch.Tensor, *, kernels=KERNELS):
     padded = C.pad_to(prompts, 1, bucket)
     logits, caches = Tr.forward(params, padded, cfg, kernels=kernels, collect_cache=True)
     return logits[:, s - 1], caches
+
+
+def _batch_on(batch, device) -> dict:
+    """A token tensor or batch dict (``transformer.embed_inputs``) as a
+    dict of tensors on ``device``: tokens int64, embeddings as they are."""
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v, device=device)
+        out[k] = v.to(torch.int64) if k == "tokens" else v
+    return out
+
+
+def make_prefill_step(cfg, *, kernels=KERNELS, device=None):
+    """``prefill_step(params, batch) -> (logits at the last row [B, V],
+    caches of length S)`` (``engine.py:96-105``): one ``forward`` over the
+    whole ``batch`` at its exact length, no bucket. ``batch`` is a token
+    tensor ``[B, S]`` or JAX's batch dict, ``{"tokens"}`` or, for a config
+    with a ``frontend``, ``{"embeddings": [B, S, Dfe]}``; it is moved to
+    the device (CUDA unless ``device="cpu"``), where ``params`` must live.
+    The entry point through which precomputed embeddings are served;
+    ``generate`` and the ``ServingEngine`` take tokens only, as JAX's do."""
+    dev = C.resolve_device(device)
+
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            logits, caches = Tr.forward(params, _batch_on(batch, dev), cfg, kernels=kernels,
+                                        collect_cache=True)
+        return logits[:, -1], caches
+
+    return prefill_step
+
+
+def make_serve_step(cfg, *, kernels=KERNELS, device=None):
+    """``serve_step(params, batch, caches, pos, page_table=None) -> (logits
+    [B, V], caches)`` (``engine.py:108-123``): one ``decode_step`` of a
+    one-row ``batch`` (tokens ``[B, 1]`` or a batch dict, as
+    :func:`make_prefill_step` takes) at ``pos``, an int or ``[B]``, writing
+    each layer's new row into ``caches`` in place (grow them first,
+    :func:`grow_caches`). Device as :func:`make_prefill_step`."""
+    dev = C.resolve_device(device)
+
+    def serve_step(params, batch, caches, pos, page_table=None):
+        batch = _batch_on(batch, dev)
+        b = next(iter(batch.values())).shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(b).contiguous()
+        with torch.inference_mode():
+            return Tr.decode_step(params, batch, caches, pos, cfg, kernels=kernels,
+                                  page_table=page_table)
+
+    return serve_step
 
 
 @dataclasses.dataclass

@@ -8,8 +8,9 @@ on the card's machine:
 
 Bars as in test_torch_kernels.py: ternary projections exact; norm-quant and
 SwiGLU codes within 1 and scales within one ulp of the activation dtype;
-decode attention (bf16 and int8 caches) and prefill-append within 1e-5
-(f32) or 4e-3 (bf16, atol = rtol: two bf16 ulps at |out| <= 0.5; the
+decode attention (bf16 and int8 caches; query groups of 1 to 16, the
+groups of 6 and 16 internlm2-20b's and llama3-405b's) and prefill-append
+(groups of 1 to 6) within 1e-5 (f32) or 4e-3 (bf16, atol = rtol: two bf16 ulps at |out| <= 0.5; the
 prefill inputs' V is scaled so that |out| stays near that). The rows the
 prefill-append kernel writes into the cache equal the plain version's
 exactly (bf16 copies, or int8 codes and f32 scales), and every other cache
@@ -53,9 +54,10 @@ atol = rtol) of its plain version at the shapes of ``chip_smoke.py`` (the
 4096-token one in f32 too), the smoke config's D = 16, with GQA and a
 ragged S; in bf16 (the tensor-core kernel) also at every D it takes, with
 S = 1, 63, 65 and 129 around its 64-row tiles, and with GQA (H = 8, HK =
-2). In bf16 each element is within 2e-2 of (|want| + the RMS of its
-output row): P is rounded to bf16 against the kernel's running maximum and
-the plain version's row maximum, which moves an output by a small share of
+2), in groups of 16 (llama3-405b's) and at musicgen-medium's D = 64. In
+bf16 each element is within 2e-2 of (|want| + the RMS of its output
+row): P is rounded to bf16 against the kernel's running maximum and the
+plain version's row maximum, which moves an output by a small share of
 its row's scale, and the output's own rounding can differ by one bf16 ulp
 (2^-7 of |want| at most). The dense schedule gives the causal-skip
 schedule's output bit for bit; with v of another head dim and an
@@ -315,7 +317,8 @@ def test_ternary_graph_replay(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("g,window,softcap", [(1, 0, 0.0), (2, 100, 30.0), (4, 0, 5.0)])
+@pytest.mark.parametrize("g,window,softcap", [(1, 0, 0.0), (2, 100, 30.0), (4, 0, 5.0),
+                                              (6, 0, 0.0), (16, 0, 0.0)])
 def test_decode_attention(cuda, dtype, g, window, softcap):
     rng = np.random.default_rng(9 + g)
     b, hk, m, d = 4, 8, 300, 96
@@ -349,7 +352,8 @@ def test_decode_attention_int8(cuda, dtype, g, window, softcap):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
 @pytest.mark.parametrize("c,d,g,window,softcap", [(256, 96, 1, 0, 0.0), (64, 96, 2, 100, 30.0),
-                                                  (128, 16, 1, 0, 5.0), (64, 32, 4, 0, 0.0)])
+                                                  (128, 16, 1, 0, 5.0), (64, 32, 4, 0, 0.0),
+                                                  (64, 128, 6, 0, 0.0), (96, 64, 6, 0, 0.0)])
 def test_prefill_append(cuda, dtype, quant, c, d, g, window, softcap):
     """Offsets 0, C and 4C with one write-only slot past prefix_limit."""
     rng = np.random.default_rng(c + d + g)
@@ -1069,6 +1073,10 @@ FLASH_CASES = [
 FLASH_CASES += [(2, 4, 4, s, d, "bfloat16") for s in (1, 63, 65, 129)
                 for d in (16, 32, 64, 96, 128)]
 FLASH_CASES += [(1, 8, 2, 200, 64, "bfloat16"), (2, 8, 2, 129, 96, "bfloat16")]
+# groups of 16 (llama3-405b: 128 heads on 8) and musicgen-medium's D = 64
+# without GQA, narrowed
+FLASH_CASES += [(1, 16, 1, 200, 128, "bfloat16"), (1, 16, 1, 129, 128, "float32"),
+                (2, 6, 6, 100, 64, "bfloat16")]
 
 
 @pytest.mark.parametrize("b,h,hk,s,d,dtype", FLASH_CASES)

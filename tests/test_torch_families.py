@@ -1,7 +1,9 @@
 """PyTorch port, the MoE families: DeepSeek-V2-Lite (``mla_moe``: MLA, a
 dense first layer, routed and shared experts) and Arctic (``moe``:
-attention, routed experts beside a dense residual MLP) at their smoke
-configs, through the JAX package and the port on the same packed weights
+attention, routed experts beside a dense residual MLP), and the dense
+configs granite-8b, internlm2-20b, llama3-405b, musicgen-medium and
+internvl2-26b (config fields, plans, spec trees and ``generate``) at their
+smoke configs, through the JAX package and the port on the same packed weights
 (``interop.from_jax_params``), on the same numpy inputs, f32 unless stated.
 
 Bars:
@@ -16,6 +18,8 @@ Bars:
   a router sum) can cross a rounding boundary of ``quantize_act`` and move
   one int8 code of a projection's input, which later layers carry (0.9 %
   of max |logit| at these inputs);
+* greedy ``generate`` streams of the five dense configs from tokens:
+  equal to JAX's ``mode="packed"`` ones token for token;
 * greedy streams of ``generate`` and of the legacy ``ServingEngine``
   (ragged prompts, more requests than slots, ``max_new=1``; an EOS on
   Arctic; decode ticks that drop choices, with idle slots ahead of live
@@ -56,6 +60,11 @@ from repro_torch.serving import engine as TE
 from repro_torch.serving import resilience as TR
 
 ARCHS = ("deepseek-v2-lite-16b", "arctic-480b")
+# the dense configs of the last slice: GQA groups of 6 and 16, RoPE theta
+# 500000, and the two with a frontend (their embeddings path is
+# test_torch_frontend.py's; here they run from tokens)
+DENSE_ARCHS = ("granite-8b", "internlm2-20b", "llama3-405b", "musicgen-medium",
+               "internvl2-26b")
 LOGIT_TOL = 2e-2  # of max |logit|
 STEPS = 10
 MAX_LEN = 64
@@ -118,7 +127,7 @@ def _shapes(tree):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("jamba-v0.1-52b",))
+@pytest.mark.parametrize("arch", ARCHS + ("jamba-v0.1-52b",) + DENSE_ARCHS)
 def test_config_fields_match_jax(arch):
     for smoke in (False, True):
         tc, jc = t_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
@@ -127,7 +136,8 @@ def test_config_fields_match_jax(arch):
                 assert getattr(tc, f.name) == getattr(jc, f.name), f.name
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("tellme-0.7b", "rwkv6-3b", "jamba-v0.1-52b"))
+@pytest.mark.parametrize("arch", ARCHS + ("tellme-0.7b", "rwkv6-3b", "jamba-v0.1-52b")
+                         + DENSE_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_block_plan_and_specs_match_jax(arch, smoke):
     """The plan's kinds and counts, every leaf's path and shape, and the
@@ -233,6 +243,17 @@ def test_forward_and_decode_step(models, jax_prefills, arch):
 def test_generate_streams_equal_jax(models, arch):
     jcfg, tcfg, jp, tp = models[arch]
     toks = _tokens(3, 13, 3)
+    want = jE.generate(jp, jcfg, jnp.asarray(toks), steps=STEPS, mode="packed")
+    got = TE.generate(tp, tcfg, toks, steps=STEPS, kernels=PLAIN, device="cpu")
+    assert np.array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_generate_streams_equal_jax(arch):
+    """Greedy ``generate`` from tokens on each smoke config, exact in f32;
+    musicgen-medium and internvl2-26b embed the tokens through the table."""
+    jcfg, tcfg, jp, tp, _ = _setup(arch)
+    toks = _tokens(2, 11, 6)
     want = jE.generate(jp, jcfg, jnp.asarray(toks), steps=STEPS, mode="packed")
     got = TE.generate(tp, tcfg, toks, steps=STEPS, kernels=PLAIN, device="cpu")
     assert np.array_equal(got.tokens.numpy(), np.asarray(want.tokens))
